@@ -1,0 +1,45 @@
+"""The port's public string options and its one engine-knob record.
+
+Every public entry point funnels its option strings through ``check_choice``
+so a bad value fails at the boundary with one message. The backend is not
+an option here: the device of the tensors decides it (a CUDA tensor goes
+through the hand-written kernel, a CPU tensor through the plain PyTorch
+version).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+# pull and auto arrive with the direction-optimizing slice
+DIRECTIONS = ("push",)
+
+# the BFS engines accept exactly the paper's four semirings
+BFS_SEMIRINGS = ("tropical", "real", "boolean", "selmax")
+
+
+def check_choice(name: str, value, allowed: Sequence[str], *,
+                 hint: str = ""):
+    """Validate that ``value`` is one of ``allowed``; raise ValueError if not.
+
+    Returns the value so call sites can validate inline.
+    """
+    if value not in allowed:
+        opts = ", ".join(repr(a) for a in allowed)
+        msg = f"unknown {name} {value!r}; expected one of: {opts}"
+        if hint:
+            msg += f" ({hint})"
+        raise ValueError(msg)
+    return value
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """The engine knobs as one validated, hashable record.
+
+    direction: "push" (top-down SpMV/SpMM over the frontier's tiles)
+    """
+    direction: str = "push"
+
+    def __post_init__(self):
+        check_choice("direction", self.direction, DIRECTIONS)

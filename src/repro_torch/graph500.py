@@ -1,0 +1,167 @@
+"""Graph500 benchmark harness: 64-root BFS with validation and TEPS.
+
+The paper's evaluation protocol (§IV) is the Graph500 one: build a Kronecker
+graph, sample 64 search keys among non-isolated vertices, run one BFS per
+key, validate every BFS tree, and report traversed edges per second (TEPS)
+with the harmonic mean as the headline number. The keys run in batches
+through ``multi_source_bfs``: one SpMM per iteration advances a whole
+batch.
+
+    from repro_torch.graph500 import run_graph500
+    rep = run_graph500(scale=20, edge_factor=16, n_roots=64, batch_size=64)
+    print(rep.summary())
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .core.bfs_traditional import bfs_traditional
+from .core.formats import CSRGraph, SlimSellTiled, build_slimsell, resolve_device
+from .core.multi_bfs import multi_source_bfs
+from .core.options import EngineConfig
+from .graphs.generators import kronecker
+
+
+def sample_roots(csr: CSRGraph, n_roots: int = 64, *, seed: int = 2) -> np.ndarray:
+    """Graph500 search keys: sampled without replacement from deg > 0 vertices."""
+    candidates = np.nonzero(csr.deg > 0)[0]
+    if candidates.size == 0:
+        raise ValueError("graph has no edges; nothing to search")
+    rng = np.random.default_rng(seed)
+    k = min(int(n_roots), candidates.size)
+    return rng.choice(candidates, k, replace=False).astype(np.int32)
+
+
+def _require(ok, msg: str) -> None:
+    # an explicit raise, not assert: the check must survive python -O
+    if not ok:
+        raise AssertionError(msg)
+
+
+def validate_bfs_tree(csr: CSRGraph, root: int, d: np.ndarray,
+                      parents: Optional[np.ndarray] = None, *,
+                      d_ref: Optional[np.ndarray] = None) -> None:
+    """Graph500 §5.2 validation; raises AssertionError on the first violation."""
+    root = int(root)
+    _require(d[root] == 0, f"root {root} has distance {d[root]}")
+    if d_ref is None:
+        d_ref, _ = bfs_traditional(csr, root)
+    _require(np.array_equal(d, d_ref),
+             f"distances differ from reference oracle at root {root}")
+    if parents is None:
+        return
+    _require(parents[root] == root, "root must be its own parent")
+    _require((parents[d < 0] == -1).all(),
+             "unreachable vertices must have no parent")
+    reach = d > 0
+    pv = parents[reach]
+    _require((pv >= 0).all(), "reached vertices must have a parent")
+    _require((d[pv] == d[reach] - 1).all(),
+             "tree levels must differ by exactly 1")
+    # every tree edge must exist in the graph (spot-check bounded for speed)
+    for v in np.nonzero(reach)[0][:200]:
+        _require(parents[v] in csr.neighbors(v),
+                 f"tree edge ({parents[v]}, {v}) not in graph")
+
+
+@dataclasses.dataclass
+class Graph500Report:
+    scale: int
+    edge_factor: int
+    n: int
+    m: int
+    semiring: str
+    device: str
+    direction: str
+    batch_size: int
+    roots: np.ndarray
+    teps: np.ndarray           # per-root TEPS (batch time amortized)
+    batch_seconds: np.ndarray  # wall time per batch
+    validated: int
+
+    @property
+    def harmonic_mean_teps(self) -> float:
+        return float(1.0 / np.mean(1.0 / self.teps))
+
+    def summary(self) -> str:
+        return (f"graph500 scale={self.scale} ef={self.edge_factor} "
+                f"n={self.n} m={self.m} semiring={self.semiring} "
+                f"device={self.device} direction={self.direction} "
+                f"batch={self.batch_size} "
+                f"roots={len(self.roots)} validated={self.validated} "
+                f"hmean_TEPS={self.harmonic_mean_teps:.3e} "
+                f"max_TEPS={self.teps.max():.3e}")
+
+
+def run_graph500(*, scale: int = 10, edge_factor: int = 16, n_roots: int = 64,
+                 batch_size: int = 16, semiring: str = "tropical",
+                 C: int = 8, L: int = 128,
+                 seed: int = 1, validate: bool = True,
+                 need_parents: bool = True,
+                 csr: Optional[CSRGraph] = None,
+                 tiled: Optional[SlimSellTiled] = None,
+                 config: Optional[EngineConfig] = None,
+                 device=None) -> Graph500Report:
+    """Build (or accept) the graph, run batched BFS from the sampled keys,
+    validate, score. ``device`` None means the card (raises when there is
+    none); a given ``tiled`` may be the host layout or one on that device.
+    A given ``csr`` must have the 2**scale vertices the report names, and a
+    given ``tiled`` must be its layout.
+
+    TEPS accounting follows the spec: the edges counted for a root are the
+    undirected edges with at least one endpoint reached from it; the time
+    charged to a root is its batch's wall time divided by the batch width
+    (the whole batch advances in the same kernel sweeps).
+    """
+    if batch_size <= 0:
+        raise ValueError(f"batch_size must be positive, got {batch_size}")
+    config = config if config is not None else EngineConfig()
+    dev = resolve_device(device)
+    if csr is None:
+        csr = kronecker(scale, edge_factor, seed=seed)
+    elif csr.n != 1 << scale:
+        raise ValueError(f"csr has n={csr.n}, not the 2**{scale} vertices of "
+                         f"scale {scale}")
+    if tiled is None:
+        tiled = build_slimsell(csr, C=C, L=L, sigma=csr.n)
+    elif tiled.n != csr.n:
+        raise ValueError(f"tiled has n={tiled.n}, csr has n={csr.n}")
+    if tiled.device is None:
+        tiled = tiled.to_torch(dev)
+    roots = sample_roots(csr, n_roots)
+
+    teps = np.empty(roots.size, np.float64)
+    batch_seconds = []
+    validated = 0
+    for start in range(0, roots.size, batch_size):
+        batch = roots[start:start + batch_size]
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        # results come back as host arrays, so the window ends after the
+        # device work of the batch
+        res = multi_source_bfs(tiled, batch, semiring,
+                               need_parents=need_parents, config=config,
+                               device=dev)
+        dt = time.perf_counter() - t0
+        batch_seconds.append(dt)
+        per_root_dt = dt / batch.size
+        for b, r in enumerate(batch):
+            d = res.distances[b]
+            # deg sums directed half-edges over reached vertices -> /2 per spec
+            reached_edges = max(1, int(csr.deg[d >= 0].sum()) // 2)
+            teps[start + b] = reached_edges / per_root_dt
+            if validate:
+                validate_bfs_tree(csr, int(r), d,
+                                  res.parents[b] if need_parents else None)
+                validated += 1
+    return Graph500Report(
+        scale=scale, edge_factor=edge_factor, n=csr.n, m=csr.m_undirected,
+        semiring=semiring, device=str(dev), direction=config.direction,
+        batch_size=batch_size, roots=roots, teps=teps,
+        batch_seconds=np.asarray(batch_seconds), validated=validated)

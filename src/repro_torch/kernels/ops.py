@@ -1,0 +1,143 @@
+"""Wrappers around the hand-written SlimSell kernels.
+
+Each wrapper checks its inputs, allocates the output, and then either runs
+the plain PyTorch version (a CPU tensor) or launches its CUDA kernel on the
+current stream (a CUDA tensor). On CUDA there is no fallback: a kernel that
+does not build or launch raises. ``Kernel.launches`` counts the launches,
+so a run can show that its path went through the kernel.
+
+The kernels take the SlimWork mask as the bool ``tile_mask`` itself and
+write straight into vertex space through ``row_vertex``, so neither the
+TPU wrapper's tile-id compaction nor its chunk-row scatter epilogue is
+needed here. They read a chunk's slots only up to its length ``cl``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ..core.semiring import Semiring
+from ..core.spmv import spmm_plain, spmv_plain
+from . import build
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+class Kernel:
+    """One kernel's C entry point, loaded at its first launch, and the
+    number of launches since the last ``reset_launches``."""
+
+    def __init__(self, name: str, argtypes: list):
+        self.name = name
+        self.launches = 0
+        self._argtypes = argtypes
+        self._fn = None
+        self._error = None
+
+    def _load(self):
+        build.build([self.name])
+        lib = ctypes.CDLL(str(build.library_path(self.name)))
+        fn = getattr(lib, self.name)
+        fn.argtypes = self._argtypes
+        fn.restype = ctypes.c_int
+        err = getattr(lib, f"{self.name}_error")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        self._fn, self._error = fn, err
+
+    def launch(self, *args) -> None:
+        if self._fn is None:
+            self._load()
+        code = self._fn(*args)
+        if code != 0:
+            raise RuntimeError(f"{self.name} launch failed: CUDA error {code} "
+                               f"({self._error(code).decode()})")
+        self.launches += 1
+
+
+SPMV = Kernel("slimsell_spmv", [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
+SPMM = Kernel("slimsell_spmm",
+              [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+KERNELS = (SPMV, SPMM)
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.name: k.launches for k in KERNELS}
+
+
+def _check(sr: Semiring, tiled, x: torch.Tensor, ndim: int,
+           tile_mask: Optional[torch.Tensor]) -> None:
+    if x.ndim != ndim or x.shape[0] != tiled.n:
+        shape = f"[{tiled.n}]" if ndim == 1 else f"[{tiled.n}, B]"
+        raise ValueError(f"expected a frontier of shape {shape}, "
+                         f"got {tuple(x.shape)}")
+    if x.dtype != sr.dtype:
+        raise TypeError(f"{sr.name} sweeps {sr.dtype}, got {x.dtype}")
+    if x.device != tiled.cols.device:
+        raise ValueError(f"frontier on {x.device}, layout on {tiled.cols.device}")
+    if tile_mask is not None and (tile_mask.dtype != torch.bool
+                                  or tuple(tile_mask.shape) != (tiled.n_tiles,)
+                                  or tile_mask.device != x.device):
+        raise ValueError(f"tile_mask must be bool[{tiled.n_tiles}] on "
+                         f"{x.device}, got {tile_mask.dtype}"
+                         f"{tuple(tile_mask.shape)} on {tile_mask.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no SlimSell sweep for device {x.device}")
+
+
+def _cuda_operands(tiled, x: torch.Tensor, tile_mask: Optional[torch.Tensor]):
+    for name in ("cols", "tile_ptr", "row_vertex", "cl"):
+        t = getattr(tiled, name)
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"layout field {name} must be contiguous int32")
+    if not x.is_contiguous() or (tile_mask is not None
+                                 and not tile_mask.is_contiguous()):
+        raise ValueError("the frontier and tile_mask must be contiguous")
+    if tiled.C > 32:
+        raise ValueError(f"the kernels take chunks of at most 32 rows, got C={tiled.C}")
+    mask = 0 if tile_mask is None else tile_mask.data_ptr()
+    return (tiled.cols.data_ptr(), tiled.tile_ptr.data_ptr(),
+            tiled.row_vertex.data_ptr(), tiled.cl.data_ptr(), mask)
+
+
+def spmv(sr: Semiring, tiled, x: torch.Tensor, *,
+         tile_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """SlimSell SpMV: x [n] -> y [n] in vertex space."""
+    _check(sr, tiled, x, 1, tile_mask)
+    if x.device.type == "cpu":
+        return spmv_plain(sr, tiled, x, tile_mask)
+    ptrs = _cuda_operands(tiled, x, tile_mask)
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        SPMV.launch(sr.code, *ptrs, x.data_ptr(), y.data_ptr(),
+                    tiled.n_chunks, tiled.C, tiled.L, stream)
+    return y
+
+
+def spmm(sr: Semiring, tiled, X: torch.Tensor, *,
+         tile_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """SlimSell SpMM: X [n, B] -> Y [n, B] in vertex space."""
+    _check(sr, tiled, X, 2, tile_mask)
+    if X.device.type == "cpu":
+        return spmm_plain(sr, tiled, X, tile_mask)
+    ptrs = _cuda_operands(tiled, X, tile_mask)
+    if tiled.C * tiled.L * 4 > 48 * 1024:
+        raise ValueError(f"a C x L = {tiled.C} x {tiled.L} tile does not fit "
+                         "the SpMM kernel's 48 KB of shared memory")
+    B = X.shape[1]
+    # batch-column tile of one block: whole warps, at most 1024 threads
+    lanes = min(-(-B // 32) * 32, 128, (1024 // tiled.C) // 32 * 32)
+    Y = torch.empty_like(X)
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        SPMM.launch(sr.code, *ptrs, X.data_ptr(), Y.data_ptr(),
+                    tiled.n_chunks, tiled.C, tiled.L, B, lanes, stream)
+    return Y

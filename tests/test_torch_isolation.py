@@ -1,0 +1,77 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+without a card its entry points raise instead of running on the CPU."""
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import convert, graph500, profile_graph500
+from repro_torch.core import bfs as pbfs
+from repro_torch.core import formats as pf
+from repro_torch.core import multi_bfs as pmulti
+from repro_torch.graphs.generators import kronecker
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
+    [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    assert len(PORT_FILES) > 10
+    bad = {str(p.relative_to(REPO)): sorted(set(_imported_roots(p)) & {"jax", "repro"})
+           for p in PORT_FILES}
+    assert not {k: v for k, v in bad.items() if v}
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    host = pf.build_slimsell(kronecker(6, 4, seed=0), C=8, L=16)
+    return host
+
+
+def test_to_torch_without_card_raises(no_card):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        no_card.to_torch()
+    assert no_card.to_torch("cpu").device == torch.device("cpu")
+
+
+def test_entry_points_without_card_raise(no_card, monkeypatch):
+    ran = []
+    monkeypatch.setattr(pbfs.eng, "run_fused", lambda *a, **k: ran.append(1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pbfs.bfs(no_card, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        repro_torch.multi_source_bfs(no_card, [0, 1])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        graph500.run_graph500(scale=5)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profile_graph500.main(["--scale", "5", "--batch", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.state_from_arrays({"d": np.zeros(3, np.int32)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.tiled_from_arrays(
+            {k: getattr(no_card, k) for k in convert.LAYOUT_ARRAYS},
+            {k: getattr(no_card, k) for k in convert.LAYOUT_META})
+    assert not ran
+
+
+def test_cpu_layout_is_not_moved_to_another_device(no_card):
+    cpu = no_card.to_torch("cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pmulti.multi_source_bfs(cpu, [0])
+    with pytest.raises(ValueError, match="layout is on cpu"):
+        pbfs.bfs(cpu, 0, device="meta")

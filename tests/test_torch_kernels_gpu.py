@@ -1,0 +1,73 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``gpu``: each test decides in the ``cuda`` fixture whether a card is
+present and skips where there is none. On a machine with a card:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import semiring as psr
+from repro_torch.core.formats import build_slimsell
+from repro_torch.core.spmv import spmm_plain, spmv_plain
+from repro_torch.graphs.generators import kronecker
+from repro_torch.kernels import ops
+
+pytestmark = pytest.mark.gpu
+
+SEMIRINGS = ["tropical", "real", "boolean", "selmax"]
+MASKS = ["none_given", "all_kept", "none_kept", "random"]
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    return dev, build_slimsell(kronecker(12, 16, seed=1), C=8, L=128).to_torch(dev)
+
+
+def _mask(kind, tiled, rng, dev):
+    T = tiled.n_tiles
+    if kind == "none_given":
+        return None
+    if kind in ("all_kept", "none_kept"):
+        return torch.full((T,), kind == "all_kept", dtype=torch.bool, device=dev)
+    keep_chunk = torch.from_numpy(rng.random(tiled.n_chunks) < 0.6).to(dev)
+    return torch.from_numpy(rng.random(T) < 0.5).to(dev) \
+        & keep_chunk[tiled.row_block.long()]
+
+
+def _operand(sr, shape, rng, dev):
+    if sr.name == "boolean":
+        x = rng.integers(0, 2, size=shape).astype(np.int32)
+    else:
+        x = rng.integers(0, 4, size=shape).astype(np.float32)
+        if sr.name == "tropical":
+            x[rng.random(shape) < 0.5] = np.inf
+        if sr.name == "selmax":
+            x *= rng.integers(1, 1000, size=shape)
+    return torch.from_numpy(x).to(dev)
+
+
+@pytest.mark.parametrize("width", [None, 1, 5, 64])
+@pytest.mark.parametrize("mask_kind", MASKS)
+@pytest.mark.parametrize("name", SEMIRINGS)
+def test_kernel_equals_plain(cuda, name, mask_kind, width):
+    dev, tiled = cuda
+    rng = np.random.default_rng([SEMIRINGS.index(name), MASKS.index(mask_kind),
+                                 width or 0])
+    sr = psr.get(name)
+    mask = _mask(mask_kind, tiled, rng, dev)
+    x = _operand(sr, (tiled.n,) if width is None else (tiled.n, width), rng, dev)
+    kernel = ops.SPMV if width is None else ops.SPMM
+    before = kernel.launches
+    if width is None:
+        got, want = ops.spmv(sr, tiled, x, tile_mask=mask), spmv_plain(sr, tiled, x, mask)
+    else:
+        got, want = ops.spmm(sr, tiled, x, tile_mask=mask), spmm_plain(sr, tiled, x, mask)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.is_cuda and torch.equal(got, want)
