@@ -7,24 +7,31 @@ Phases, each of which must pass (any failure ends the run with a nonzero
 exit and no result line):
 
 1. the card's name and power limit;
-2. build both CUDA kernels from ``src/repro_torch/kernels/csrc``;
+2. build the four CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. every kernel against its plain PyTorch version on the card, exactly
-   (all values are integers or +-inf): 4 semirings x {SpMV, SpMM B=1/5/64}
-   x 4 tile masks (none given, all kept, none kept, random with whole
-   chunks dropped) on a scale-14 Kronecker graph;
-4. single-source BFS at scale 20 through the SpMV kernel in all four
-   semirings, each tree validated (Graph500 §5.2); before that, the kernel
-   path against the plain path at scale 14 (single- and multi-source);
-5. the Graph500 harness, 64 roots in one batch of 64, through the SpMM
-   kernel on the same scale-20 graph: all 64 trees validated;
-6. at the phase-5 shapes, every kernel against its plain version again
-   (4 semirings x 4 masks, SpMV and SpMM B=64), then each kernel timed
-   with every tile kept, beside its plain version, a library call and
-   its bytes bound.
+   (all values are integers or +-inf), on a scale-14 Kronecker graph:
+   4 semirings x {SpMV, SpMM B=1/5/64} x 4 tile masks (none given, all
+   kept, none kept, random with whole chunks dropped), and 4 semirings x
+   {pull, pull_mm B=1/5/64} x the same masks x not-final bits (random,
+   all, none);
+4. (a) the kernel path against the plain path at scale 14: single- and
+   multi-source BFS in push, pull and auto, and single-source hostloop
+   auto: distances, parents, iterations, work and direction logs equal;
+   (b) single-source BFS at scale 20 in all four semirings, push and
+   auto, and one hostloop auto run, each tree validated (Graph500 §5.2);
+5. the Graph500 harness, 64 roots in one batch of 64, on the same graph:
+   push (all 64 trees validated against the oracle), then auto and pull
+   (the pull batch through the pull_mm kernel): their TEPS, and their
+   distances bit-equal to the push batch's with all 64 trees validated;
+6. at the scale-20 shapes, every kernel against its plain version again:
+   SpMV and SpMM (4 semirings x 4 masks), pull and pull_mm at a real pull
+   state (the BFS state just before an iteration that pulls, 4
+   semirings); then each kernel timed beside its plain version, a
+   library call and its bound.
 
-The launch counts of the main path (phases 4-5 at scale 20) must be
-nonzero for both kernels. The last lines are the kernel table, the card,
-and ``{"ok": true, "device": {...}}``.
+The launch counts of the main path (phases 4b and 5 at scale 20) must be
+nonzero for all four kernels. The last lines are the kernel table, the
+card, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -50,7 +57,12 @@ KERNEL_INFO = {
                       "src/repro/kernels/slimsell_spmv.py:66"),
     "slimsell_spmm": ("src/repro_torch/kernels/csrc/slimsell_spmm.cu",
                       "src/repro/kernels/slimsell_spmm.py:44"),
+    "slimsell_pull": ("src/repro_torch/kernels/csrc/slimsell_pull.cu",
+                      "src/repro/kernels/slimsell_pull.py:53"),
+    "slimsell_pull_mm": ("src/repro_torch/kernels/csrc/slimsell_pull_mm.cu",
+                         "src/repro/kernels/slimsell_pull.py:155"),
 }
+NF_KINDS = ("random", "all", "none")
 
 
 def log(msg: str) -> None:
@@ -77,6 +89,12 @@ def frontier(sr, shape, rng, device) -> torch.Tensor:
     return torch.from_numpy(x).to(device)
 
 
+def not_final(kind, shape, rng, device) -> torch.Tensor:
+    if kind == "random":
+        return torch.from_numpy(rng.random(shape) < 0.6).to(device)
+    return torch.full(shape, kind == "all", dtype=torch.bool, device=device)
+
+
 def masks(tiled, rng, device) -> dict:
     T = tiled.n_tiles
     keep_chunk = torch.from_numpy(rng.random(tiled.n_chunks) < 0.6).to(device)
@@ -95,15 +113,22 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 @contextlib.contextmanager
-def plain_sweeps(engine, spmv_plain, spmm_plain):
+def plain_sweeps(engine, spmv_plain, spmm_plain, pull_plain, pull_mm_plain):
     """Route the engine's sweeps to the plain versions: the reference run."""
-    saved = engine.slimsell_spmv, engine.slimsell_spmm
+    names = ("slimsell_spmv", "slimsell_spmm", "slimsell_pull",
+             "slimsell_pull_mm")
+    saved = [getattr(engine, n) for n in names]
     engine.slimsell_spmv = lambda sr, t, x, *, tile_mask=None: spmv_plain(sr, t, x, tile_mask)
     engine.slimsell_spmm = lambda sr, t, x, *, tile_mask=None: spmm_plain(sr, t, x, tile_mask)
+    engine.slimsell_pull = lambda sr, t, x, *, row_mask, tile_mask=None: \
+        pull_plain(sr, t, x, row_mask, tile_mask)
+    engine.slimsell_pull_mm = lambda sr, t, x, *, row_mask, tile_mask=None: \
+        pull_mm_plain(sr, t, x, row_mask, tile_mask)
     try:
         yield
     finally:
-        engine.slimsell_spmv, engine.slimsell_spmm = saved
+        for n, fn in zip(names, saved):
+            setattr(engine, n, fn)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -119,15 +144,61 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def check_equal(kern, got, want, errs, what):
+    errs[kern] = max(errs[kern], max_abs_err(got, want))
+    if not torch.equal(got, want):
+        raise AssertionError(f"{kern} != plain: {what}")
+
+
+def pull_work(tiled, ranks, nf, mask):
+    """What the first-hit pull needs at this state, worked out from the
+    plain version's hit ranks (int32[n, B], -1 for no hit): a pending
+    (v, b) reads the kept slots of v's chunk through its hit tile, or all
+    of them without a hit, and a row's cols are read once for all its
+    columns. Returns a dict: cols slots read, operations, the slots all
+    kept tiles of the pending rows hold, and for the chunk with the most
+    tiles, the tiles it has and the tiles its block must load."""
+    L, C = tiled.L, tiled.C
+    ptr = tiled.tile_ptr.long()
+    rb = tiled.row_block.long()
+    rank_t = torch.arange(tiled.n_tiles, device=ptr.device) - ptr[rb]
+    slots_t = (tiled.cl.long()[rb] - rank_t * L).clamp(0, L)
+    if mask is not None:
+        slots_t = slots_t * mask
+    cum = torch.cat([slots_t.new_zeros(1), slots_t.cumsum(0)])
+    rv = tiled.row_vertex.long().reshape(-1)
+    chunk_of = torch.empty(tiled.n, dtype=torch.long, device=rv.device)
+    rows = torch.arange(rv.numel(), device=rv.device)
+    chunk_of[rv[rv >= 0]] = (rows // C)[rv >= 0]
+    start = ptr[chunk_of][:, None]                                  # [n, 1]
+    kept = (cum[ptr[1:]] - cum[ptr[:-1]])[chunk_of][:, None]
+    through = cum[start + ranks.long().clamp_min(0) + 1] - cum[start]
+    slots = torch.where(ranks >= 0, through, kept) * nf              # [n, B]
+    # a block loads tiles until none of its rows is pending
+    n_tiles = ptr[1:] - ptr[:-1]
+    need = (torch.where(ranks >= 0, ranks.long() + 1,
+                        n_tiles[chunk_of][:, None]) * nf).amax(dim=1)
+    loaded = torch.zeros_like(n_tiles).scatter_reduce_(0, chunk_of, need, "amax")
+    longest = int(n_tiles.argmax())
+    return {"slots_read": int(slots.amax(dim=1).sum()),
+            "operations": 2 * int(slots.sum()),
+            "slots_kept": int((kept * nf.any(dim=1, keepdim=True)).sum()),
+            "longest_chunk_tiles": int(n_tiles[longest]),
+            "longest_chunk_tiles_loaded": int(loaded[longest])}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
         return 1
+    from repro_torch.core import direction as dm
     from repro_torch.core import engine, semiring
-    from repro_torch.core.bfs import bfs
+    from repro_torch.core.bfs import bfs, bfs_spec
     from repro_torch.core.formats import build_slimsell
-    from repro_torch.core.multi_bfs import multi_source_bfs
-    from repro_torch.core.spmv import spmm_plain, spmv_plain
+    from repro_torch.core.multi_bfs import multi_bfs_spec, multi_source_bfs
+    from repro_torch.core.options import EngineConfig
+    from repro_torch.core.spmv import (pull_first_hits, pull_mm_plain,
+                                       pull_plain, spmm_plain, spmv_plain)
     from repro_torch.graph500 import run_graph500, sample_roots, validate_bfs_tree
     from repro_torch.graphs.generators import kronecker
     from repro_torch.kernels import build, ops
@@ -150,7 +221,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     small_csr = kronecker(SMALL_SCALE, EDGE_FACTOR, seed=1)
     small = build_slimsell(small_csr, C=8, L=128).to_torch(dev)
-    errs = {"slimsell_spmv": 0.0, "slimsell_spmm": 0.0}
+    errs = {k: 0.0 for k in KERNEL_INFO}
     n_cases = 0
     for name in SEMIRINGS:
         sr = semiring.get(name)
@@ -158,48 +229,67 @@ def main() -> int:
             for B in (None, 1, 5, 64):
                 shape = (small.n,) if B is None else (small.n, B)
                 x = frontier(sr, shape, rng, dev)
+                what = f"{name} B={B} mask={mask_name}"
                 if B is None:
-                    got, want, kern = ops.spmv(sr, small, x, tile_mask=mask), \
-                        spmv_plain(sr, small, x, mask), "slimsell_spmv"
+                    check_equal("slimsell_spmv", ops.spmv(sr, small, x, tile_mask=mask),
+                                spmv_plain(sr, small, x, mask), errs, what)
                 else:
-                    got, want, kern = ops.spmm(sr, small, x, tile_mask=mask), \
-                        spmm_plain(sr, small, x, mask), "slimsell_spmm"
-                errs[kern] = max(errs[kern], max_abs_err(got, want))
-                if not torch.equal(got, want):
-                    raise AssertionError(f"{kern} != plain: {name} B={B} "
-                                         f"mask={mask_name}")
+                    check_equal("slimsell_spmm", ops.spmm(sr, small, x, tile_mask=mask),
+                                spmm_plain(sr, small, x, mask), errs, what)
                 n_cases += 1
+                for kind in NF_KINDS:
+                    nf = not_final(kind, shape, rng, dev)
+                    if B is None:
+                        check_equal("slimsell_pull",
+                                    ops.pull(sr, small, x, nf, tile_mask=mask),
+                                    pull_plain(sr, small, x, nf, mask), errs,
+                                    f"{what} nf={kind}")
+                    else:
+                        check_equal("slimsell_pull_mm",
+                                    ops.pull_mm(sr, small, x, nf, tile_mask=mask),
+                                    pull_mm_plain(sr, small, x, nf, mask), errs,
+                                    f"{what} nf={kind}")
+                    n_cases += 1
     torch.cuda.synchronize()
     log(f"[3] kernels == plain on {n_cases} cases (scale {SMALL_SCALE}, "
         f"n={small.n}, tiles={small.n_tiles})")
 
     # ---- 4a: the kernel path against the plain path at scale 14
     small_roots = sample_roots(small_csr, 64)
+    root0 = int(small_roots[0])
+    paths = [("bfs", "push", "fused"), ("bfs", "pull", "fused"),
+             ("bfs", "auto", "fused"), ("bfs", "auto", "hostloop"),
+             ("multi", "push", "fused"), ("multi", "pull", "fused"),
+             ("multi", "auto", "fused")]
+    plain = (spmv_plain, spmm_plain, pull_plain, pull_mm_plain)
     for name in SEMIRINGS:
-        with plain_sweeps(engine, spmv_plain, spmm_plain):
-            before = ops.launch_counts()
-            ref = bfs(small, int(small_roots[0]), name, need_parents=True,
-                      log_work=True, device=dev)
-            ref_m = multi_source_bfs(small, small_roots, name, need_parents=True,
-                                     log_work=True, device=dev)
-            if ops.launch_counts() != before:
-                raise AssertionError("the plain reference run launched a kernel")
-        got = bfs(small, int(small_roots[0]), name, need_parents=True,
-                  log_work=True, device=dev)
-        got_m = multi_source_bfs(small, small_roots, name, need_parents=True,
-                                 log_work=True, device=dev)
-        for a, b in ((ref.distances, got.distances), (ref.parents, got.parents),
-                     (ref.work_log, got.work_log),
-                     (ref_m.distances, got_m.distances),
-                     (ref_m.parents, got_m.parents),
-                     (ref_m.iterations, got_m.iterations),
-                     (ref_m.work_log, got_m.work_log)):
-            if not np.array_equal(a, b):
-                raise AssertionError(f"kernel path != plain path ({name})")
-        if ref.iterations != got.iterations:
-            raise AssertionError(f"iterations differ ({name})")
-    log(f"[4a] kernel path == plain path at scale {SMALL_SCALE} "
-        "(bfs and 64-root multi_source_bfs, 4 semirings)")
+        for kind, direction, mode in paths:
+            cfg = EngineConfig(direction=direction, mode=mode)
+            if kind == "bfs":
+                def run():
+                    return bfs(small, root0, name, need_parents=True,
+                               log_work=True, config=cfg, device=dev)
+                fields = ("distances", "parents", "iterations", "work_log",
+                          "directions")
+            else:
+                def run():
+                    return multi_source_bfs(small, small_roots, name,
+                                            need_parents=True, log_work=True,
+                                            config=cfg, device=dev)
+                fields = ("distances", "parents", "iterations", "work_log",
+                          "pull_cols_log")
+            with plain_sweeps(engine, *plain):
+                before = ops.launch_counts()
+                ref = run()
+                if ops.launch_counts() != before:
+                    raise AssertionError("the plain reference run launched a kernel")
+            got = run()
+            for f in fields:
+                if not np.array_equal(getattr(ref, f), getattr(got, f)):
+                    raise AssertionError(f"kernel path != plain path: {f} of "
+                                         f"{kind} {name} {direction} {mode}")
+    log(f"[4a] kernel path == plain path at scale {SMALL_SCALE} in 4 "
+        f"semirings: {', '.join(' '.join(p) for p in paths)}")
 
     # ---- the main path at scale 20: phases 4b and 5, counted
     t0 = time.perf_counter()
@@ -216,25 +306,62 @@ def main() -> int:
     root = int(sample_roots(csr, 1)[0])
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    for name in SEMIRINGS:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = bfs(tiled, root, name, need_parents=True, log_work=True,
-                  device=dev)
-        dt = time.perf_counter() - t0
-        validate_bfs_tree(csr, root, res.distances, res.parents)
-        log(f"[4b] bfs {name}: root={root} iterations={res.iterations} "
-            f"work_log={res.work_log.tolist()} {dt * 1e3:.1f} ms valid tree")
+    auto_dirs = None
+    for direction, mode in (("push", "fused"), ("auto", "fused"),
+                            ("auto", "hostloop")):
+        cfg = EngineConfig(direction=direction, mode=mode)
+        for name in SEMIRINGS if mode == "fused" else ("tropical",):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = bfs(tiled, root, name, need_parents=True, log_work=True,
+                      config=cfg, device=dev)
+            dt = time.perf_counter() - t0
+            validate_bfs_tree(csr, root, res.distances, res.parents)
+            if (direction, mode, name) == ("auto", "fused", "tropical"):
+                auto_dirs = res.directions
+            log(f"[4b] bfs {name} {direction} {mode}: root={root} "
+                f"iterations={res.iterations} directions="
+                f"{res.directions.tolist()} work_log={res.work_log.tolist()} "
+                f"tiles={int(res.work_log.sum())} {dt * 1e3:.1f} ms valid tree")
+
     rep = run_graph500(scale=SCALE, edge_factor=EDGE_FACTOR, n_roots=64,
                        batch_size=64, semiring="tropical", csr=csr,
                        tiled=tiled, device=dev)
-    launches = ops.launch_counts()
     if rep.validated != 64:
         raise AssertionError(f"graph500 validated {rep.validated} of 64 roots")
+    log(f"[5] {rep.summary()} batch_s={rep.batch_seconds.tolist()}")
+    log(f"[5] push hmean TEPS {rep.harmonic_mean_teps:.6e} on {card}")
+    roots = rep.roots
+    # the push batch's distances: what run_graph500 just validated against
+    # the oracle, and what the other directions must equal
+    push = multi_source_bfs(tiled, roots, "tropical", log_work=True, device=dev)
+    log(f"[5] push work_log={push.work_log[0][:push.iterations[0]].tolist()}")
+    batched = {}
+    for direction in ("auto", "pull"):
+        cfg = EngineConfig(direction=direction)
+        rep_d = run_graph500(scale=SCALE, edge_factor=EDGE_FACTOR, n_roots=64,
+                             batch_size=64, semiring="tropical", csr=csr,
+                             tiled=tiled, config=cfg, validate=False,
+                             device=dev)
+        if not np.array_equal(rep_d.roots, roots):
+            raise AssertionError("the batches sampled other roots")
+        res = multi_source_bfs(tiled, roots, "tropical", need_parents=True,
+                               log_work=True, config=cfg, device=dev)
+        if not np.array_equal(res.distances, push.distances):
+            raise AssertionError(f"{direction} batch distances != push batch")
+        for i, r in enumerate(roots):
+            validate_bfs_tree(csr, int(r), res.distances[i], res.parents[i],
+                              d_ref=push.distances[i])
+        it = int(res.iterations[0])
+        batched[direction] = res
+        log(f"[5] {rep_d.summary()} batch_s={rep_d.batch_seconds.tolist()}")
+        log(f"[5] {direction} hmean TEPS {rep_d.harmonic_mean_teps:.6e} on "
+            f"{card}; distances == push batch, 64 trees valid; "
+            f"pull_cols_log={res.pull_cols_log[0][:it].tolist()} "
+            f"work_log={res.work_log[0][:it].tolist()}")
+    launches = ops.launch_counts()
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel never ran on the main path: {launches}")
-    log(f"[5] {rep.summary()} batch_s={rep.batch_seconds.tolist()}")
-    log(f"[5] hmean TEPS {rep.harmonic_mean_teps:.6e} on {card}")
     log(f"[5] main-path launches {launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -246,19 +373,45 @@ def main() -> int:
     for name in SEMIRINGS:
         sr = semiring.get(name)
         for mask_name, mask in masks(tiled, g, dev).items():
-            for kern, fn, plain, shape in (
+            for kern, fn, plain_fn, shape in (
                     ("slimsell_spmv", ops.spmv, spmv_plain, (tiled.n,)),
                     ("slimsell_spmm", ops.spmm, spmm_plain, (tiled.n, B))):
                 xt = frontier(sr, shape, g, dev)
-                got, want = fn(sr, tiled, xt, tile_mask=mask), plain(sr, tiled, xt, mask)
-                errs[kern] = max(errs[kern], max_abs_err(got, want))
-                if not torch.equal(got, want):
-                    raise AssertionError(f"{kern} != plain at scale {SCALE}: "
-                                         f"{name} mask={mask_name}")
+                check_equal(kern, fn(sr, tiled, xt, tile_mask=mask),
+                            plain_fn(sr, tiled, xt, mask), errs,
+                            f"scale {SCALE}: {name} mask={mask_name}")
                 n_cases += 1
+    # the pull kernels at real pull states: the single-source BFS state just
+    # before the first iteration auto runs as pull, and the batch's state
+    # just before the first iteration most of auto's columns pull
+    k_pull = 1 + int(np.argmax(auto_dirs == dm.PULL))
+    plog = batched["auto"].pull_cols_log[0]
+    k_batch = 1 + int(np.argmax(plog > B // 2)) if (plog > B // 2).any() \
+        else k_pull
+    states = {}
+    for name in SEMIRINGS:
+        sr = semiring.get(name)
+        for kern, spec, arg, k in (
+                ("slimsell_pull", bfs_spec(name), root, k_pull),
+                ("slimsell_pull_mm", multi_bfs_spec(name),
+                 torch.from_numpy(roots), k_batch)):
+            st = engine.run_fused(spec, tiled, arg, max_iters=k - 1,
+                                  direction="pull").state
+            xt, nf = spec.frontier(st, k), spec.not_final(st)
+            mask = engine._pull_tile_mask(tiled, nf.any(dim=-1) if nf.ndim > 1 else nf)
+            fn = ops.pull if kern == "slimsell_pull" else ops.pull_mm
+            plain_fn = pull_plain if kern == "slimsell_pull" else pull_mm_plain
+            check_equal(kern, fn(sr, tiled, xt, nf, tile_mask=mask),
+                        plain_fn(sr, tiled, xt, nf, mask), errs,
+                        f"real state {name} iteration {k}")
+            n_cases += 1
+            if name == "tropical":
+                fbits = spec.source_bits(st, k).float()
+                states[kern] = (xt, nf, mask, fbits, k)
     torch.cuda.synchronize()
     log(f"[6] kernels == plain on {n_cases} cases at scale {SCALE} "
-        f"(SpMV and SpMM B={B})")
+        f"(SpMV, SpMM B={B}; pull at iteration {k_pull}, pull_mm B={B} at "
+        f"iteration {k_batch})")
     tropical, real = semiring.get("tropical"), semiring.get("real")
     full = torch.ones(tiled.n_tiles, dtype=torch.bool, device=dev)
     x = frontier(tropical, (tiled.n,), g, dev)
@@ -275,22 +428,13 @@ def main() -> int:
     # the bytes the function needs: each chunk's cols up to its length cl
     # (the slots past it are padding), tile_ptr, row_vertex, cl, the bool mask
     edges = int((tiled.cols >= 0).sum())
-    cols_needed = tiled.C * int(tiled.cl.sum(dtype=torch.int64))
-    layout_bytes = 4 * (cols_needed + tiled.tile_ptr.numel()
-                        + tiled.row_vertex.numel() + tiled.cl.numel()) \
-        + full.numel()
+    index_bytes = 4 * (tiled.tile_ptr.numel() + tiled.row_vertex.numel()
+                       + tiled.cl.numel()) + full.numel()
+    layout_bytes = 4 * tiled.C * int(tiled.cl.sum(dtype=torch.int64)) \
+        + index_bytes
     table = []
-    for kern, width, xt, xl, fn, plain, lib in (
-            ("slimsell_spmv", 1, x, xr, ops.spmv, spmv_plain,
-             lambda: adj @ xr),
-            ("slimsell_spmm", B, X, Xr, ops.spmm, spmm_plain,
-             lambda: torch.sparse.mm(adj, Xr))):
-        ms = time_ms(lambda: fn(tropical, tiled, xt, tile_mask=full), 20)
-        ms_real = time_ms(lambda: fn(real, tiled, xl, tile_mask=full), 20)
-        plain_ms = time_ms(lambda: plain(tropical, tiled, xt, full), 3)
-        library_ms = time_ms(lib, 20)
-        moved = layout_bytes + 2 * 4 * tiled.n * width   # layout, x in, y out
-        ops_needed = 2 * edges * width                   # edge value + min
+
+    def row(kern, ms, plain_ms, library_ms, moved, ops_needed, **extra):
         bound_ms = 1e3 * max(moved / HBM_BYTES_PER_S, ops_needed / F32_OPS_PER_S)
         source, replaces = KERNEL_INFO[kern]
         table.append({
@@ -300,13 +444,64 @@ def main() -> int:
             "bound_ms": bound_ms,
             "bound_by": "bytes" if moved / HBM_BYTES_PER_S
             >= ops_needed / F32_OPS_PER_S else "operations",
-            "library_ms": library_ms, "semiring": "tropical",
-            "ms_real": ms_real, "library_call": "torch.sparse.mm (real)"
-            if width > 1 else "sparse CSR @ x (real)",
-            "batch": width, "bytes": moved})
+            "library_ms": library_ms, "semiring": "tropical", "bytes": moved,
+            **extra})
+        return bound_ms
+
+    for kern, width, xt, xl, fn, plain_fn, lib in (
+            ("slimsell_spmv", 1, x, xr, ops.spmv, spmv_plain,
+             lambda: adj @ xr),
+            ("slimsell_spmm", B, X, Xr, ops.spmm, spmm_plain,
+             lambda: torch.sparse.mm(adj, Xr))):
+        ms = time_ms(lambda: fn(tropical, tiled, xt, tile_mask=full), 20)
+        ms_real = time_ms(lambda: fn(real, tiled, xl, tile_mask=full), 20)
+        plain_ms = time_ms(lambda: plain_fn(tropical, tiled, xt, full), 3)
+        library_ms = time_ms(lib, 20)
+        moved = layout_bytes + 2 * 4 * tiled.n * width   # layout, x in, y out
+        bound_ms = row(kern, ms, plain_ms, library_ms, moved,
+                       2 * edges * width,                # edge value + min
+                       ms_real=ms_real, batch=width,
+                       library_call="torch.sparse.mm (real)" if width > 1
+                       else "sparse CSR @ x (real)")
         log(f"[6] {kern} B={width}: kernel {ms:.4f} ms (real {ms_real:.4f}) "
             f"plain {plain_ms:.3f} ms library {library_ms:.4f} ms bound "
             f"{bound_ms:.4f} ms ({moved / 1e9:.3f} GB) on {card}")
+    for kern, fn, plain_fn in (("slimsell_pull", ops.pull, pull_plain),
+                               ("slimsell_pull_mm", ops.pull_mm, pull_mm_plain)):
+        xt, nf, mask, fbits, k = states[kern]
+        width = 1 if xt.ndim == 1 else xt.shape[1]
+        ms = time_ms(lambda: fn(tropical, tiled, xt, nf, tile_mask=mask), 20)
+        plain_ms = time_ms(lambda: plain_fn(tropical, tiled, xt, nf, mask), 3)
+        lib = (lambda: adj @ fbits) if width == 1 \
+            else (lambda: torch.sparse.mm(adj, fbits))
+        library_ms = time_ms(lib, 20)
+        nf2 = nf.reshape(tiled.n, width)
+        _, ranks = pull_first_hits(tropical, tiled, xt.reshape(tiled.n, width),
+                                   nf2, mask)
+        work = pull_work(tiled, ranks, nf2, mask)
+        # cols read through the hits, x in, nf in, y out, layout indices
+        moved = 4 * work["slots_read"] + 4 * xt.numel() + nf.numel() \
+            + 4 * xt.numel() + index_bytes
+        pending = int(nf2.any(dim=1).sum())
+        # the push sweep of the same iteration, for comparison
+        push_fn = ops.spmv if width == 1 else ops.spmm
+        push_mask = dm.push_tile_mask(tiled, fbits > 0)
+        push_ms = time_ms(lambda: push_fn(tropical, tiled, xt,
+                                          tile_mask=push_mask), 20)
+        bound_ms = row(kern, ms, plain_ms, library_ms, moved,
+                       work.pop("operations"), batch=width, iteration=k,
+                       pending_rows=pending, tiles_kept=int(mask.sum()),
+                       push_ms=push_ms, push_tiles=int(push_mask.sum()),
+                       library_call=("torch.sparse.mm" if width > 1 else
+                                     "sparse CSR @ x")
+                       + " (real; full reduction, not the same function)",
+                       **work)
+        log(f"[6] {kern} B={width} at iteration {k}: kernel {ms:.4f} ms plain "
+            f"{plain_ms:.3f} ms library (full reduction, not the same "
+            f"function) {library_ms:.4f} ms bound {bound_ms:.4f} ms "
+            f"({moved / 1e9:.4f} GB) | push sweep of this iteration "
+            f"{push_ms:.4f} ms over {int(push_mask.sum())} tiles | pending "
+            f"rows {pending}, tiles kept {int(mask.sum())}, {work} on {card}")
     torch.cuda.synchronize()
 
     print(json.dumps({"kernels": table}))

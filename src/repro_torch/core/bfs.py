@@ -41,7 +41,8 @@ class BFSResult:
     distances: np.ndarray          # int32[n]; -1 unreachable
     parents: Optional[np.ndarray]  # int32[n]; parent in BFS tree; root -> root
     iterations: int
-    work_log: Optional[np.ndarray] = None  # active tiles per iteration
+    work_log: Optional[np.ndarray] = None    # active tiles per iteration
+    directions: Optional[np.ndarray] = None  # 0 push / 1 pull per iteration
 
 
 # ------------------------------------------------------------------ state ops
@@ -110,6 +111,26 @@ def semiring_update(sr_name: str, state, y: torch.Tensor, k: int,
     raise ValueError(sr_name)
 
 
+def host_direction_bits(sr_name: str, state, k: int, need_sb: bool,
+                        need_nf: bool):
+    """numpy twins of ``frontier_bits`` and ``_not_final`` for the hostloop
+    engine: ``(sb, nf)``, each None unless asked for. One copy to the host
+    per state field; under tropical both come from the one copy of ``f``.
+    The same code serves [n] and [n, B] states."""
+    sb = nf = None
+    if sr_name == "tropical":
+        f = state["f"].cpu().numpy() if (need_sb or need_nf) else None
+        sb = (f == (k - 1)) if need_sb else None
+        nf = np.isinf(f) if need_nf else None
+    elif sr_name in ("real", "boolean"):
+        sb = (state["f"].cpu().numpy() > 0) if need_sb else None
+        nf = ~state["visited"].cpu().numpy() if need_nf else None
+    else:
+        sb = (state["x"].cpu().numpy() > 0) if need_sb else None
+        nf = (state["p"].cpu().numpy() == 0.0) if need_nf else None
+    return sb, nf
+
+
 @functools.lru_cache(maxsize=None)
 def bfs_spec(sr_name: str) -> eng.FixpointSpec:
     """Single-source BFS as a fixpoint spec (one spec per semiring)."""
@@ -119,8 +140,11 @@ def bfs_spec(sr_name: str) -> eng.FixpointSpec:
         init_state=lambda n, root, device: _init_state(sr_name, n, root, device),
         frontier=lambda state, k: _frontier_payload(sr_name, state),
         source_bits=lambda state, k: dm.frontier_bits(sr_name, state, k),
+        not_final=lambda state: _not_final(sr_name, state),
         update=lambda state, y, k: semiring_update(sr_name, state, y, k,
                                                    _ids1(y)),
+        host_bits=lambda state, k, need_sb, need_nf: host_direction_bits(
+            sr_name, state, k, need_sb, need_nf),
     )
 
 
@@ -156,11 +180,15 @@ def dp_transform(tiled, d: torch.Tensor, root: int) -> torch.Tensor:
 # ----------------------------------------------------------------- public API
 
 
-def check_bfs_options(fn_name: str, semiring: str, tiled, slimwork: bool):
-    """Shared entry validation for the BFS-family front doors."""
+def check_bfs_options(fn_name: str, semiring: str, tiled, slimwork: bool,
+                      config: EngineConfig):
+    """Shared entry validation for the BFS-family front doors; the push
+    index is needed where push tile masks are built (push and auto under
+    SlimWork)."""
     if semiring not in BFS_SEMIRINGS:
         raise KeyError(f"{fn_name} supports {BFS_SEMIRINGS}, got {semiring!r}")
-    if slimwork and tiled.inc_src is None:
+    if config.direction in ("push", "auto") and slimwork \
+            and tiled.inc_src is None:
         raise ValueError("push tile masks need the push index; rebuild the "
                          "layout with formats.build_slimsell")
     if semiring == "selmax" and tiled.n > (1 << 24):
@@ -192,19 +220,32 @@ def bfs(tiled, root: int, semiring: str = "tropical", *,
     semiring: one of ``BFS_SEMIRINGS``; all four give identical distances,
     ``selmax`` also gives parents in-band, the others derive them with one
     DP sweep when ``need_parents=True``.
-    slimwork: sweep only the tiles holding a frontier column (§III-C).
-    config: the engine knobs; push is the one direction ported so far, and
-    ``EngineConfig`` refuses any other when it is made.
+    slimwork: sweep only the tiles that can change the output (§III-C).
+    config: the engine knobs (``EngineConfig``): direction "push" (top-down
+    SpMV over the frontier's tiles), "pull" (bottom-up sweep over the
+    not-final rows, with a per-row early exit) or "auto" (Beamer's
+    alpha/beta switch each iteration); mode "fused" or "hostloop" (masks
+    and the direction choice in numpy on the host). ``directions`` holds
+    the direction of each iteration under ``log_work`` or "hostloop", and
+    also otherwise unless the direction is "auto"; ``work_log`` is kept
+    under ``log_work`` or "hostloop".
     device: where to run; None means the card (raises when there is none).
     """
-    check_bfs_options("bfs", semiring, tiled, slimwork)
+    config = config if config is not None else EngineConfig()
+    check_bfs_options("bfs", semiring, tiled, slimwork, config)
     tiled = on_device(tiled, device)
     root = int(root)
     if not 0 <= root < tiled.n:
         raise ValueError(f"root {root} outside [0, {tiled.n})")
     max_iters = int(max_iters) if max_iters is not None else tiled.n
-    res = eng.run_fused(bfs_spec(semiring), tiled, root, slimwork=slimwork,
-                        max_iters=max_iters, log_work=log_work)
+    if config.mode == "fused":
+        res = eng.run_fused(bfs_spec(semiring), tiled, root, slimwork=slimwork,
+                            max_iters=max_iters, log_work=log_work,
+                            direction=config.direction)
+    else:
+        res = eng.run_hostloop(bfs_spec(semiring), tiled, root,
+                               slimwork=slimwork, max_iters=max_iters,
+                               direction=config.direction)
     state = res.state
     parents = None
     if need_parents:
@@ -214,5 +255,7 @@ def bfs(tiled, root: int, semiring: str = "tropical", *,
         else:
             p = dp_transform(tiled, state["d"], root)
         parents = p.cpu().numpy()
+    wl = res.work_log if (log_work or config.mode == "hostloop") else None
     return BFSResult(distances=state["d"].cpu().numpy(), parents=parents,
-                     iterations=res.iterations, work_log=res.work_log)
+                     iterations=res.iterations, work_log=wl,
+                     directions=res.dirs_log)

@@ -10,6 +10,12 @@ SlimWork generalizes column-wise: a tile is swept if ANY root's frontier
 touches it, so the batch shares one tile mask (the union of the per-root
 masks). Iterations run to the deepest root of the batch; converged
 columns simply stop changing, which is exact for every semiring.
+
+Direction optimization is per column: under ``direction="auto"`` each
+root carries its own push/pull state (Beamer's switch on its own frontier
+statistics) and the per-column directions compose into one union tile
+mask for the SpMM. ``direction="pull"`` runs the batched bottom-up sweep
+(``slimsell_pull_mm``), whose early exit is per (row, column).
 """
 from __future__ import annotations
 
@@ -23,8 +29,9 @@ import torch
 from . import direction as dm
 from . import engine as eng
 from . import semiring as sm
-from .bfs import (_frontier_payload, _ids1, check_bfs_options, dp_transform,
-                  on_device, semiring_update)
+from .bfs import (_frontier_payload, _ids1, _not_final, check_bfs_options,
+                  dp_transform, host_direction_bits, on_device,
+                  semiring_update)
 from .options import EngineConfig
 
 
@@ -40,6 +47,8 @@ class MultiBFSResult:
     iterations: np.ndarray         # int32[n_batches] loop trips per batch
     roots: np.ndarray              # int32[n_roots]
     work_log: Optional[np.ndarray] = None  # int32[n_batches, WORK_LOG]
+    # int32[n_batches, WORK_LOG]: columns running pull per iteration
+    pull_cols_log: Optional[np.ndarray] = None
 
 
 def _init_state_multi(sr_name: str, n: int, roots: torch.Tensor, device) -> dict:
@@ -100,8 +109,11 @@ def multi_bfs_spec(sr_name: str) -> eng.FixpointSpec:
             sr_name, n, roots, device),
         frontier=lambda state, k: _frontier_payload(sr_name, state),
         source_bits=lambda state, k: dm.frontier_bits(sr_name, state, k),
+        not_final=lambda state: _not_final(sr_name, state),
         update=lambda state, y, k: semiring_update(sr_name, state, y, k,
                                                    _ids1(y)),
+        host_bits=lambda state, k, need_sb, need_nf: host_direction_bits(
+            sr_name, state, k, need_sb, need_nf),
     )
 
 
@@ -116,10 +128,15 @@ def multi_source_bfs(tiled, roots: Sequence[int],
     """BFS from every root in ``roots``; one SpMM loop per batch.
 
     batch_size: roots per batch (None -> all roots in one batch).
-    config: the engine knobs, as in ``bfs``.
+    config: the engine knobs, as in ``bfs``: under direction "auto" every
+    column carries its own direction, and ``pull_cols_log`` (with
+    ``log_work``) counts the columns that ran pull in each iteration; the
+    batched "hostloop" mode is push-only and raises NotImplementedError
+    for pull and auto.
     device: where to run; None means the card (raises when there is none).
     """
-    check_bfs_options("multi_source_bfs", semiring, tiled, slimwork)
+    config = config if config is not None else EngineConfig()
+    check_bfs_options("multi_source_bfs", semiring, tiled, slimwork, config)
     tiled = on_device(tiled, device)
     roots = np.asarray(roots, np.int32).reshape(-1)
     if roots.size == 0:
@@ -131,11 +148,18 @@ def multi_source_bfs(tiled, roots: Sequence[int],
 
     d_out = np.empty((roots.size, n), np.int32)
     p_out = np.empty((roots.size, n), np.int32) if need_parents else None
-    iters, work_rows = [], []
+    iters, work_rows, plog_rows = [], [], []
     for start, batch, batch_p in _iter_batches(roots, batch_size):
-        res = eng.run_fused(multi_bfs_spec(semiring), tiled,
-                            torch.from_numpy(batch_p), slimwork=slimwork,
-                            max_iters=max_iters, log_work=log_work)
+        if config.mode == "fused":
+            res = eng.run_fused(multi_bfs_spec(semiring), tiled,
+                                torch.from_numpy(batch_p), slimwork=slimwork,
+                                max_iters=max_iters, log_work=log_work,
+                                direction=config.direction)
+        else:
+            res = eng.run_hostloop(multi_bfs_spec(semiring), tiled,
+                                   torch.from_numpy(batch_p),
+                                   slimwork=slimwork, max_iters=max_iters,
+                                   direction=config.direction)
         state = res.state
         d_out[start:start + batch.size] = _columns_to_host(state["d"], batch.size)
         if need_parents:
@@ -153,6 +177,18 @@ def multi_source_bfs(tiled, roots: Sequence[int],
         iters.append(res.iterations)
         if log_work:
             work_rows.append(res.work_log)
+            plog_rows.append(res.pull_cols_log)
+    wl = plog = None
+    if log_work:
+        # fused rows are WORK_LOG long, hostloop rows one entry per
+        # iteration: pad to the longest so the batches stack
+        width = max(w.size for w in work_rows)
+        wl = np.zeros((len(work_rows), width), np.int32)
+        plog = np.zeros((len(work_rows), width), np.int32)
+        for i, (w, p) in enumerate(zip(work_rows, plog_rows)):
+            wl[i, : w.size] = w
+            if p is not None:
+                plog[i, : p.size] = p
     return MultiBFSResult(
         distances=d_out, parents=p_out, iterations=np.asarray(iters, np.int32),
-        roots=roots, work_log=np.stack(work_rows) if log_work else None)
+        roots=roots, work_log=wl, pull_cols_log=plog)

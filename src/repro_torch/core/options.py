@@ -11,8 +11,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence
 
-# pull and auto arrive with the direction-optimizing slice
-DIRECTIONS = ("push",)
+MODES = ("fused", "hostloop")
+DIRECTIONS = ("push", "pull", "auto")
 
 # the BFS engines accept exactly the paper's four semirings
 BFS_SEMIRINGS = ("tropical", "real", "boolean", "selmax")
@@ -37,9 +37,16 @@ def check_choice(name: str, value, allowed: Sequence[str], *,
 class EngineConfig:
     """The engine knobs as one validated, hashable record.
 
-    direction: "push" (top-down SpMV/SpMM over the frontier's tiles)
+    direction: "push" (top-down SpMV/SpMM over the frontier's tiles),
+    "pull" (bottom-up sweep over the not-final rows) or "auto" (Beamer's
+    alpha/beta switch between the two, chosen each iteration)
+    mode: "fused" (the whole fixpoint on the device, one host sync per
+    iteration) or "hostloop" (tile masks and the direction choice worked
+    out in numpy on the host each iteration)
     """
     direction: str = "push"
+    mode: str = "fused"
 
     def __post_init__(self):
         check_choice("direction", self.direction, DIRECTIONS)
+        check_choice("mode", self.mode, MODES)

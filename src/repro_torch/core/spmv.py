@@ -3,6 +3,9 @@
 * ``slimsell_spmv`` — one frontier expansion (top-down / push) of BFS.
 * ``slimsell_spmm`` — the matrix-RHS form: batched multi-source BFS, the
   frontier an [n, B] matrix.
+* ``slimsell_pull`` / ``slimsell_pull_mm`` — the bottom-up (pull) sweeps
+  of direction-optimizing BFS over the not-final rows, with a per-row
+  (per (row, column)) early exit.
 
 Both take the implicit edge value (``val`` is never stored): an edge
 contributes ``mul(edge_value, x[col])`` and a padding slot (col == -1) the
@@ -13,6 +16,15 @@ The device of the tensors picks the implementation: a CUDA tensor goes to
 the hand-written kernel through ``kernels.ops``, a CPU tensor to the plain
 PyTorch version in this module (``spmm_plain``), which is also the
 reference the kernels are checked against on the card.
+
+**The pull sweeps' function.** A chunk's kept tiles are visited in tile
+order. For each vertex v with ``row_mask[v]`` set, y[v] is the reduction
+over L of the **first** kept tile of v's chunk whose reduction is not the
+semiring zero; y[v] is zero when ``row_mask[v]`` is false or no tile hits.
+This is the TPU pull kernel's early exit (``repro/kernels/slimsell_pull.py``)
+stated exactly, not the full reduction: on BFS's level-homogeneous
+frontiers it gives the same distances, and under sel-max a valid (possibly
+different) parent.
 """
 from __future__ import annotations
 
@@ -86,6 +98,69 @@ def spmv_plain(sr: Semiring, tiled, x: torch.Tensor,
     return spmm_plain(sr, tiled, x[:, None], tile_mask)[:, 0]
 
 
+def pull_first_hits(sr: Semiring, tiled, X: torch.Tensor,
+                    row_mask: torch.Tensor,
+                    tile_mask: Optional[torch.Tensor] = None):
+    """The plain batched pull for X [n, B] and row_mask bool[n, B]:
+    returns ``(Y, rank)`` in vertex space, ``rank`` int32[n, B] the rank
+    within its chunk of the tile each (v, b) took its value from (-1: not
+    pending, or no kept tile hit).
+
+    Loops over a tile's rank within its chunk; each step handles, in
+    slices of about ``_GATHER_BYTES``, the chunks that have a tile of that
+    rank, keep it, and still have a pending (row, column).
+    """
+    n_chunks, C = tiled.n_chunks, tiled.C
+    B = X.shape[1]
+    zero = torch.tensor(sr.zero, dtype=X.dtype, device=X.device)
+    rv = tiled.row_vertex.long().reshape(-1)
+    pad = rv < 0
+    pending = row_mask.index_select(0, rv.clamp_min(0)).reshape(n_chunks, C, B)
+    pending &= ~pad.reshape(n_chunks, C, 1)
+    y_blocks = torch.full((n_chunks, C, B), sr.zero, dtype=X.dtype,
+                          device=X.device)
+    rank = torch.full((n_chunks, C, B), -1, dtype=torch.int32,
+                      device=X.device)
+    ptr = tiled.tile_ptr.long()
+    n_tiles = ptr[1:] - ptr[:-1]
+    max_rank = int(n_tiles.max()) if n_chunks else 0
+    step = max(1, _GATHER_BYTES // (C * tiled.L * B * X.element_size()))
+    for j in range(max_rank):
+        live = (n_tiles > j) & pending.flatten(1).any(dim=1)
+        chunks = live.nonzero().squeeze(1)
+        tiles = ptr[chunks] + j
+        if tile_mask is not None:
+            kept = tile_mask[tiles]
+            chunks, tiles = chunks[kept], tiles[kept]
+        for s0 in range(0, chunks.numel(), step):
+            ch, t = chunks[s0:s0 + step], tiles[s0:s0 + step]
+            red = sr.reduce(tile_contributions(sr, tiled.cols[t], X), dim=2)
+            hit = pending[ch] & (red != zero)                   # [k, C, B]
+            y_blocks[ch] = torch.where(hit, red, y_blocks[ch])
+            rank[ch] = torch.where(hit, j, rank[ch])
+            pending[ch] = pending[ch] & ~hit
+    ids = torch.where(pad, tiled.n, rv)
+    Y = torch.full((tiled.n + 1, B), sr.zero, dtype=X.dtype, device=X.device)
+    Y[ids] = y_blocks.reshape(-1, B)
+    R = torch.full((tiled.n + 1, B), -1, dtype=torch.int32, device=X.device)
+    R[ids] = rank.reshape(-1, B)
+    return Y[: tiled.n], R[: tiled.n]
+
+
+def pull_mm_plain(sr: Semiring, tiled, X: torch.Tensor,
+                  row_mask: torch.Tensor,
+                  tile_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain PyTorch batched pull sweep: X, row_mask [n, B] -> Y [n, B]."""
+    return pull_first_hits(sr, tiled, X, row_mask, tile_mask)[0]
+
+
+def pull_plain(sr: Semiring, tiled, x: torch.Tensor, row_mask: torch.Tensor,
+               tile_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain PyTorch pull sweep: the batched one over one column."""
+    return pull_mm_plain(sr, tiled, x[:, None], row_mask[:, None],
+                         tile_mask)[:, 0]
+
+
 def slimsell_spmv(sr: Semiring, tiled, x: torch.Tensor, *,
                   tile_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y = A (x) over semiring ``sr``; x [n] -> y [n] in vertex space."""
@@ -99,3 +174,21 @@ def slimsell_spmm(sr: Semiring, tiled, X: torch.Tensor, *,
     ``tile_mask`` applies SlimWork to the whole batch at once."""
     from ..kernels import ops  # deferred: the kernels import this module
     return ops.spmm(sr, tiled, X, tile_mask=tile_mask)
+
+
+def slimsell_pull(sr: Semiring, tiled, x: torch.Tensor, *,
+                  row_mask: torch.Tensor,
+                  tile_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Bottom-up sweep: x [n], row_mask bool[n] (the not-final rows) ->
+    y [n]; first-hit semantics (module docstring), zero off ``row_mask``."""
+    from ..kernels import ops  # deferred: the kernels import this module
+    return ops.pull(sr, tiled, x, row_mask, tile_mask=tile_mask)
+
+
+def slimsell_pull_mm(sr: Semiring, tiled, X: torch.Tensor, *,
+                     row_mask: torch.Tensor,
+                     tile_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Batched bottom-up sweep: X [n, B], row_mask bool[n, B] -> Y [n, B];
+    the early exit is per (row, column)."""
+    from ..kernels import ops  # deferred: the kernels import this module
+    return ops.pull_mm(sr, tiled, X, row_mask, tile_mask=tile_mask)

@@ -105,13 +105,16 @@ def run_graph500(*, scale: int = 10, edge_factor: int = 16, n_roots: int = 64,
                  need_parents: bool = True,
                  csr: Optional[CSRGraph] = None,
                  tiled: Optional[SlimSellTiled] = None,
+                 direction: Optional[str] = None,
                  config: Optional[EngineConfig] = None,
                  device=None) -> Graph500Report:
     """Build (or accept) the graph, run batched BFS from the sampled keys,
     validate, score. ``device`` None means the card (raises when there is
     none); a given ``tiled`` may be the host layout or one on that device.
     A given ``csr`` must have the 2**scale vertices the report names, and a
-    given ``tiled`` must be its layout.
+    given ``tiled`` must be its layout. ``direction`` is a shorthand for
+    ``config=EngineConfig(direction=...)``; the config's direction and mode
+    go to ``multi_source_bfs`` unchanged.
 
     TEPS accounting follows the spec: the edges counted for a root are the
     undirected edges with at least one endpoint reached from it; the time
@@ -120,7 +123,10 @@ def run_graph500(*, scale: int = 10, edge_factor: int = 16, n_roots: int = 64,
     """
     if batch_size <= 0:
         raise ValueError(f"batch_size must be positive, got {batch_size}")
-    config = config if config is not None else EngineConfig()
+    if config is None:
+        config = EngineConfig(direction=direction or "push")
+    elif direction is not None:
+        raise TypeError("pass either direction= or config=, not both")
     dev = resolve_device(device)
     if csr is None:
         csr = kronecker(scale, edge_factor, seed=seed)

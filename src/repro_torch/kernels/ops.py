@@ -9,7 +9,10 @@ so a run can show that its path went through the kernel.
 The kernels take the SlimWork mask as the bool ``tile_mask`` itself and
 write straight into vertex space through ``row_vertex``, so neither the
 TPU wrapper's tile-id compaction nor its chunk-row scatter epilogue is
-needed here. They read a chunk's slots only up to its length ``cl``.
+needed here. They read a chunk's slots only up to its length ``cl``. The
+pull kernels take the not-final bits as a contiguous bool[n] / [n, B] in
+vertex space and read ``row_mask[row_vertex]`` themselves, so the TPU
+wrapper's gather of those bits into chunk-row space is not needed either.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ from typing import Optional
 import torch
 
 from ..core.semiring import Semiring
-from ..core.spmv import spmm_plain, spmv_plain
+from ..core.spmv import pull_mm_plain, pull_plain, spmm_plain, spmv_plain
 from . import build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -60,7 +63,11 @@ class Kernel:
 SPMV = Kernel("slimsell_spmv", [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
 SPMM = Kernel("slimsell_spmm",
               [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
-KERNELS = (SPMV, SPMM)
+PULL = Kernel("slimsell_pull",
+              [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
+PULL_MM = Kernel("slimsell_pull_mm",
+                 [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+KERNELS = (SPMV, SPMM, PULL, PULL_MM)
 
 
 def reset_launches() -> None:
@@ -90,6 +97,26 @@ def _check(sr: Semiring, tiled, x: torch.Tensor, ndim: int,
                          f"{tuple(tile_mask.shape)} on {tile_mask.device}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no SlimSell sweep for device {x.device}")
+
+
+def _check_rows(x: torch.Tensor, row_mask: torch.Tensor) -> None:
+    if (row_mask.dtype != torch.bool or row_mask.shape != x.shape
+            or row_mask.device != x.device):
+        raise ValueError(f"row_mask must be bool{tuple(x.shape)} on {x.device}, "
+                         f"got {row_mask.dtype}{tuple(row_mask.shape)} on "
+                         f"{row_mask.device}")
+    if x.device.type == "cuda" and not row_mask.is_contiguous():
+        raise ValueError("row_mask must be contiguous")
+
+
+def _lanes(tiled, B: int) -> int:
+    """The batch-column tile of one block of the matrix kernels: whole
+    warps, at most 1024 threads, and the kernels' tile must fit their 48 KB
+    of static shared memory."""
+    if tiled.C * tiled.L * 4 > 48 * 1024:
+        raise ValueError(f"a C x L = {tiled.C} x {tiled.L} tile does not fit "
+                         "the matrix kernels' 48 KB of shared memory")
+    return min(-(-B // 32) * 32, 128, (1024 // tiled.C) // 32 * 32)
 
 
 def _cuda_operands(tiled, x: torch.Tensor, tile_mask: Optional[torch.Tensor]):
@@ -129,15 +156,48 @@ def spmm(sr: Semiring, tiled, X: torch.Tensor, *,
     if X.device.type == "cpu":
         return spmm_plain(sr, tiled, X, tile_mask)
     ptrs = _cuda_operands(tiled, X, tile_mask)
-    if tiled.C * tiled.L * 4 > 48 * 1024:
-        raise ValueError(f"a C x L = {tiled.C} x {tiled.L} tile does not fit "
-                         "the SpMM kernel's 48 KB of shared memory")
     B = X.shape[1]
-    # batch-column tile of one block: whole warps, at most 1024 threads
-    lanes = min(-(-B // 32) * 32, 128, (1024 // tiled.C) // 32 * 32)
+    lanes = _lanes(tiled, B)
     Y = torch.empty_like(X)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
         SPMM.launch(sr.code, *ptrs, X.data_ptr(), Y.data_ptr(),
                     tiled.n_chunks, tiled.C, tiled.L, B, lanes, stream)
+    return Y
+
+
+def pull(sr: Semiring, tiled, x: torch.Tensor, row_mask: torch.Tensor, *,
+         tile_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """SlimSell pull sweep: x [n], row_mask bool[n] -> y [n] in vertex
+    space, first-hit semantics (``core.spmv``)."""
+    _check(sr, tiled, x, 1, tile_mask)
+    _check_rows(x, row_mask)
+    if x.device.type == "cpu":
+        return pull_plain(sr, tiled, x, row_mask, tile_mask)
+    ptrs = _cuda_operands(tiled, x, tile_mask)
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        PULL.launch(sr.code, *ptrs, row_mask.data_ptr(), x.data_ptr(),
+                    y.data_ptr(), tiled.n_chunks, tiled.C, tiled.L, stream)
+    return y
+
+
+def pull_mm(sr: Semiring, tiled, X: torch.Tensor, row_mask: torch.Tensor, *,
+            tile_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Batched SlimSell pull sweep: X [n, B], row_mask bool[n, B] ->
+    Y [n, B] in vertex space, the early exit per (row, column)."""
+    _check(sr, tiled, X, 2, tile_mask)
+    _check_rows(X, row_mask)
+    if X.device.type == "cpu":
+        return pull_mm_plain(sr, tiled, X, row_mask, tile_mask)
+    ptrs = _cuda_operands(tiled, X, tile_mask)
+    B = X.shape[1]
+    lanes = _lanes(tiled, B)
+    Y = torch.empty_like(X)
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        PULL_MM.launch(sr.code, *ptrs, row_mask.data_ptr(), X.data_ptr(),
+                       Y.data_ptr(), tiled.n_chunks, tiled.C, tiled.L, B,
+                       lanes, stream)
     return Y

@@ -1,14 +1,15 @@
 """Where one Graph500 batch spends its time on the card.
 
-    PYTHONPATH=src python -m repro_torch.profile_graph500 --scale 20 --batch 64
+    PYTHONPATH=src python -m repro_torch.profile_graph500 --scale 20 --batch 64 \
+        --direction push auto pull
 
 Builds ``kronecker(scale, 16, seed=1)`` and its SlimSell layout,
-samples the Graph500 search keys, and runs one batch of
-``multi_source_bfs`` (tropical, push) from them: once to warm up, then
-timed on the host clock with and without the parent pass, then once more
-under ``torch.profiler``. Prints the wall times, the device time of the
-kernels that took the most, and the device's busy share of the profiled
-batch (kernel time over wall time). The last line is all of it as JSON.
+samples the Graph500 search keys, and for each direction runs one batch
+of ``multi_source_bfs`` (tropical) from them: once to warm up, then timed
+on the host clock with and without the parent pass, then once more under
+``torch.profiler``. Prints the wall times, the device time of the kernels
+that took the most, and the device's busy share of the profiled batch
+(kernel time over wall time). The last line is all of it as JSON.
 
 It measures the device, so it needs a CUDA card and raises without one.
 """
@@ -23,6 +24,7 @@ import torch
 
 from .core.formats import build_slimsell
 from .core.multi_bfs import multi_source_bfs
+from .core.options import DIRECTIONS, EngineConfig
 from .graph500 import sample_roots
 from .graphs.generators import kronecker
 
@@ -49,23 +51,14 @@ def _device_kernels(prof) -> dict:
     return out
 
 
-def main(argv=None) -> dict:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--scale", type=int, default=20)
-    ap.add_argument("--batch", type=int, default=64)
-    ap.add_argument("--trace", default=None,
-                    help="write the profiled batch's Chrome trace here")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise RuntimeError("profile_graph500 measures the card; no CUDA device found")
-    dev = torch.device("cuda")
-    csr = kronecker(args.scale, EDGE_FACTOR, seed=1)
-    tiled = build_slimsell(csr, C=8, L=128, sigma=csr.n).to_torch(dev)
-    roots = sample_roots(csr, args.batch)
+def _profile(tiled, roots, direction: str, trace) -> dict:
+    """Wall times and the device profile of one batch in one direction."""
+    config = EngineConfig(direction=direction)
+    dev = tiled.device
 
     def batch(parents: bool):
         return multi_source_bfs(tiled, roots, "tropical", need_parents=parents,
-                                device=dev)
+                                config=config, device=dev)
 
     batch(True)  # warm-up: allocator, first launches
     wall = {"with_parents_s": _wall_s(lambda: batch(True)),
@@ -74,24 +67,51 @@ def main(argv=None) -> dict:
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         profiled_s = _wall_s(lambda: batch(True))
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
+    if trace:
+        prof.export_chrome_trace(trace)
     kernels = _device_kernels(prof)
     busy_ms = sum(ms for ms, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:TOP]
-    name = subprocess.run(  # the card's name and power limit
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-        check=True).stdout.strip().splitlines()[0]
-    print(f"scale {args.scale} ef {EDGE_FACTOR} batch {roots.size} "
-          f"on {name}: {wall}", flush=True)
+    print(f"direction {direction}: {wall}", flush=True)
     print(f"profiled batch {profiled_s * 1e3:.3f} ms wall, device busy "
           f"{busy_ms:.3f} ms ({busy_ms / (profiled_s * 1e3):.4f} of it)")
     for k, (ms, calls) in top:
         print(f"  {ms:10.3f} ms {calls:6d} x  {k[:110]}")
+    return {"direction": direction, **wall, "profiled_s": profiled_s,
+            "device_busy_ms": busy_ms,
+            "top": [{"name": k, "ms": ms, "calls": c} for k, (ms, c) in top]}
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--scale", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--direction", nargs="+", choices=DIRECTIONS,
+                    default=["push"], help="one profiled batch for each")
+    ap.add_argument("--trace", default=None,
+                    help="write the profiled batch's Chrome trace here "
+                    "(with several directions, <trace>.<direction>.json)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_graph500 measures the card; no CUDA device found")
+    dev = torch.device("cuda")
+    csr = kronecker(args.scale, EDGE_FACTOR, seed=1)
+    tiled = build_slimsell(csr, C=8, L=128, sigma=csr.n).to_torch(dev)
+    roots = sample_roots(csr, args.batch)
+    name = subprocess.run(  # the card's name and power limit
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"scale {args.scale} ef {EDGE_FACTOR} batch {roots.size} on {name}",
+          flush=True)
+    runs = []
+    for direction in args.direction:
+        trace = args.trace
+        if trace and len(args.direction) > 1:
+            trace = f"{trace}.{direction}.json"
+        runs.append(_profile(tiled, roots, direction, trace))
     report = {"device": name, "scale": args.scale, "batch": int(roots.size),
-              **wall, "profiled_s": profiled_s, "device_busy_ms": busy_ms,
-              "top": [{"name": k, "ms": ms, "calls": c} for k, (ms, c) in top]}
+              "runs": runs}
     print(json.dumps(report))
     return report
 

@@ -100,7 +100,8 @@ def test_front_doors_reject_bad_options(kron):
     with pytest.raises(KeyError):
         pbfs.bfs(pt, 0, "minplus", device="cpu")
     with pytest.raises(ValueError, match="direction"):
-        pbfs.bfs(pt, 0, config=EngineConfig(direction="pull"), device="cpu")
+        pbfs.bfs(pt, 0, config=EngineConfig(direction="sideways"),
+                 device="cpu")
     with pytest.raises(ValueError, match="root"):
         pbfs.bfs(pt, pt.n, device="cpu")
     with pytest.raises(ValueError, match="roots"):

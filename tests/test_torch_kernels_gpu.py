@@ -11,7 +11,8 @@ import torch
 
 from repro_torch.core import semiring as psr
 from repro_torch.core.formats import build_slimsell
-from repro_torch.core.spmv import spmm_plain, spmv_plain
+from repro_torch.core.spmv import (pull_mm_plain, pull_plain, spmm_plain,
+                                   spmv_plain)
 from repro_torch.graphs.generators import kronecker
 from repro_torch.kernels import ops
 
@@ -19,6 +20,7 @@ pytestmark = pytest.mark.gpu
 
 SEMIRINGS = ["tropical", "real", "boolean", "selmax"]
 MASKS = ["none_given", "all_kept", "none_kept", "random"]
+NF_KINDS = ["random", "all", "none"]
 
 
 @pytest.fixture(scope="module")
@@ -68,6 +70,35 @@ def test_kernel_equals_plain(cuda, name, mask_kind, width):
         got, want = ops.spmv(sr, tiled, x, tile_mask=mask), spmv_plain(sr, tiled, x, mask)
     else:
         got, want = ops.spmm(sr, tiled, x, tile_mask=mask), spmm_plain(sr, tiled, x, mask)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.is_cuda and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("nf_kind", NF_KINDS)
+@pytest.mark.parametrize("width", [None, 1, 5, 64])
+@pytest.mark.parametrize("mask_kind", MASKS)
+@pytest.mark.parametrize("name", SEMIRINGS)
+def test_pull_kernel_equals_plain(cuda, name, mask_kind, width, nf_kind):
+    dev, tiled = cuda
+    rng = np.random.default_rng([SEMIRINGS.index(name), MASKS.index(mask_kind),
+                                 width or 0, NF_KINDS.index(nf_kind), 1])
+    sr = psr.get(name)
+    mask = _mask(mask_kind, tiled, rng, dev)
+    shape = (tiled.n,) if width is None else (tiled.n, width)
+    x = _operand(sr, shape, rng, dev)
+    if nf_kind == "random":
+        nf = torch.from_numpy(rng.random(shape) < 0.6).to(dev)
+    else:
+        nf = torch.full(shape, nf_kind == "all", dtype=torch.bool, device=dev)
+    kernel = ops.PULL if width is None else ops.PULL_MM
+    before = kernel.launches
+    if width is None:
+        got = ops.pull(sr, tiled, x, nf, tile_mask=mask)
+        want = pull_plain(sr, tiled, x, nf, mask)
+    else:
+        got = ops.pull_mm(sr, tiled, x, nf, tile_mask=mask)
+        want = pull_mm_plain(sr, tiled, x, nf, mask)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     assert got.is_cuda and torch.equal(got, want)
