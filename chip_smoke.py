@@ -7,7 +7,7 @@ Phases, each of which must pass (any failure ends the run with a nonzero
 exit and no result line):
 
 1. the card's name and power limit;
-2. build the four CUDA kernels from ``src/repro_torch/kernels/csrc``;
+2. build the six CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. every kernel against its plain PyTorch version on the card, exactly
    (all values are integers or +-inf), on a scale-14 Kronecker graph:
    4 semirings x {SpMV, SpMM B=1/5/64} x 4 tile masks (none given, all
@@ -27,15 +27,34 @@ exit and no result line):
    SpMV and SpMM (4 semirings x 4 masks), pull and pull_mm at a real pull
    state (the BFS state just before an iteration that pulls, 4
    semirings); then each kernel timed beside its plain version, a
-   library call and its bound.
+   library call and its bound;
+7. SlimSell-B, the bit-packed boolean path: (a) at scale 14 both packed
+   kernels against their plain versions, exactly (5 masks x the SpMV and
+   the SpMM at B=1/5/33/64/97/160 x 2 frontier densities; 97 and 160 fill
+   4 and 5 word planes, so the SpMM's second grid-y block runs partly
+   used), then packed ``bfs``
+   and ``multi_source_bfs``, fused and hostloop, on the card against the
+   same on the CPU; (b) at scale 20, packed ``bfs`` from the phase-4b root,
+   fused and hostloop, bit-equal to lane-boolean push (distances,
+   iterations, work log) with a valid DP-parent tree, and the packed batch
+   of the phase-5 roots, distances equal to the push batch's and all 64
+   trees valid, timed with and without parents beside push in turns, with
+   TEPS under ``run_graph500``'s accounting, and packed ``bfs`` timed in
+   turns with lane-boolean push; (c) each packed kernel at the
+   real state of the iteration with the most tiles, with that iteration's
+   mask and with every tile kept, against its plain version and timed
+   beside it, the lane kernel, a library call and its bound; (d) the
+   paper's storage accounting at scale 20.
 
-The launch counts of the main path (phases 4b and 5 at scale 20) must be
-nonzero for all four kernels. The last lines are the kernel table, the
-card, and ``{"ok": true, "device": {...}}``.
+The launch counts of each main path must be nonzero: the four lane
+kernels over phases 4b and 5, the two packed kernels over phase 7b, each
+counted from zero. The last lines are the kernel table, the card, and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -61,7 +80,16 @@ KERNEL_INFO = {
                       "src/repro/kernels/slimsell_pull.py:53"),
     "slimsell_pull_mm": ("src/repro_torch/kernels/csrc/slimsell_pull_mm.cu",
                          "src/repro/kernels/slimsell_pull.py:155"),
+    "slimsell_spmv_packed": (
+        "src/repro_torch/kernels/csrc/slimsell_spmv_packed.cu",
+        "src/repro/kernels/slimsell_packed.py:43"),
+    "slimsell_spmm_packed": (
+        "src/repro_torch/kernels/csrc/slimsell_spmm_packed.cu",
+        "src/repro/kernels/slimsell_packed.py:134"),
 }
+LANE_KERNELS = ("slimsell_spmv", "slimsell_spmm", "slimsell_pull",
+                "slimsell_pull_mm")
+PACKED_KERNELS = ("slimsell_spmv_packed", "slimsell_spmm_packed")
 NF_KINDS = ("random", "all", "none")
 
 
@@ -112,6 +140,19 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.where(same, 0.0, diff).max()) if a.numel() else 0.0
 
 
+def tile_slots(tiled) -> torch.Tensor:
+    """int64[T]: the slots of one row of each tile before its chunk's
+    length cl, the ones a sweep reads in each row when it keeps the tile."""
+    ptr = tiled.tile_ptr.long()
+    rb = tiled.row_block.long()
+    rank = torch.arange(tiled.n_tiles, device=ptr.device) - ptr[rb]
+    return (tiled.cl.long()[rb] - rank * tiled.L).clamp(0, tiled.L)
+
+
+def hmean(x) -> float:
+    return float(1.0 / np.mean(1.0 / np.asarray(x)))
+
+
 @contextlib.contextmanager
 def plain_sweeps(engine, spmv_plain, spmm_plain, pull_plain, pull_mm_plain):
     """Route the engine's sweeps to the plain versions: the reference run."""
@@ -158,11 +199,9 @@ def pull_work(tiled, ranks, nf, mask):
     columns. Returns a dict: cols slots read, operations, the slots all
     kept tiles of the pending rows hold, and for the chunk with the most
     tiles, the tiles it has and the tiles its block must load."""
-    L, C = tiled.L, tiled.C
+    C = tiled.C
     ptr = tiled.tile_ptr.long()
-    rb = tiled.row_block.long()
-    rank_t = torch.arange(tiled.n_tiles, device=ptr.device) - ptr[rb]
-    slots_t = (tiled.cl.long()[rb] - rank_t * L).clamp(0, L)
+    slots_t = tile_slots(tiled)
     if mask is not None:
         slots_t = slots_t * mask
     cum = torch.cat([slots_t.new_zeros(1), slots_t.cumsum(0)])
@@ -192,14 +231,18 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
         return 1
     from repro_torch.core import direction as dm
-    from repro_torch.core import engine, semiring
-    from repro_torch.core.bfs import bfs, bfs_spec
-    from repro_torch.core.formats import build_slimsell
-    from repro_torch.core.multi_bfs import multi_bfs_spec, multi_source_bfs
+    from repro_torch.core import engine, packing, semiring
+    from repro_torch.core.bfs import bfs, bfs_spec, packed_bfs_spec
+    from repro_torch.core.formats import build_slimsell, storage_summary
+    from repro_torch.core.multi_bfs import (multi_bfs_spec, multi_source_bfs,
+                                            packed_multi_bfs_spec)
     from repro_torch.core.options import EngineConfig
     from repro_torch.core.spmv import (pull_first_hits, pull_mm_plain,
-                                       pull_plain, spmm_plain, spmv_plain)
-    from repro_torch.graph500 import run_graph500, sample_roots, validate_bfs_tree
+                                       pull_plain, spmm_packed_plain,
+                                       spmm_plain, spmv_packed_plain,
+                                       spmv_plain)
+    from repro_torch.graph500 import (batch_teps, run_graph500, sample_roots,
+                                      validate_bfs_tree)
     from repro_torch.graphs.generators import kronecker
     from repro_torch.kernels import build, ops
 
@@ -220,7 +263,8 @@ def main() -> int:
     # ---- 3: each kernel against its plain version, on the card
     rng = np.random.default_rng(0)
     small_csr = kronecker(SMALL_SCALE, EDGE_FACTOR, seed=1)
-    small = build_slimsell(small_csr, C=8, L=128).to_torch(dev)
+    small_host = build_slimsell(small_csr, C=8, L=128)
+    small = small_host.to_torch(dev)
     errs = {k: 0.0 for k in KERNEL_INFO}
     n_cases = 0
     for name in SEMIRINGS:
@@ -306,7 +350,7 @@ def main() -> int:
     root = int(sample_roots(csr, 1)[0])
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    auto_dirs = None
+    auto_dirs = lane_boolean = None
     for direction, mode in (("push", "fused"), ("auto", "fused"),
                             ("auto", "hostloop")):
         cfg = EngineConfig(direction=direction, mode=mode)
@@ -319,6 +363,8 @@ def main() -> int:
             validate_bfs_tree(csr, root, res.distances, res.parents)
             if (direction, mode, name) == ("auto", "fused", "tropical"):
                 auto_dirs = res.directions
+            if (direction, mode, name) == ("push", "fused", "boolean"):
+                lane_boolean = res
             log(f"[4b] bfs {name} {direction} {mode}: root={root} "
                 f"iterations={res.iterations} directions="
                 f"{res.directions.tolist()} work_log={res.work_log.tolist()} "
@@ -349,17 +395,23 @@ def main() -> int:
                                log_work=True, config=cfg, device=dev)
         if not np.array_equal(res.distances, push.distances):
             raise AssertionError(f"{direction} batch distances != push batch")
+        n_valid = 0
         for i, r in enumerate(roots):
             validate_bfs_tree(csr, int(r), res.distances[i], res.parents[i],
                               d_ref=push.distances[i])
+            n_valid += 1
         it = int(res.iterations[0])
         batched[direction] = res
+        # the timed batch ran with validate=False (its summary says
+        # validated=0); this second call's trees are the ones validated
         log(f"[5] {rep_d.summary()} batch_s={rep_d.batch_seconds.tolist()}")
         log(f"[5] {direction} hmean TEPS {rep_d.harmonic_mean_teps:.6e} on "
-            f"{card}; distances == push batch, 64 trees valid; "
+            f"{card}; distances == push batch, {n_valid} of 64 trees "
+            f"validated in a second call; "
             f"pull_cols_log={res.pull_cols_log[0][:it].tolist()} "
             f"work_log={res.work_log[0][:it].tolist()}")
-    launches = ops.launch_counts()
+    launches = {k: v for k, v in ops.launch_counts().items()
+                if k in LANE_KERNELS}
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel never ran on the main path: {launches}")
     log(f"[5] main-path launches {launches}; peak device memory "
@@ -434,7 +486,8 @@ def main() -> int:
         + index_bytes
     table = []
 
-    def row(kern, ms, plain_ms, library_ms, moved, ops_needed, **extra):
+    def row(kern, ms, plain_ms, library_ms, moved, ops_needed,
+            semiring_name="tropical", **extra):
         bound_ms = 1e3 * max(moved / HBM_BYTES_PER_S, ops_needed / F32_OPS_PER_S)
         source, replaces = KERNEL_INFO[kern]
         table.append({
@@ -444,7 +497,8 @@ def main() -> int:
             "bound_ms": bound_ms,
             "bound_by": "bytes" if moved / HBM_BYTES_PER_S
             >= ops_needed / F32_OPS_PER_S else "operations",
-            "library_ms": library_ms, "semiring": "tropical", "bytes": moved,
+            "library_ms": library_ms, "semiring": semiring_name,
+            "bytes": moved,
             **extra})
         return bound_ms
 
@@ -503,6 +557,207 @@ def main() -> int:
             f"{push_ms:.4f} ms over {int(push_mask.sum())} tiles | pending "
             f"rows {pending}, tiles kept {int(mask.sum())}, {work} on {card}")
     torch.cuda.synchronize()
+
+    # ---- 7: SlimSell-B, the bit-packed boolean path
+    boolean = semiring.get("boolean")
+    # (a) scale 14: each packed kernel against its plain version, then the
+    # packed path on the card against the packed path on the CPU
+    g7 = np.random.default_rng(7)
+    packed_masks = masks(small, g7, dev)
+    keep_chunk = torch.from_numpy(g7.random(small.n_chunks) < 0.6).to(dev)
+    packed_masks["whole_chunks"] = keep_chunk[small.row_block.long()]
+    n_cases = 0
+    for mask_name, mask in packed_masks.items():
+        for width in (None, 1, 5, 33, 64, 97, 160):
+            for density in (0.02, 0.5):
+                shape = (small.n,) if width is None else (small.n, width)
+                bits = torch.from_numpy(g7.random(shape) < density).to(dev)
+                what = f"B={width} density={density} mask={mask_name}"
+                if width is None:
+                    xw = packing.pack_bits(bits)
+                    check_equal("slimsell_spmv_packed",
+                                ops.spmv_packed(small, xw, tile_mask=mask),
+                                spmv_packed_plain(small, xw, mask), errs, what)
+                else:
+                    xw = packing.pack_bits(bits, axis=1)
+                    check_equal("slimsell_spmm_packed",
+                                ops.spmm_packed(small, xw, tile_mask=mask),
+                                spmm_packed_plain(small, xw, mask), errs, what)
+                n_cases += 1
+    torch.cuda.synchronize()
+    small_cpu = small_host.to_torch("cpu")
+    for kind, mode in (("bfs", "fused"), ("bfs", "hostloop"),
+                       ("multi", "fused"), ("multi", "hostloop")):
+        cfg = EngineConfig(mode=mode)
+        if kind == "bfs":
+            def run(t, d):
+                return bfs(t, root0, "boolean", packed=True, need_parents=True,
+                           log_work=True, config=cfg, device=d)
+            fields = ("distances", "parents", "iterations", "work_log",
+                      "directions")
+        else:
+            def run(t, d):
+                return multi_source_bfs(t, small_roots, "boolean", packed=True,
+                                        need_parents=True, log_work=True,
+                                        config=cfg, device=d)
+            fields = ("distances", "parents", "iterations", "work_log")
+        ref, got = run(small_cpu, "cpu"), run(small, dev)
+        for f in fields:
+            if not np.array_equal(getattr(ref, f), getattr(got, f)):
+                raise AssertionError(f"packed {kind} {mode}: {f} on the card "
+                                     "!= on the CPU")
+    log(f"[7a] packed kernels == plain on {n_cases} cases; packed bfs and "
+        f"multi_source_bfs ({small_roots.size} roots), fused and hostloop: "
+        f"card == CPU at scale {SMALL_SCALE}")
+
+    # (b) scale 20: the packed main path, its launches counted from zero
+    ops.reset_launches()
+    packed_bfs = {}
+    for mode in ("fused", "hostloop"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = bfs(tiled, root, "boolean", packed=True, need_parents=True,
+                  log_work=True, config=EngineConfig(mode=mode), device=dev)
+        dt = time.perf_counter() - t0
+        if res.iterations != lane_boolean.iterations or any(
+                not np.array_equal(getattr(res, f), getattr(lane_boolean, f))
+                for f in ("distances", "work_log")):
+            raise AssertionError(f"packed bfs {mode} != lane-boolean push")
+        validate_bfs_tree(csr, root, res.distances, res.parents,
+                          d_ref=lane_boolean.distances)
+        packed_bfs[mode] = res
+        log(f"[7b] bfs boolean packed push {mode}: root={root} iterations="
+            f"{res.iterations} work_log={res.work_log.tolist()} "
+            f"{dt * 1e3:.1f} ms; == lane-boolean push (distances, "
+            "iterations, work_log), valid DP-parent tree")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pk = multi_source_bfs(tiled, roots, "boolean", packed=True,
+                          need_parents=True, device=dev)
+    first_s = time.perf_counter() - t0
+    if not np.array_equal(pk.distances, push.distances):
+        raise AssertionError("packed batch distances != push batch")
+    n_valid = 0
+    for i, r in enumerate(roots):
+        validate_bfs_tree(csr, int(r), pk.distances[i], pk.parents[i],
+                          d_ref=push.distances[i])
+        n_valid += 1
+    pk_log = multi_source_bfs(tiled, roots, "boolean", packed=True,
+                              log_work=True, device=dev)
+    it = int(pk_log.iterations[0])
+    if it != int(push.iterations[0]) or not np.array_equal(pk_log.work_log,
+                                                           push.work_log):
+        raise AssertionError("packed batch work log != push batch's")
+    packed_launches = {k: v for k, v in ops.launch_counts().items()
+                       if k in PACKED_KERNELS}
+    if min(packed_launches.values()) == 0:
+        raise AssertionError("a packed kernel never ran on the packed main "
+                             f"path: {packed_launches}")
+    launches.update(packed_launches)
+    log(f"[7b] packed batch of the phase-5 roots: distances == push batch, "
+        f"{n_valid} of 64 trees valid, work_log == push batch's "
+        f"{pk_log.work_log[0][:it].tolist()}; first call {first_s:.4f} s; "
+        f"packed main-path launches {packed_launches}")
+    # push and packed batches in turns, with and without parents
+    seconds = {(kind, p): [] for kind in ("push", "packed")
+               for p in (True, False)}
+    for order in (("push", "packed"), ("packed", "push")):
+        for kind in order:
+            for parents in (True, False):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = multi_source_bfs(
+                    tiled, roots, "tropical" if kind == "push" else "boolean",
+                    packed=kind == "packed", need_parents=parents, device=dev)
+                seconds[(kind, parents)].append(time.perf_counter() - t0)
+                if not np.array_equal(res.distances, push.distances):
+                    raise AssertionError(f"{kind} batch distances changed")
+    for (kind, parents), ss in seconds.items():
+        teps = [hmean(batch_teps(csr, push.distances, t)) for t in ss]
+        log(f"[7b] {kind} batch {'with' if parents else 'without'} parents: "
+            f"s={ss} hmean TEPS={teps} on {card}")
+    # single-source lane-boolean and packed push in turns, fused and hostloop
+    ms_bfs = {(kind, mode): [] for kind in ("lane", "packed")
+              for mode in ("fused", "hostloop")}
+    for order in (("lane", "packed"), ("packed", "lane")):
+        for kind in order:
+            for mode in ("fused", "hostloop"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = bfs(tiled, root, "boolean", packed=kind == "packed",
+                          need_parents=True, log_work=True,
+                          config=EngineConfig(mode=mode), device=dev)
+                ms_bfs[(kind, mode)].append(1e3 * (time.perf_counter() - t0))
+                if not np.array_equal(res.work_log, lane_boolean.work_log):
+                    raise AssertionError(f"{kind} bfs {mode} work log changed")
+    log(f"[7b] single-source boolean push, with parents, ms in turns: "
+        + ", ".join(f"{kind} {mode} {v}" for (kind, mode), v in ms_bfs.items())
+        + f" on {card}")
+
+    # (c) each packed kernel at the real state of its iteration with the
+    # most tiles: with that iteration's push mask, and with every tile kept
+    slots = tile_slots(tiled) * tiled.C
+    for kern, spec, arg, wl, width in (
+            ("slimsell_spmv_packed", packed_bfs_spec(tiled.n), root,
+             packed_bfs["fused"].work_log, None),
+            ("slimsell_spmm_packed", packed_multi_bfs_spec(B),
+             torch.from_numpy(roots), pk_log.work_log[0][:it], B)):
+        k = 1 + int(np.argmax(wl))
+        st = engine.run_fused(spec, tiled, arg, max_iters=k - 1).state
+        xw, bits = spec.frontier(st, k), spec.source_bits(st, k)
+        mask = dm.push_tile_mask(tiled, bits)
+        fn = ops.spmv_packed if width is None else ops.spmm_packed
+        plain_fn = spmv_packed_plain if width is None else spmm_packed_plain
+        for m in (mask, full):
+            check_equal(kern, fn(tiled, xw, tile_mask=m),
+                        plain_fn(tiled, xw, m), errs,
+                        f"scale {SCALE} real state, iteration {k}")
+        n_kept = int(mask.sum())
+        ms = time_ms(lambda: fn(tiled, xw, tile_mask=full), 20)
+        masked_ms = time_ms(lambda: fn(tiled, xw, tile_mask=mask), 20)
+        plain_ms = time_ms(lambda: plain_fn(tiled, xw, full), 3)
+        # the lane kernel over the same frontier as int32 0/1 lanes
+        xl = bits.to(torch.int32).contiguous()
+        lane_fn = ops.spmv if width is None else ops.spmm
+        lane_ms = time_ms(lambda: lane_fn(boolean, tiled, xl, tile_mask=full),
+                          20)
+        xr = bits.float()
+        lib = (lambda: adj @ xr) if width is None \
+            else (lambda: torch.sparse.mm(adj, xr))
+        library_ms = time_ms(lib, 20)
+        # cols up to cl + indices + x words in + y words out; a shift and
+        # an OR per slot (SpMV) or one OR per slot and word (SpMM), integer
+        # work counted against the float32 rate of the CUDA cores
+        words = xw.numel()
+        per_slot = 2 if width is None else xw.shape[1]
+        moved = layout_bytes + 2 * 4 * words
+        masked_moved = 4 * int(slots[mask].sum()) + index_bytes + 2 * 4 * words
+        masked_bound_ms = 1e3 * max(masked_moved / HBM_BYTES_PER_S,
+                                    per_slot * edges / F32_OPS_PER_S)
+        bound_ms = row(kern, ms, plain_ms, library_ms, moved,
+                       per_slot * edges, semiring_name="boolean_packed",
+                       batch=width or 1, iteration=k, tiles_kept=n_kept,
+                       masked_ms=masked_ms, masked_bound_ms=masked_bound_ms,
+                       lane_ms=lane_ms,
+                       library_call=("torch.sparse.mm" if width else
+                                     "sparse CSR @ x") + " (real, unpacked "
+                       "frontier; not the same function)")
+        log(f"[7c] {kern} B={width or 1} at iteration {k}: every tile kept "
+            f"kernel {ms:.4f} ms plain {plain_ms:.3f} ms lane boolean kernel "
+            f"{lane_ms:.4f} ms library (not the same function) "
+            f"{library_ms:.4f} ms bound {bound_ms:.4f} ms ({moved / 1e9:.4f} "
+            f"GB) | iteration mask ({n_kept} tiles) kernel {masked_ms:.4f} ms "
+            f"bound {masked_bound_ms:.4f} ms ({masked_moved / 1e9:.4f} GB) on "
+            f"{card}")
+    torch.cuda.synchronize()
+
+    # (d) the paper's storage accounting at scale 20
+    store = storage_summary(csr, C=8, L=128)
+    log(f"[7d] storage in 32-bit cells (paper Table III) at scale {SCALE}: "
+        f"{dataclasses.asdict(store)}; SlimSell / Sell-C-sigma "
+        f"{store.slimsell_vs_sellcs:.4f}, SlimSell / AL "
+        f"{store.slimsell_vs_al:.4f}; a packed frontier is "
+        f"{packing.packed_words(csr.n)} words, a lane one {csr.n}")
 
     print(json.dumps({"kernels": table}))
     print(card)

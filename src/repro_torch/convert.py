@@ -69,7 +69,14 @@ def _chunk_extent(host: SlimSellTiled) -> np.ndarray:
 
 def state_from_arrays(state: Mapping[str, np.ndarray], device=None) -> dict:
     """A BFS state dict (``d``, ``f``, ``visited``, ``x``, ``p``: whichever
-    the semiring carries) as tensors on ``device`` (default: the card)."""
+    the semiring carries) as tensors on ``device`` (default: the card).
+    Packed words (uint32 in the JAX package) arrive as int32 with the same
+    bit patterns, the port's storage for them (``core.packing``)."""
     dev = resolve_device(device)
-    return {k: torch.from_numpy(np.array(v, copy=True)).to(dev)
-            for k, v in state.items()}
+    out = {}
+    for k, v in state.items():
+        v = np.array(v, copy=True)
+        if v.dtype == np.uint32:
+            v = v.view(np.int32)
+        out[k] = torch.from_numpy(v).to(dev)
+    return out

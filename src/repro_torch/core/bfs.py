@@ -17,6 +17,10 @@ auxiliary state the update needs, is the paper's storage/work tradeoff
 sel-max is the only semiring whose result is the BFS tree; the other three
 get parents from one sel-max DP sweep (``dp_transform``). The iteration
 itself lives in ``core.engine``; BFS is the spec ``bfs_spec(semiring)``.
+
+SlimSell-B (``packed=True``) runs the boolean recurrence over bit-packed
+frontier and visited bitmaps of ``ceil(n/32)`` words
+(``packed_bfs_spec``): the same distances, a 32x smaller state.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import torch
 
 from . import direction as dm
 from . import engine as eng
+from . import packing
 from .formats import resolve_device
 from .options import BFS_SEMIRINGS, EngineConfig
 from .spmv import _combine_and_scatter
@@ -148,6 +153,48 @@ def bfs_spec(sr_name: str) -> eng.FixpointSpec:
     )
 
 
+@functools.lru_cache(maxsize=None)
+def packed_bfs_spec(n: int) -> eng.FixpointSpec:
+    """SlimSell-B single-source BFS: boolean BFS with its frontier and
+    visited bitmaps packed to int32[ceil(n/32)] words.
+
+    The recurrence of ``bfs_spec("boolean")``, with word-wise mask math
+    (``new = y & ~visited``; ``~`` on int32 flips the same 32 bits) and the
+    packed SpMV as the sweep. Only the distance stamp unpacks. Tail bits
+    stay zero: y's are, and AND keeps them so. Push-only.
+    """
+
+    def init_state(n_, root, device):
+        d = torch.full((n,), -1, dtype=torch.int32, device=device)
+        d[root] = 0
+        bits = torch.zeros(n, dtype=torch.bool, device=device)
+        bits[root] = True
+        f = packing.pack_bits(bits)
+        return {"d": d, "f": f, "visited": f.clone()}
+
+    def update(state, y, k):
+        new_w = y & ~state["visited"]
+        d = torch.where(packing.unpack_bits(new_w, n), k, state["d"])
+        return ({"d": d, "f": new_w, "visited": state["visited"] | new_w},
+                (new_w != 0).any())
+
+    def host_bits(state, k, need_sb, need_nf):
+        # push-only: the hostloop asks for the source bits alone
+        sb = packing.unpack_bits_np(state["f"].cpu().numpy(), n) \
+            if need_sb else None
+        return sb, None
+
+    return eng.FixpointSpec(
+        name="bfs/boolean_packed",
+        sr_name="boolean_packed",
+        init_state=init_state,
+        frontier=lambda state, k: state["f"],
+        source_bits=lambda state, k: packing.unpack_bits(state["f"], n),
+        update=update,
+        host_bits=host_bits,
+    )
+
+
 # ---------------------------------------------------------------- DP transform
 
 
@@ -197,6 +244,18 @@ def check_bfs_options(fn_name: str, semiring: str, tiled, slimwork: bool,
                          f"up to 2^24); use another semiring for n={tiled.n}")
 
 
+def _check_packed(fn_name: str, semiring: str, direction: str):
+    """Validation of ``packed=True``: the packed path is the boolean
+    recurrence over packed words, push only."""
+    if semiring != "boolean":
+        raise ValueError(f"{fn_name}: packed=True is the bit-packed boolean "
+                         f"path; got semiring={semiring!r}")
+    if direction != "push":
+        raise ValueError(f"{fn_name}: packed=True is push-only (packed "
+                         "payloads carry no per-row ordering for the pull "
+                         f"early-exit); got direction={direction!r}")
+
+
 def on_device(tiled, device):
     """The layout on the entry point's device: a host layout is moved there;
     a device layout must already be on it (the entry points never move a
@@ -213,6 +272,7 @@ def on_device(tiled, device):
 
 def bfs(tiled, root: int, semiring: str = "tropical", *,
         need_parents: bool = False, slimwork: bool = True,
+        packed: bool = False,
         max_iters: Optional[int] = None, log_work: bool = False,
         config: Optional[EngineConfig] = None, device=None) -> BFSResult:
     """Run BFS from ``root``; returns distances (+parents) in vertex space.
@@ -229,22 +289,29 @@ def bfs(tiled, root: int, semiring: str = "tropical", *,
     the direction of each iteration under ``log_work`` or "hostloop", and
     also otherwise unless the direction is "auto"; ``work_log`` is kept
     under ``log_work`` or "hostloop".
+    packed: SlimSell-B, the boolean recurrence over bit-packed
+    int32[ceil(n/32)] frontier and visited bitmaps and the packed sweep
+    (needs ``semiring="boolean"`` and the push direction); the same
+    distances with a 32x smaller state. Parents come from the DP pass.
     device: where to run; None means the card (raises when there is none).
     """
     config = config if config is not None else EngineConfig()
     check_bfs_options("bfs", semiring, tiled, slimwork, config)
+    if packed:
+        _check_packed("bfs", semiring, config.direction)
     tiled = on_device(tiled, device)
     root = int(root)
     if not 0 <= root < tiled.n:
         raise ValueError(f"root {root} outside [0, {tiled.n})")
     max_iters = int(max_iters) if max_iters is not None else tiled.n
+    spec = packed_bfs_spec(tiled.n) if packed else bfs_spec(semiring)
     if config.mode == "fused":
-        res = eng.run_fused(bfs_spec(semiring), tiled, root, slimwork=slimwork,
+        res = eng.run_fused(spec, tiled, root, slimwork=slimwork,
                             max_iters=max_iters, log_work=log_work,
                             direction=config.direction)
     else:
-        res = eng.run_hostloop(bfs_spec(semiring), tiled, root,
-                               slimwork=slimwork, max_iters=max_iters,
+        res = eng.run_hostloop(spec, tiled, root, slimwork=slimwork,
+                               max_iters=max_iters,
                                direction=config.direction)
     state = res.state
     parents = None

@@ -31,6 +31,13 @@ Spec callables (B = batch width for ``batched`` specs):
   ``host_bits``     (state, k, need_sb, need_nf) -> numpy (sb, nf), each
                     None unless asked for
   ================= ======================================================
+
+A spec over the "or" semiring (``boolean_packed``, SlimSell-B) sweeps
+packed int32 words (``core.packing``): a single-source one a frontier
+bitmap of ``ceil(n/32)`` words through ``slimsell_spmv_packed``, a batched
+one word planes [n, ceil(B/32)] through ``slimsell_spmm``. Its
+``source_bits`` are unpacked [n] / [n, B] bits as for any spec. Packed
+sweeps are push-only: ``_sweep`` raises on a pull sweep of one.
 """
 from __future__ import annotations
 
@@ -44,7 +51,7 @@ from . import direction as dm
 from . import semiring as sm
 from .options import DIRECTIONS, check_choice
 from .spmv import (slimsell_pull, slimsell_pull_mm, slimsell_spmm,
-                   slimsell_spmv)
+                   slimsell_spmv, slimsell_spmv_packed)
 
 WORK_LOG = 512  # max logged iterations
 
@@ -94,8 +101,14 @@ def _sweep(spec: FixpointSpec, tiled, x: torch.Tensor,
            tile_mask: Optional[torch.Tensor],
            rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One sweep: push without ``rows``, pull over the not-final ``rows``
-    with them; the matrix form for batched specs."""
+    with them; the matrix form for batched specs, the packed sweeps under
+    the "or" semiring (``slimsell_spmm`` routes the batched one)."""
     sr = sm.get(spec.sr_name)
+    if sr.reduction == "or":
+        if rows is not None:
+            raise ValueError(f"{spec.name}: packed sweeps are push-only")
+        if not spec.batched:
+            return slimsell_spmv_packed(tiled, x, tile_mask=tile_mask)
     if rows is not None:
         if spec.batched:
             return slimsell_pull_mm(sr, tiled, x, row_mask=rows,
@@ -212,7 +225,7 @@ def _run_fused_batched(spec: FixpointSpec, tiled, state: dict,
     over the union of the push mask of its push columns and the pull mask
     of its pull columns, as the JAX package does."""
     device = tiled.cols.device
-    B = spec.frontier(state, 1).shape[1]
+    B = state["d"].shape[1]  # a packed frontier is ceil(B/32) words wide
     dcur = torch.full((B,), dm.PULL if direction == "pull" else dm.PUSH,
                       dtype=torch.int32, device=device)
     plog = torch.zeros_like(work)
@@ -329,7 +342,8 @@ def run_hostloop(spec: FixpointSpec, tiled, arg, *, slimwork: bool = True,
         dir_list.append(dcur)
         x = spec.frontier(state, k)
         if used == 0:
-            y = torch.full_like(x, sr.zero)  # what an empty tile set gives
+            # what an empty tile set gives: zero words for a packed spec
+            y = torch.full_like(x, sr.zero)
         else:
             y = _sweep(spec, tiled, x, mask,
                        spec.not_final(state) if pull else None)

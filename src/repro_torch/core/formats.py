@@ -22,6 +22,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .packing import packed_words
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: the card unless the caller names
@@ -180,6 +182,18 @@ class SlimSellTiled:
         return dataclasses.replace(self, device=dev, **moved)
 
 
+def layout_signature(tiled: SlimSellTiled) -> tuple:
+    """Stable hashable identity of a built layout's shapes: two layouts
+    with equal signatures give the engine the same shapes (tile grid,
+    chunk count, push index and weights present or not). It hashes
+    shapes, not contents. The last element is the SlimSell-B word count
+    ``ceil(n/32)`` of the packed frontier and visited bitmaps."""
+    return (int(tiled.n), int(tiled.m_undirected), int(tiled.C),
+            int(tiled.L), int(tiled.sigma), int(tiled.n_chunks),
+            int(tiled.n_tiles), tiled.inc_src is not None,
+            tiled.wts is not None, packed_words(tiled.n))
+
+
 def chunk_tile_ptr(row_block: np.ndarray, n_chunks: int) -> np.ndarray:
     """int32[n_chunks + 1] tile offsets of each chunk; needs ``row_block``
     sorted, which holds because a chunk's tiles are contiguous."""
@@ -218,6 +232,17 @@ def build_push_index(cols: np.ndarray,
     return inc_src[order], inc_tile[order]
 
 
+def _sorted_chunk_lengths(deg: np.ndarray, C: int, sigma: int):
+    """(perm, cl): the Sell-C-sigma row order and each chunk's length, the
+    longest row of its C rows after the sigma-scoped sort (int64)."""
+    n = deg.shape[0]
+    perm = sellcs_order(deg, sigma)
+    n_chunks = math.ceil(n / C)
+    pdeg = np.zeros(n_chunks * C, dtype=np.int64)
+    pdeg[:n] = deg[perm]
+    return perm, pdeg.reshape(n_chunks, C).max(axis=1)
+
+
 def build_slimsell(csr: CSRGraph, *, C: int = 8, L: int = 128,
                    sigma: Optional[int] = None) -> SlimSellTiled:
     """Construct the tiled SlimSell layout from CSR (paper §III-B + §III-D).
@@ -227,13 +252,9 @@ def build_slimsell(csr: CSRGraph, *, C: int = 8, L: int = 128,
     n, deg = csr.n, csr.deg
     weighted = csr.weights is not None
     sigma = n if sigma is None else max(1, min(int(sigma), n))
-    perm = sellcs_order(deg, sigma)
-    n_chunks = math.ceil(n / C)
-
-    # chunk lengths = longest row in each chunk (after the sigma-scoped sort)
-    pdeg = np.zeros(n_chunks * C, dtype=np.int64)
-    pdeg[:n] = deg[perm]
-    cl = pdeg.reshape(n_chunks, C).max(axis=1).astype(np.int32)
+    perm, cl = _sorted_chunk_lengths(deg, C, sigma)
+    cl = cl.astype(np.int32)
+    n_chunks = cl.size
 
     tiles_per_chunk = np.maximum(1, np.ceil(cl / L).astype(np.int64))
     n_tiles = int(tiles_per_chunk.sum())
@@ -272,4 +293,51 @@ def build_slimsell(csr: CSRGraph, *, C: int = 8, L: int = 128,
         n_chunks=n_chunks, n_tiles=n_tiles, cols=cols, row_block=row_block,
         row_vertex=row_vertex, tile_ptr=tile_start.astype(np.int32), cl=cl,
         deg=deg, inc_src=inc_src, inc_tile=inc_tile, inc_ptr=inc_ptr, wts=wts,
+    )
+
+
+# ----------------------------------------------------------- storage accounting
+
+
+@dataclasses.dataclass(frozen=True)
+class StorageSummary:
+    """Sizes in 32-bit cells (paper Table III)."""
+    n: int
+    m: int
+    nnz: int
+    padding_flat: int    # P with paper-exact (per-chunk) padding
+    padding_tiled: int   # P with L-granular SlimChunk tiling
+    csr: int
+    al: int
+    sell_c_sigma: int
+    slimsell: int
+    slimsell_tiled: int
+
+    @property
+    def slimsell_vs_sellcs(self) -> float:
+        return self.slimsell / self.sell_c_sigma
+
+    @property
+    def slimsell_vs_al(self) -> float:
+        return self.slimsell / self.al
+
+
+def storage_summary(csr: CSRGraph, *, C: int = 8, L: int = 128,
+                    sigma: Optional[int] = None) -> StorageSummary:
+    """The storage of CSR, an adjacency list, Sell-C-sigma and SlimSell
+    (flat and tiled) for one graph, in 32-bit cells (paper Table III)."""
+    n, nnz = csr.n, csr.nnz
+    sigma = n if sigma is None else max(1, min(int(sigma), n))
+    _, cl = _sorted_chunk_lengths(csr.deg, C, sigma)
+    n_chunks = cl.size
+    flat_cells = int((cl * C).sum())
+    tiled_cells = int((np.maximum(1, np.ceil(cl / L)) * L * C).sum())
+    return StorageSummary(
+        n=n, m=csr.m_undirected, nnz=nnz, padding_flat=flat_cells - nnz,
+        padding_tiled=tiled_cells - nnz,
+        csr=2 * nnz + n,
+        al=nnz + n,
+        sell_c_sigma=2 * flat_cells + 2 * n_chunks,
+        slimsell=flat_cells + 2 * n_chunks,
+        slimsell_tiled=tiled_cells + 2 * n_chunks,
     )

@@ -16,6 +16,10 @@ root carries its own push/pull state (Beamer's switch on its own frontier
 statistics) and the per-column directions compose into one union tile
 mask for the SpMM. ``direction="pull"`` runs the batched bottom-up sweep
 (``slimsell_pull_mm``), whose early exit is per (row, column).
+
+SlimSell-B (``packed=True``) packs the B root columns into ``ceil(B/32)``
+word planes (``packed_multi_bfs_spec``), and one word-wise SpMM advances
+32 traversals per word.
 """
 from __future__ import annotations
 
@@ -28,10 +32,11 @@ import torch
 
 from . import direction as dm
 from . import engine as eng
+from . import packing
 from . import semiring as sm
-from .bfs import (_frontier_payload, _ids1, _not_final, check_bfs_options,
-                  dp_transform, host_direction_bits, on_device,
-                  semiring_update)
+from .bfs import (_check_packed, _frontier_payload, _ids1, _not_final,
+                  check_bfs_options, dp_transform, host_direction_bits,
+                  on_device, semiring_update)
 from .options import EngineConfig
 
 
@@ -117,9 +122,57 @@ def multi_bfs_spec(sr_name: str) -> eng.FixpointSpec:
     )
 
 
+@functools.lru_cache(maxsize=None)
+def packed_multi_bfs_spec(B: int) -> eng.FixpointSpec:
+    """SlimSell-B multi-source BFS: ``B`` roots become ``ceil(B/32)``
+    packed word planes; frontier and visited are int32[n, ceil(B/32)]
+    (roots packed along axis 1) and one word-wise SpMM advances 32
+    traversals per word.
+
+    The per-column recurrence of ``multi_bfs_spec("boolean")`` with
+    word-wise mask math; only the distance stamp unpacks. The padding bits
+    above B in the last plane stay zero. Push-only.
+    """
+
+    def init_state(n, roots, device):
+        roots = roots.to(device=device, dtype=torch.long)
+        cols = torch.arange(B, device=device)
+        d = torch.full((n, B), -1, dtype=torch.int32, device=device)
+        d[roots, cols] = 0
+        bits = torch.zeros((n, B), dtype=torch.bool, device=device)
+        bits[roots, cols] = True
+        f = packing.pack_bits(bits, axis=1)             # [n, ceil(B/32)]
+        return {"d": d, "f": f, "visited": f.clone()}
+
+    def update(state, y, k):
+        new_w = y & ~state["visited"]
+        d = torch.where(packing.unpack_bits(new_w, B, axis=1), k, state["d"])
+        return ({"d": d, "f": new_w, "visited": state["visited"] | new_w},
+                (new_w != 0).any())
+
+    def host_bits(state, k, need_sb, need_nf):
+        # push-only: the hostloop unions these columns into one tile set
+        sb = packing.unpack_bits_np(state["f"].cpu().numpy(), B, axis=1) \
+            if need_sb else None
+        return sb, None
+
+    return eng.FixpointSpec(
+        name="multi_bfs/boolean_packed",
+        sr_name="boolean_packed",
+        batched=True,
+        init_state=init_state,
+        frontier=lambda state, k: state["f"],
+        source_bits=lambda state, k: packing.unpack_bits(state["f"], B,
+                                                         axis=1),
+        update=update,
+        host_bits=host_bits,
+    )
+
+
 def multi_source_bfs(tiled, roots: Sequence[int],
                      semiring: str = "tropical", *,
                      need_parents: bool = False, slimwork: bool = True,
+                     packed: bool = False,
                      batch_size: Optional[int] = None,
                      max_iters: Optional[int] = None,
                      log_work: bool = False,
@@ -133,10 +186,15 @@ def multi_source_bfs(tiled, roots: Sequence[int],
     ``log_work``) counts the columns that ran pull in each iteration; the
     batched "hostloop" mode is push-only and raises NotImplementedError
     for pull and auto.
+    packed: SlimSell-B, the B root columns packed into ``ceil(B/32)`` word
+    planes and swept word-wise (needs ``semiring="boolean"`` and the push
+    direction); the same distances with a 32x narrower frontier state.
     device: where to run; None means the card (raises when there is none).
     """
     config = config if config is not None else EngineConfig()
     check_bfs_options("multi_source_bfs", semiring, tiled, slimwork, config)
+    if packed:
+        _check_packed("multi_source_bfs", semiring, config.direction)
     tiled = on_device(tiled, device)
     roots = np.asarray(roots, np.int32).reshape(-1)
     if roots.size == 0:
@@ -150,14 +208,14 @@ def multi_source_bfs(tiled, roots: Sequence[int],
     p_out = np.empty((roots.size, n), np.int32) if need_parents else None
     iters, work_rows, plog_rows = [], [], []
     for start, batch, batch_p in _iter_batches(roots, batch_size):
+        spec = packed_multi_bfs_spec(batch_p.size) if packed \
+            else multi_bfs_spec(semiring)
         if config.mode == "fused":
-            res = eng.run_fused(multi_bfs_spec(semiring), tiled,
-                                torch.from_numpy(batch_p), slimwork=slimwork,
-                                max_iters=max_iters, log_work=log_work,
-                                direction=config.direction)
+            res = eng.run_fused(spec, tiled, torch.from_numpy(batch_p),
+                                slimwork=slimwork, max_iters=max_iters,
+                                log_work=log_work, direction=config.direction)
         else:
-            res = eng.run_hostloop(multi_bfs_spec(semiring), tiled,
-                                   torch.from_numpy(batch_p),
+            res = eng.run_hostloop(spec, tiled, torch.from_numpy(batch_p),
                                    slimwork=slimwork, max_iters=max_iters,
                                    direction=config.direction)
         state = res.state

@@ -17,6 +17,10 @@ DIRECTIONS = ("push", "pull", "auto")
 # the BFS engines accept exactly the paper's four semirings
 BFS_SEMIRINGS = ("tropical", "real", "boolean", "selmax")
 
+# every registered semiring: "boolean_packed" is SlimSell-B's word domain,
+# boolean over packed words, reached through packed=True rather than named
+SEMIRINGS = BFS_SEMIRINGS + ("boolean_packed",)
+
 
 def check_choice(name: str, value, allowed: Sequence[str], *,
                  hint: str = ""):

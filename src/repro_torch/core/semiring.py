@@ -14,8 +14,15 @@ semiring     (add, mul, zero, one)         payload carried in-band   code
 ``selmax``   (max, *,  0,   1)             parent ids (1-based)      3
 ============ ============================= ========================= ====
 
+``boolean_packed`` (SlimSell-B, code 4) is boolean over packed words: add
+is word-wise OR, mul word-wise AND, zero the empty word and ``one`` (and
+the implicit edge value) the all-ones word, -1 in the int32 storage of
+``core.packing``. It is reached through ``packed=True``, not by name.
+
 ``code`` is the integer the CUDA kernels switch on; the kernel sources
-carry the same four cases (``kernels/csrc/semiring.cuh``).
+carry the four BFS cases (``kernels/csrc/semiring.cuh``), and the packed
+sweeps have kernels of their own (``slimsell_spmv_packed.cu``,
+``slimsell_spmm_packed.cu``).
 """
 from __future__ import annotations
 
@@ -24,7 +31,8 @@ from typing import Callable
 
 import torch
 
-from .options import BFS_SEMIRINGS
+from . import packing
+from .options import SEMIRINGS as REGISTERED
 
 _REDUCE = {"min": "amin", "max": "amax", "sum": "sum"}
 
@@ -36,7 +44,7 @@ class Semiring:
     zero: float  # additive identity == padding contribution
     one: float   # multiplicative identity
     mul: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
-    reduction: str  # add-monoid kind: "min" | "max" | "sum"
+    reduction: str  # add-monoid kind: "min" | "max" | "sum" | "or"
     code: int       # the kernels' switch value
     # the implicit SlimSell edge value the sweep multiplies in (derived
     # from ``cols``, never stored)
@@ -44,7 +52,11 @@ class Semiring:
 
     @property
     def scatter_reduce(self) -> str:
-        """The ``torch.scatter_reduce`` name of the add-monoid."""
+        """The ``torch.scatter_reduce`` name of the add-monoid (torch has
+        none for "or": ``packing.segment_or`` combines packed words)."""
+        if self.reduction == "or":
+            raise ValueError(f"{self.name}: torch has no OR scatter; use "
+                             "packing.segment_or")
         return _REDUCE[self.reduction]
 
     def reduce(self, x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -53,10 +65,13 @@ class Semiring:
             return x.amin(dim=dim)
         if self.reduction == "max":
             return x.amax(dim=dim)
+        if self.reduction == "or":
+            return packing.or_reduce(x, (dim,))
         return x.sum(dim=dim)
 
     def edge(self, x: torch.Tensor) -> torch.Tensor:
-        """``mul(edge_value, x)``: x+1 under tropical, x otherwise."""
+        """``mul(edge_value, x)``: x+1 under tropical, x otherwise (the
+        all-ones word under boolean_packed, which ANDs to x)."""
         return self.mul(torch.tensor(self.edge_value, dtype=x.dtype,
                                      device=x.device), x)
 
@@ -82,8 +97,17 @@ SELMAX = Semiring(
     mul=torch.mul, reduction="max", code=3,
 )
 
-SEMIRINGS = {s.name: s for s in (TROPICAL, REAL, BOOLEAN, SELMAX)}
-assert tuple(SEMIRINGS) == BFS_SEMIRINGS, (tuple(SEMIRINGS), BFS_SEMIRINGS)
+# SlimSell-B: 32 reachability bits per int32 word; the implicit edge value
+# is the all-ones word, so an edge passes every bit of the gathered word
+BOOLEAN_PACKED = Semiring(
+    name="boolean_packed", dtype=torch.int32, zero=0, one=packing.FULL_WORD,
+    mul=torch.bitwise_and, reduction="or", code=4,
+    edge_value=packing.FULL_WORD,
+)
+
+SEMIRINGS = {s.name: s for s in (TROPICAL, REAL, BOOLEAN, SELMAX,
+                                 BOOLEAN_PACKED)}
+assert tuple(SEMIRINGS) == REGISTERED, (tuple(SEMIRINGS), REGISTERED)
 
 
 def get(name: str) -> Semiring:

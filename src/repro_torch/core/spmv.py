@@ -6,6 +6,10 @@
 * ``slimsell_pull`` / ``slimsell_pull_mm`` — the bottom-up (pull) sweeps
   of direction-optimizing BFS over the not-final rows, with a per-row
   (per (row, column)) early exit.
+* ``slimsell_spmv_packed`` and ``slimsell_spmm`` under ``boolean_packed``
+  — the SlimSell-B sweeps over packed words (``core.packing``): a
+  frontier bitmap of ``ceil(n/32)`` words, or ``ceil(B/32)`` word planes
+  of a batch.
 
 Both take the implicit edge value (``val`` is never stored): an edge
 contributes ``mul(edge_value, x[col])`` and a padding slot (col == -1) the
@@ -32,7 +36,8 @@ from typing import Optional
 
 import torch
 
-from .semiring import Semiring
+from . import packing
+from .semiring import BOOLEAN, Semiring
 
 # bytes one slice of the plain version's [t, C, L(, B)] gather may take
 _GATHER_BYTES = 1 << 30
@@ -161,6 +166,53 @@ def pull_plain(sr: Semiring, tiled, x: torch.Tensor, row_mask: torch.Tensor,
                          tile_mask)[:, 0]
 
 
+def spmv_packed_plain(tiled, x_words: torch.Tensor,
+                      tile_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain packed SpMV: int32[ceil(n/32)] frontier bitmap -> packed
+    reach bitmap of the same shape. Gathers the word holding each
+    column's bit and extracts the bit, ORs over L (a max of 0/1), combines
+    the tiles of each chunk, scatters to vertex space and packs again."""
+    T, C, L = tiled.cols.shape
+    step = max(1, _GATHER_BYTES // (C * L * 4))
+    y_blocks = torch.zeros((tiled.n_chunks, C), dtype=torch.int32,
+                           device=x_words.device)
+    for t0 in range(0, T, step):
+        cols = tiled.cols[t0:t0 + step]
+        bit = packing.gather_bits(x_words, cols.clamp_min(0))   # [t, C, L]
+        red = torch.where(cols < 0, 0, bit).amax(dim=2)         # [t, C]
+        if tile_mask is not None:
+            red = torch.where(tile_mask[t0:t0 + step, None], red, 0)
+        idx = tiled.row_block[t0:t0 + step].long()[:, None].expand_as(red)
+        y_blocks.scatter_reduce_(0, idx, red, "amax", include_self=True)
+    return packing.pack_bits(_combine_and_scatter(BOOLEAN, tiled, y_blocks) > 0)
+
+
+def spmm_packed_plain(tiled, X_words: torch.Tensor,
+                      tile_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain packed-plane SpMM: X int32[n, Wb] (32 roots per word) ->
+    Y int32[n, Wb]. The word-wise OR of ``X[col, :]`` over L and over the
+    chunk's kept tiles (the all-ones edge word ANDs to a no-op); each
+    vertex owns one chunk row, which lands straight in Y."""
+    T, C, L = tiled.cols.shape
+    Wb = X_words.shape[1]
+    step = max(1, _GATHER_BYTES // (C * L * Wb * 4))
+    y_blocks = torch.zeros((tiled.n_chunks, C, Wb), dtype=torch.int32,
+                           device=X_words.device)
+    for t0 in range(0, T, step):
+        cols = tiled.cols[t0:t0 + step]
+        g = X_words.index_select(0, cols.clamp_min(0).reshape(-1)).reshape(
+            tuple(cols.shape) + (Wb,))
+        red = packing.or_reduce(torch.where(cols[..., None] < 0, 0, g), (2,))
+        if tile_mask is not None:
+            red = torch.where(tile_mask[t0:t0 + step, None, None], red, 0)
+        y_blocks |= packing.segment_or(red, tiled.row_block[t0:t0 + step],
+                                       tiled.n_chunks)
+    rv = tiled.row_vertex.reshape(-1).long()
+    Y = torch.zeros((tiled.n + 1, Wb), dtype=torch.int32, device=X_words.device)
+    Y[torch.where(rv < 0, tiled.n, rv)] = y_blocks.reshape(-1, Wb)
+    return Y[: tiled.n]
+
+
 def slimsell_spmv(sr: Semiring, tiled, x: torch.Tensor, *,
                   tile_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y = A (x) over semiring ``sr``; x [n] -> y [n] in vertex space."""
@@ -171,9 +223,24 @@ def slimsell_spmv(sr: Semiring, tiled, x: torch.Tensor, *,
 def slimsell_spmm(sr: Semiring, tiled, X: torch.Tensor, *,
                   tile_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Y = A (X) over semiring ``sr``; X [n, B] -> Y [n, B] in vertex space.
-    ``tile_mask`` applies SlimWork to the whole batch at once."""
+    ``tile_mask`` applies SlimWork to the whole batch at once. Under the
+    "or" semiring (``boolean_packed``) X holds packed word planes
+    [n, ceil(B/32)] and the sweep takes the word-wise packed kernel."""
     from ..kernels import ops  # deferred: the kernels import this module
+    if sr.reduction == "or":
+        return ops.spmm_packed(tiled, X, tile_mask=tile_mask)
     return ops.spmm(sr, tiled, X, tile_mask=tile_mask)
+
+
+def slimsell_spmv_packed(tiled, x_words: torch.Tensor, *,
+                         tile_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """SlimSell-B single-source sweep: packed frontier in, packed result
+    out. ``x_words`` is int32[ceil(n/32)], bit ``v`` set iff vertex ``v``
+    is in the frontier; returns the packed reach bitmap
+    ``y[v] = OR_u A[v,u] & x[u]`` of the same shape, its tail padding bits
+    zero."""
+    from ..kernels import ops  # deferred: the kernels import this module
+    return ops.spmv_packed(tiled, x_words, tile_mask=tile_mask)
 
 
 def slimsell_pull(sr: Semiring, tiled, x: torch.Tensor, *,

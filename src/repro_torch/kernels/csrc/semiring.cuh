@@ -4,6 +4,8 @@
 //   1 real     (sum, x,   zero 0)      float
 //   2 boolean  (max, x,   zero 0)      int32
 //   3 selmax   (max, x,   zero 0)      float
+// (code 4, boolean_packed, has no case here: the packed sweeps have
+// kernels of their own, slimsell_spmv_packed.cu and slimsell_spmm_packed.cu)
 // `edge` is mul(implicit edge value 1, x): the value is worked out here and
 // never loaded (SlimSell stores no `val`). A padding slot (col < 0) is
 // skipped, which is the same as contributing `zero`.

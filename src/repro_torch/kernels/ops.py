@@ -6,6 +6,10 @@ current stream (a CUDA tensor). On CUDA there is no fallback: a kernel that
 does not build or launch raises. ``Kernel.launches`` counts the launches,
 so a run can show that its path went through the kernel.
 
+The packed kernels (SlimSell-B) sweep int32 words that hold 32 bits each
+(``core.packing``): ``spmv_packed`` a frontier bitmap of ``ceil(n/32)``
+words, ``spmm_packed`` the ``ceil(B/32)`` word planes of a batch.
+
 The kernels take the SlimWork mask as the bool ``tile_mask`` itself and
 write straight into vertex space through ``row_vertex``, so neither the
 TPU wrapper's tile-id compaction nor its chunk-row scatter epilogue is
@@ -21,8 +25,10 @@ from typing import Optional
 
 import torch
 
-from ..core.semiring import Semiring
-from ..core.spmv import pull_mm_plain, pull_plain, spmm_plain, spmv_plain
+from ..core import packing
+from ..core.semiring import BOOLEAN_PACKED, Semiring
+from ..core.spmv import (pull_mm_plain, pull_plain, spmm_packed_plain,
+                         spmm_plain, spmv_packed_plain, spmv_plain)
 from . import build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -67,7 +73,11 @@ PULL = Kernel("slimsell_pull",
               [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
 PULL_MM = Kernel("slimsell_pull_mm",
                  [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
-KERNELS = (SPMV, SPMM, PULL, PULL_MM)
+SPMV_PACKED = Kernel("slimsell_spmv_packed",
+                     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
+SPMM_PACKED = Kernel("slimsell_spmm_packed",
+                     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+KERNELS = (SPMV, SPMM, PULL, PULL_MM, SPMV_PACKED, SPMM_PACKED)
 
 
 def reset_launches() -> None:
@@ -80,9 +90,12 @@ def launch_counts() -> dict:
 
 
 def _check(sr: Semiring, tiled, x: torch.Tensor, ndim: int,
-           tile_mask: Optional[torch.Tensor]) -> None:
-    if x.ndim != ndim or x.shape[0] != tiled.n:
-        shape = f"[{tiled.n}]" if ndim == 1 else f"[{tiled.n}, B]"
+           tile_mask: Optional[torch.Tensor], rows: Optional[int] = None) -> None:
+    """Shape, type and device of a sweep operand with ``rows`` rows
+    (default n) and the mask."""
+    rows = tiled.n if rows is None else rows
+    if x.ndim != ndim or x.shape[0] != rows:
+        shape = f"[{rows}]" if ndim == 1 else f"[{rows}, B]"
         raise ValueError(f"expected a frontier of shape {shape}, "
                          f"got {tuple(x.shape)}")
     if x.dtype != sr.dtype:
@@ -200,4 +213,38 @@ def pull_mm(sr: Semiring, tiled, X: torch.Tensor, row_mask: torch.Tensor, *,
         PULL_MM.launch(sr.code, *ptrs, row_mask.data_ptr(), X.data_ptr(),
                        Y.data_ptr(), tiled.n_chunks, tiled.C, tiled.L, B,
                        lanes, stream)
+    return Y
+
+
+def spmv_packed(tiled, x_words: torch.Tensor, *,
+                tile_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """SlimSell-B SpMV: the packed frontier bitmap int32[ceil(n/32)] ->
+    the packed reach bitmap of the same shape."""
+    _check(BOOLEAN_PACKED, tiled, x_words, 1, tile_mask,
+           rows=packing.packed_words(tiled.n))
+    if x_words.device.type == "cpu":
+        return spmv_packed_plain(tiled, x_words, tile_mask)
+    ptrs = _cuda_operands(tiled, x_words, tile_mask)
+    y = torch.zeros_like(x_words)  # the kernel ORs the reached bits in
+    with torch.cuda.device(x_words.device):
+        stream = torch.cuda.current_stream(x_words.device).cuda_stream
+        SPMV_PACKED.launch(*ptrs, x_words.data_ptr(), y.data_ptr(),
+                           tiled.n_chunks, tiled.C, tiled.L, stream)
+    return y
+
+
+def spmm_packed(tiled, X_words: torch.Tensor, *,
+                tile_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """SlimSell-B packed-plane SpMM: X int32[n, ceil(B/32)] (32 roots per
+    word) -> Y int32[n, ceil(B/32)] in vertex space."""
+    _check(BOOLEAN_PACKED, tiled, X_words, 2, tile_mask)
+    if X_words.device.type == "cpu":
+        return spmm_packed_plain(tiled, X_words, tile_mask)
+    ptrs = _cuda_operands(tiled, X_words, tile_mask)
+    Y = torch.empty_like(X_words)
+    with torch.cuda.device(X_words.device):
+        stream = torch.cuda.current_stream(X_words.device).cuda_stream
+        SPMM_PACKED.launch(*ptrs, X_words.data_ptr(), Y.data_ptr(),
+                           tiled.n_chunks, tiled.C, tiled.L, X_words.shape[1],
+                           stream)
     return Y

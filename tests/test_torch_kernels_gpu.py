@@ -9,11 +9,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import packing
 from repro_torch.core import semiring as psr
 from repro_torch.core.formats import build_slimsell
-from repro_torch.core.spmv import (pull_mm_plain, pull_plain, spmm_plain,
-                                   spmv_plain)
-from repro_torch.graphs.generators import kronecker
+from repro_torch.core.spmv import (pull_mm_plain, pull_plain,
+                                   spmm_packed_plain, spmm_plain,
+                                   spmv_packed_plain, spmv_plain)
+from repro_torch.graphs.generators import erdos_renyi, kronecker
 from repro_torch.kernels import ops
 
 pytestmark = pytest.mark.gpu
@@ -102,3 +104,43 @@ def test_pull_kernel_equals_plain(cuda, name, mask_kind, width, nf_kind):
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     assert got.is_cuda and torch.equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def cuda_tail(cuda):
+    """A layout whose n = 4001 leaves 1 live bit in the last packed word."""
+    dev, _ = cuda
+    return dev, build_slimsell(erdos_renyi(4001, 12.0, seed=3), C=8,
+                               L=128).to_torch(dev)
+
+
+@pytest.mark.parametrize("graph", ["kron", "tail"])
+@pytest.mark.parametrize("density", [0.02, 0.5])
+@pytest.mark.parametrize("width", [None, 1, 5, 33, 64, 97, 160])
+@pytest.mark.parametrize("mask_kind", MASKS)
+def test_packed_kernel_equals_plain(request, mask_kind, width, density, graph):
+    """SlimSell-B: the packed SpMV (width None) over a frontier bitmap and
+    the packed-plane SpMM over ceil(B/32) words, exactly; padding bits stay
+    zero. B = 97 and 160 fill 4 and 5 words: one block's four planes, then
+    a second, partly used block along grid y."""
+    dev, tiled = request.getfixturevalue("cuda" if graph == "kron"
+                                         else "cuda_tail")
+    rng = np.random.default_rng([MASKS.index(mask_kind), width or 0,
+                                 int(density * 100), len(graph), 2])
+    mask = _mask(mask_kind, tiled, rng, dev)
+    shape = (tiled.n,) if width is None else (tiled.n, width)
+    bits = torch.from_numpy(rng.random(shape) < density).to(dev)
+    x = packing.pack_bits(bits, axis=0 if width is None else 1)
+    kernel = ops.SPMV_PACKED if width is None else ops.SPMM_PACKED
+    before = kernel.launches
+    if width is None:
+        got = ops.spmv_packed(tiled, x, tile_mask=mask)
+        want = spmv_packed_plain(tiled, x, mask)
+    else:
+        got = ops.spmm_packed(tiled, x, tile_mask=mask)
+        want = spmm_packed_plain(tiled, x, mask)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.is_cuda and torch.equal(got, want)
+    assert packing.check_tail_zero_host(got.cpu().numpy(),
+                                        tiled.n if width is None else width)
