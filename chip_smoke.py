@@ -7,7 +7,8 @@ Phases, each of which must pass (any failure ends the run with a nonzero
 exit and no result line):
 
 1. the card's name and power limit;
-2. build the six CUDA kernels from ``src/repro_torch/kernels/csrc``;
+2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (seven
+   entry points in six sources);
 3. every kernel against its plain PyTorch version on the card, exactly
    (all values are integers or +-inf), on a scale-14 Kronecker graph:
    4 semirings x {SpMV, SpMM B=1/5/64} x 4 tile masks (none given, all
@@ -44,12 +45,31 @@ exit and no result line):
    real state of the iteration with the most tiles, with that iteration's
    mask and with every tile kept, against its plain version and timed
    beside it, the lane kernel, a library call and its bound; (d) the
-   paper's storage accounting at scale 20.
+   paper's storage accounting at scale 20;
+8. weighted SSSP (delta-stepping) through the stored-weight (min-plus)
+   kernel: (a) at scale 14 the kernel against its plain version, exactly
+   (the full ``wts`` and its light and heavy views at the default delta x
+   the five masks of 7a x frontiers all +inf, sparse and dense), then
+   ``sssp`` on the card against ``sssp`` on the CPU, fused and hostloop, at
+   the default delta, at inf and at 0.05: distances, parents, sweeps,
+   buckets and work log equal; (b) at scale 20, ``sssp`` from the phase-4b
+   root, fused and hostloop (bit-equal to each other, timed), its distances
+   checked against scipy's Dijkstra and its tree validated; then
+   ``run_graph500_sssp`` over the phase-5 roots, timed without validation,
+   and their trees validated against one scipy Dijkstra call (all 64, or
+   the first 16 when 64 would not fit the time limit: the count is
+   printed); (c) the kernel at the real state of the sweep with the most
+   tiles, with that sweep's mask and with every tile kept, against its
+   plain version, timed beside it, the implicit-value SpMV on the same
+   frontier, a library call and its bound.
 
-The launch counts of each main path must be nonzero: the four lane
-kernels over phases 4b and 5, the two packed kernels over phase 7b, each
-counted from zero. The last lines are the kernel table, the card, and
-``{"ok": true, "device": {...}}``.
+The graphs carry the Graph500 SSSP weights (uniform on [2^-8, 1]); one
+weighted layout per scale serves every phase (the BFS phases never read
+the weights). The launch counts of each main path must be nonzero: the
+four lane kernels over phases 4b and 5, the two packed kernels over phase
+7b, the stored-weight kernel over phase 8b, each counted from zero. The
+last lines are the kernel table, the card, and ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -71,9 +91,14 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 SEMIRINGS = ("tropical", "real", "boolean", "selmax")
 SCALE, EDGE_FACTOR, SMALL_SCALE = 20, 16, 14
+# the whole run must end within 1200 s; phase 8b validates 64 SSSP trees
+# only if that still ends by this mark, else the first 16
+VALIDATE_ALL_BY_S = 900.0
 KERNEL_INFO = {
     "slimsell_spmv": ("src/repro_torch/kernels/csrc/slimsell_spmv.cu",
                       "src/repro/kernels/slimsell_spmv.py:66"),
+    "slimsell_spmv_wts": ("src/repro_torch/kernels/csrc/slimsell_spmv.cu",
+                          "src/repro/kernels/slimsell_spmv.py:66"),
     "slimsell_spmm": ("src/repro_torch/kernels/csrc/slimsell_spmm.cu",
                       "src/repro/kernels/slimsell_spmm.py:44"),
     "slimsell_pull": ("src/repro_torch/kernels/csrc/slimsell_pull.cu",
@@ -147,6 +172,14 @@ def tile_slots(tiled) -> torch.Tensor:
     rb = tiled.row_block.long()
     rank = torch.arange(tiled.n_tiles, device=ptr.device) - ptr[rb]
     return (tiled.cl.long()[rb] - rank * tiled.L).clamp(0, tiled.L)
+
+
+def sssp_frontier(n, finite, rng, device) -> torch.Tensor:
+    """Float32 distances on a ``finite`` share of the vertices, +inf on
+    the rest."""
+    x = rng.uniform(0.0, 8.0, n).astype(np.float32)
+    x[rng.random(n) >= finite] = np.inf
+    return torch.from_numpy(x).to(device)
 
 
 def hmean(x) -> float:
@@ -227,9 +260,14 @@ def pull_work(tiled, ranks, nf, mask):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
         return 1
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import dijkstra
+
+    from repro_torch.configs.sssp_graph500 import WEIGHT_HIGH, WEIGHT_LOW
     from repro_torch.core import direction as dm
     from repro_torch.core import engine, packing, semiring
     from repro_torch.core.bfs import bfs, bfs_spec, packed_bfs_spec
@@ -241,9 +279,16 @@ def main() -> int:
                                        pull_plain, spmm_packed_plain,
                                        spmm_plain, spmv_packed_plain,
                                        spmv_plain)
-    from repro_torch.graph500 import (batch_teps, run_graph500, sample_roots,
-                                      validate_bfs_tree)
-    from repro_torch.graphs.generators import kronecker
+    from repro_torch.core.sssp import (default_delta, sssp, sssp_spec,
+                                       weight_views)
+    from repro_torch.graph500 import (batch_teps, run_graph500,
+                                      run_graph500_sssp, sample_roots,
+                                      validate_bfs_tree, validate_sssp_tree)
+    from repro_torch.graphs.generators import kronecker, with_random_weights
+
+    def weighted_kronecker(scale):
+        return with_random_weights(kronecker(scale, EDGE_FACTOR, seed=1),
+                                   low=WEIGHT_LOW, high=WEIGHT_HIGH, seed=2)
     from repro_torch.kernels import build, ops
 
     dev = torch.device("cuda")
@@ -262,7 +307,7 @@ def main() -> int:
 
     # ---- 3: each kernel against its plain version, on the card
     rng = np.random.default_rng(0)
-    small_csr = kronecker(SMALL_SCALE, EDGE_FACTOR, seed=1)
+    small_csr = weighted_kronecker(SMALL_SCALE)
     small_host = build_slimsell(small_csr, C=8, L=128)
     small = small_host.to_torch(dev)
     errs = {k: 0.0 for k in KERNEL_INFO}
@@ -337,7 +382,7 @@ def main() -> int:
 
     # ---- the main path at scale 20: phases 4b and 5, counted
     t0 = time.perf_counter()
-    csr = kronecker(SCALE, EDGE_FACTOR, seed=1)
+    csr = weighted_kronecker(SCALE)
     t1 = time.perf_counter()
     host = build_slimsell(csr, C=8, L=128, sigma=csr.n)
     t2 = time.perf_counter()
@@ -758,6 +803,161 @@ def main() -> int:
         f"{store.slimsell_vs_sellcs:.4f}, SlimSell / AL "
         f"{store.slimsell_vs_al:.4f}; a packed frontier is "
         f"{packing.packed_words(csr.n)} words, a lane one {csr.n}")
+
+    # ---- 8: weighted SSSP, the stored-weight (min-plus) kernel
+    minplus = semiring.MINPLUS
+    sssp_fields = ("distances", "parents", "sweeps", "buckets", "work_log",
+                   "delta")
+    # (a) scale 14: the kernel against its plain version, then sssp on the
+    # card against sssp on the CPU
+    g8 = np.random.default_rng(8)
+    n_cases = 0
+    light, heavy = weight_views(small.wts, default_delta(small))
+    for view, w in (("full", small.wts), ("light", light), ("heavy", heavy)):
+        for mask_name, mask in packed_masks.items():
+            for kind, finite in (("all_inf", 0.0), ("sparse", 0.02),
+                                 ("dense", 0.7)):
+                x = sssp_frontier(small.n, finite, g8, dev)
+                check_equal("slimsell_spmv_wts",
+                            ops.spmv(minplus, small, x, tile_mask=mask,
+                                     weights=w),
+                            spmv_plain(minplus, small, x, mask, w), errs,
+                            f"scale {SMALL_SCALE} {view} mask={mask_name} "
+                            f"x={kind}")
+                n_cases += 1
+    torch.cuda.synchronize()
+    runs = []
+    for mode in ("fused", "hostloop"):
+        for delta in (None, float("inf"), 0.05):
+            kw = dict(delta=delta, need_parents=True, log_work=True,
+                      config=EngineConfig(mode=mode))
+            ref = sssp(small_cpu, root0, device="cpu", **kw)
+            got = sssp(small, root0, device=dev, **kw)
+            for f in sssp_fields:
+                if not np.array_equal(getattr(ref, f), getattr(got, f)):
+                    raise AssertionError(f"sssp {mode} delta={delta}: {f} on "
+                                         "the card != on the CPU")
+            runs.append(f"{mode} delta={got.delta:.6g} sweeps={got.sweeps} "
+                        f"buckets={got.buckets}")
+    log(f"[8a] stored-weight kernel == plain on {n_cases} cases; sssp card "
+        f"== CPU at scale {SMALL_SCALE}, root {root0} (distances, parents, "
+        f"sweeps, buckets, work_log): {'; '.join(runs)}")
+
+    # (b) scale 20: the SSSP main path, its launches counted from zero
+    ops.reset_launches()
+    single = {}
+    for mode in ("fused", "hostloop"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sssp(tiled, root, need_parents=True, log_work=True,
+                   config=EngineConfig(mode=mode), device=dev)
+        single[mode] = (res, time.perf_counter() - t0)
+    fused, hostloop = single["fused"][0], single["hostloop"][0]
+    for f in sssp_fields:
+        if not np.array_equal(getattr(fused, f), getattr(hostloop, f)):
+            raise AssertionError(f"sssp at scale {SCALE}: {f} fused != "
+                                 "hostloop")
+    adj_w = csr_matrix((csr.weights, csr.indices, csr.indptr),
+                       shape=(csr.n, csr.n))
+    t0 = time.perf_counter()
+    d_ref = dijkstra(adj_w, directed=True, indices=[root])[0]
+    scipy_one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    validate_sssp_tree(csr, root, fused.distances, fused.parents, d_ref=d_ref)
+    validate_one_s = time.perf_counter() - t0
+    for mode, (res, dt) in single.items():
+        log(f"[8b] sssp {mode}: root={root} delta={res.delta:.6g} "
+            f"sweeps={res.sweeps} buckets={res.buckets} "
+            f"tiles={int(res.work_log.sum())} {dt * 1e3:.1f} ms")
+    log(f"[8b] fused == hostloop (distances, parents, sweeps, buckets, "
+        f"work_log); distances == scipy dijkstra ({scipy_one_s:.1f} s), tree "
+        f"valid ({validate_one_s:.2f} s); "
+        f"work_log={fused.work_log.tolist()}")
+    rep = run_graph500_sssp(scale=SCALE, edge_factor=EDGE_FACTOR, n_roots=64,
+                            csr=csr, tiled=tiled, validate=False, device=dev)
+    if not np.array_equal(rep.roots, roots):
+        raise AssertionError("the SSSP harness sampled other roots")
+    log(f"[8b] {rep.summary()}")
+    log(f"[8b] sssp hmean TEPS {rep.harmonic_mean_teps:.6e} (per root "
+        f"{rep.teps.min():.4e}..{rep.teps.max():.4e}) on {card}; per root "
+        f"sweeps={rep.sweeps.tolist()} buckets={rep.buckets.tolist()}")
+    # the timed run did not validate (its summary says validated=0): a
+    # second pass gives the trees, with the same schedule
+    trees = []
+    for i, r in enumerate(rep.roots):
+        res = sssp(tiled, int(r), need_parents=True, device=dev)
+        if (res.sweeps, res.buckets) != (rep.sweeps[i], rep.buckets[i]):
+            raise AssertionError(f"sssp root {r}: another schedule on a "
+                                 "second call")
+        trees.append(res)
+    wts_launches = ops.launch_counts()["slimsell_spmv_wts"]
+    if wts_launches == 0:
+        raise AssertionError("the stored-weight kernel never ran on the SSSP "
+                             "main path")
+    launches["slimsell_spmv_wts"] = wts_launches
+    projected = time.perf_counter() - t_start \
+        + 64 * (scipy_one_s + validate_one_s)
+    n_check = 64 if projected < VALIDATE_ALL_BY_S else 16
+    t0 = time.perf_counter()
+    d_refs = dijkstra(adj_w, directed=True, indices=rep.roots[:n_check])
+    for i in range(n_check):
+        validate_sssp_tree(csr, int(rep.roots[i]), trees[i].distances,
+                           trees[i].parents, d_ref=d_refs[i])
+    log(f"[8b] {n_check} of 64 SSSP trees validated (distances == one scipy "
+        f"dijkstra call over {n_check} roots, parents tight) in "
+        f"{time.perf_counter() - t0:.1f} s (projected end with all 64: "
+        f"{projected:.0f} s of the run); main-path launches "
+        f"slimsell_spmv_wts={wts_launches}")
+
+    # (c) the kernel at the real state of the sweep with the most tiles
+    k = 1 + int(np.argmax(fused.work_log))
+    spec = sssp_spec(tiled, fused.delta)
+    st = engine.run_fused(spec, tiled, root, max_iters=k - 1).state
+    x, w = spec.frontier(st, k), spec.weights(st)
+    mask = dm.push_tile_mask(tiled, spec.source_bits(st, k))
+    n_kept = int(mask.sum())
+    if n_kept != int(fused.work_log[k - 1]):
+        raise AssertionError("the rebuilt state is not the run's")
+    for m in (mask, full):
+        check_equal("slimsell_spmv_wts",
+                    ops.spmv(minplus, tiled, x, tile_mask=m, weights=w),
+                    spmv_plain(minplus, tiled, x, m, w), errs,
+                    f"scale {SCALE} real state, sweep {k}")
+    ms = time_ms(lambda: ops.spmv(minplus, tiled, x, tile_mask=full,
+                                  weights=w), 20)
+    masked_ms = time_ms(lambda: ops.spmv(minplus, tiled, x, tile_mask=mask,
+                                         weights=w), 20)
+    plain_ms = time_ms(lambda: spmv_plain(minplus, tiled, x, full, w), 3)
+    implicit_ms = time_ms(lambda: ops.spmv(tropical, tiled, x, tile_mask=full),
+                          20)
+    adj_wt = torch.sparse_csr_tensor(
+        torch.from_numpy(csr.indptr),
+        torch.from_numpy(csr.indices.astype(np.int64)),
+        torch.from_numpy(csr.weights), size=(csr.n, csr.n)).to(dev)
+    x_fin = torch.where(torch.isfinite(x), x, 0.0)[:, None]
+    library_ms = time_ms(lambda: torch.sparse.mm(adj_wt, x_fin), 20)
+    # cols and wts up to cl, the indices, x in, y out; an add and a min per
+    # edge against the float32 rate
+    wts_bytes = layout_bytes - index_bytes
+    moved = layout_bytes + wts_bytes + 2 * 4 * tiled.n
+    masked_moved = 8 * int(slots[mask].sum()) + index_bytes + 2 * 4 * tiled.n
+    masked_bound_ms = 1e3 * max(masked_moved / HBM_BYTES_PER_S,
+                                2 * edges / F32_OPS_PER_S)
+    bound_ms = row("slimsell_spmv_wts", ms, plain_ms, library_ms, moved,
+                   2 * edges, semiring_name="minplus", batch=1, sweep=k,
+                   phase=("light", "heavy")[st["phase"]], tiles_kept=n_kept,
+                   masked_ms=masked_ms, masked_bound_ms=masked_bound_ms,
+                   implicit_ms=implicit_ms,
+                   library_call="torch.sparse.mm (real, the same weights; "
+                   "not the same function)")
+    log(f"[8c] slimsell_spmv_wts at sweep {k} ({('light', 'heavy')[st['phase']]}"
+        f" phase): every tile kept kernel {ms:.4f} ms plain {plain_ms:.3f} ms "
+        f"implicit-value SpMV {implicit_ms:.4f} ms library (not the same "
+        f"function) {library_ms:.4f} ms bound {bound_ms:.4f} ms "
+        f"({moved / 1e9:.4f} GB) | sweep mask ({n_kept} tiles) kernel "
+        f"{masked_ms:.4f} ms bound {masked_bound_ms:.4f} ms "
+        f"({masked_moved / 1e9:.4f} GB) on {card}")
+    torch.cuda.synchronize()
 
     print(json.dumps({"kernels": table}))
     print(card)

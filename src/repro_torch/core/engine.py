@@ -10,6 +10,9 @@ drive a spec to its fixpoint:
   under ``direction="auto"`` in the same copy the direction the next
   iteration takes (single-source specs; a batch keeps its per-column
   directions on the device and always sweeps the SpMM over one union mask).
+  A spec whose update needs a decision on the host (delta-stepping's
+  phase) makes that one copy itself and returns the flag as a Python bool,
+  which the loop then reads without another copy.
 * ``run_hostloop`` brings the spec's bits to the host each iteration
   (``host_bits``), builds the SlimWork tile mask and makes the direction
   choice in numpy, and hands the bool mask (T bytes) back to the ordinary
@@ -27,10 +30,20 @@ Spec callables (B = batch width for ``batched`` specs):
   ``frontier``      (state, k) -> sweep operand [n] / [n, B]
   ``source_bits``   (state, k) -> bool[n] / [n, B] push sources
   ``not_final``     (state) -> bool[n] / [n, B] rows that can still change
-  ``update``        (state, y, k) -> (state, continue? as a bool tensor)
+  ``update``        (state, y, k) -> (state, continue? as a bool tensor,
+                    or a Python bool the update already brought over)
   ``host_bits``     (state, k, need_sb, need_nf) -> numpy (sb, nf), each
                     None unless asked for
+  ``weights``       (state) -> the stored per-slot weights [T, C, L] the
+                    next sweep multiplies in, or None for the implicit
+                    edge value; read without a copy to the host, so a spec
+                    that switches between views keeps its switch there
   ================= ======================================================
+
+A spec with ``weights`` sweeps push only, single source: the stored-weight
+sweep is ``slimsell_spmv(..., weights=)``. The hostloop hands the kernel
+the whole weight array with the bool tile mask, as it does ``cols``: the
+kernel skips the masked tiles, so no weight subset is gathered.
 
 A spec over the "or" semiring (``boolean_packed``, SlimSell-B) sweeps
 packed int32 words (``core.packing``): a single-source one a frontier
@@ -67,6 +80,7 @@ class FixpointSpec:
     source_bits: Callable[..., torch.Tensor]
     not_final: Optional[Callable[..., torch.Tensor]] = None
     host_bits: Optional[Callable[..., tuple]] = None
+    weights: Optional[Callable[..., Optional[torch.Tensor]]] = None
     batched: bool = False
 
 
@@ -99,11 +113,19 @@ def _pull_tile_mask(tiled, nf_rows: torch.Tensor) -> torch.Tensor:
 
 def _sweep(spec: FixpointSpec, tiled, x: torch.Tensor,
            tile_mask: Optional[torch.Tensor],
-           rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+           rows: Optional[torch.Tensor] = None,
+           weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One sweep: push without ``rows``, pull over the not-final ``rows``
     with them; the matrix form for batched specs, the packed sweeps under
-    the "or" semiring (``slimsell_spmm`` routes the batched one)."""
+    the "or" semiring (``slimsell_spmm`` routes the batched one), the
+    stored-weight SpMV with ``weights``."""
     sr = sm.get(spec.sr_name)
+    if weights is not None:
+        if rows is not None or spec.batched:
+            raise ValueError(f"{spec.name}: stored-weight sweeps are "
+                             "single-source push")
+        return slimsell_spmv(sr, tiled, x, weights=weights,
+                             tile_mask=tile_mask)
     if sr.reduction == "or":
         if rows is not None:
             raise ValueError(f"{spec.name}: packed sweeps are push-only")
@@ -143,9 +165,14 @@ def step(spec: FixpointSpec, tiled, state: dict, k: int, *,
         mask = dm.push_tile_mask(tiled, sb)
     if mask is not None:
         used = mask.sum(dtype=torch.int32)
-    y = _sweep(spec, tiled, spec.frontier(state, k), mask, nf if pull else None)
+    y = _sweep(spec, tiled, spec.frontier(state, k), mask, nf if pull else None,
+               _weights(spec, state))
     state, cont = spec.update(state, y, k)
     return state, cont, used
+
+
+def _weights(spec: FixpointSpec, state: dict) -> Optional[torch.Tensor]:
+    return spec.weights(state) if spec.weights is not None else None
 
 
 def _auto_choice(spec: FixpointSpec, tiled, state: dict, k: int,
@@ -156,6 +183,13 @@ def _auto_choice(spec: FixpointSpec, tiled, state: dict, k: int,
     nf = spec.not_final(state)
     mf, mu, nnz_f = dm.edge_counts(tiled.deg, sb, nf)
     return sb, nf, dm.choose_direction(current, mf, mu, nnz_f, tiled.n)
+
+
+def _check_direction(spec: FixpointSpec, direction: str) -> None:
+    check_choice("direction", direction, DIRECTIONS)
+    if spec.weights is not None and direction != "push":
+        raise ValueError(f"{spec.name}: stored-weight sweeps are push-only, "
+                         f"got direction={direction!r}")
 
 
 # -------------------------------------------------------------------- fused
@@ -173,7 +207,7 @@ def run_fused(spec: FixpointSpec, tiled, arg, *, slimwork: bool = True,
     ``pull_cols_log`` (the caller stacks them across batches). Work entries
     are 0 without SlimWork.
     """
-    check_choice("direction", direction, DIRECTIONS)
+    _check_direction(spec, direction)
     device = tiled.cols.device
     state = spec.init_state(tiled.n, arg, device)
     work = torch.zeros(WORK_LOG if log_work else 1, dtype=torch.int32,
@@ -204,7 +238,8 @@ def run_fused(spec: FixpointSpec, tiled, arg, *, slimwork: bool = True,
             sb, nf, d_t = _auto_choice(spec, tiled, state, k + 1, d_t)
             cont, d = torch.stack([cont_t.to(torch.int32), d_t]).tolist()
         else:
-            cont = bool(cont_t)  # the one device sync per iteration
+            # the one device sync per iteration (none if the update made it)
+            cont = bool(cont_t)
         k += 1
     iters = k - 1
     wl = dl = None
@@ -297,7 +332,7 @@ def run_hostloop(spec: FixpointSpec, tiled, arg, *, slimwork: bool = True,
     Batched specs run push only (their tile set is the union over the
     columns); per-column pull and auto need the fused strategy.
     """
-    check_choice("direction", direction, DIRECTIONS)
+    _check_direction(spec, direction)
     if spec.batched and direction != "push":
         raise NotImplementedError(
             f"{spec.name}: batched hostloop is push-only "
@@ -346,7 +381,8 @@ def run_hostloop(spec: FixpointSpec, tiled, arg, *, slimwork: bool = True,
             y = torch.full_like(x, sr.zero)
         else:
             y = _sweep(spec, tiled, x, mask,
-                       spec.not_final(state) if pull else None)
+                       spec.not_final(state) if pull else None,
+                       _weights(spec, state))
         state, cont = spec.update(state, y, k)
         iters = k
         k += 1

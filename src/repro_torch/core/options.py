@@ -17,9 +17,11 @@ DIRECTIONS = ("push", "pull", "auto")
 # the BFS engines accept exactly the paper's four semirings
 BFS_SEMIRINGS = ("tropical", "real", "boolean", "selmax")
 
-# every registered semiring: "boolean_packed" is SlimSell-B's word domain,
-# boolean over packed words, reached through packed=True rather than named
-SEMIRINGS = BFS_SEMIRINGS + ("boolean_packed",)
+# every registered semiring, in the JAX package's order: "minplus" is the
+# weighted SSSP operator over stored weights, rejected by the BFS engines;
+# "boolean_packed" is SlimSell-B's word domain, boolean over packed words,
+# reached through packed=True rather than named
+SEMIRINGS = BFS_SEMIRINGS + ("minplus", "boolean_packed")
 
 
 def check_choice(name: str, value, allowed: Sequence[str], *,

@@ -1,4 +1,4 @@
-"""The four BFS semirings of the paper (§III-A) as a PyTorch table.
+"""The four BFS semirings of the paper (§III-A), and min-plus, as a PyTorch table.
 
 A semiring S = (X, add, mul, zero, one): ``add`` is the reduction of the
 sweep, named by ``reduction`` (identity ``zero``, also the contribution of
@@ -14,6 +14,11 @@ semiring     (add, mul, zero, one)         payload carried in-band   code
 ``selmax``   (max, *,  0,   1)             parent ids (1-based)      3
 ============ ============================= ========================= ====
 
+``minplus`` (code 5) is the SSSP operator: (min, +, inf, 0), as tropical,
+but its sweep adds a *stored* per-slot weight (SlimSell-W, ``wts``) where
+tropical adds the implicit 1. It never runs without weights: the BFS
+engines reject it, and a sweep without ``weights=`` raises.
+
 ``boolean_packed`` (SlimSell-B, code 4) is boolean over packed words: add
 is word-wise OR, mul word-wise AND, zero the empty word and ``one`` (and
 the implicit edge value) the all-ones word, -1 in the int32 storage of
@@ -22,7 +27,8 @@ the implicit edge value) the all-ones word, -1 in the int32 storage of
 ``code`` is the integer the CUDA kernels switch on; the kernel sources
 carry the four BFS cases (``kernels/csrc/semiring.cuh``), and the packed
 sweeps have kernels of their own (``slimsell_spmv_packed.cu``,
-``slimsell_spmm_packed.cu``).
+``slimsell_spmm_packed.cu``), and min-plus has the stored-weight entry of
+``slimsell_spmv.cu``.
 """
 from __future__ import annotations
 
@@ -97,6 +103,14 @@ SELMAX = Semiring(
     mul=torch.mul, reduction="max", code=3,
 )
 
+# min-plus over stored weights: tropical's algebra, kept as its own entry
+# so the weighted operator names its semiring (and cannot fall back to the
+# implicit edge value 1 by accident)
+MINPLUS = Semiring(
+    name="minplus", dtype=torch.float32, zero=float("inf"), one=0.0,
+    mul=torch.add, reduction="min", code=5,
+)
+
 # SlimSell-B: 32 reachability bits per int32 word; the implicit edge value
 # is the all-ones word, so an edge passes every bit of the gathered word
 BOOLEAN_PACKED = Semiring(
@@ -105,7 +119,7 @@ BOOLEAN_PACKED = Semiring(
     edge_value=packing.FULL_WORD,
 )
 
-SEMIRINGS = {s.name: s for s in (TROPICAL, REAL, BOOLEAN, SELMAX,
+SEMIRINGS = {s.name: s for s in (TROPICAL, REAL, BOOLEAN, SELMAX, MINPLUS,
                                  BOOLEAN_PACKED)}
 assert tuple(SEMIRINGS) == REGISTERED, (tuple(SEMIRINGS), REGISTERED)
 

@@ -16,6 +16,13 @@ contributes ``mul(edge_value, x[col])`` and a padding slot (col == -1) the
 semiring ``zero`` (paper §III-B). A ``tile_mask`` (bool[T], SlimWork)
 drops masked tiles: they contribute ``zero``.
 
+``slimsell_spmv(..., weights=)`` is the stored-weight sweep (SlimSell-W):
+``weights`` is a float32 [T, C, L] array aligned with ``cols``
+(``SlimSellTiled.wts`` or a view of it) and an edge contributes
+``mul(w, x[col])``, ``w + x[col]`` under ``minplus``: one relaxation of
+SSSP. A padding slot still contributes ``zero``, whatever its weight.
+``minplus`` needs the weights; the pull sweeps take none.
+
 The device of the tensors picks the implementation: a CUDA tensor goes to
 the hand-written kernel through ``kernels.ops``, a CPU tensor to the plain
 PyTorch version in this module (``spmm_plain``), which is also the
@@ -43,17 +50,23 @@ from .semiring import BOOLEAN, Semiring
 _GATHER_BYTES = 1 << 30
 
 
-def tile_contributions(sr: Semiring, cols: torch.Tensor,
-                       x: torch.Tensor) -> torch.Tensor:
+def tile_contributions(sr: Semiring, cols: torch.Tensor, x: torch.Tensor,
+                       weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[t, C, L] (x [n]) or [t, C, L, B] (x [n, B]) contributions of each
-    column slot: ``mul(edge_value, x[col])``, ``zero`` on padding."""
+    column slot: ``mul(edge_value, x[col])``, or ``mul(w, x[col])`` with
+    stored ``weights`` [t, C, L] (the same for every column of x); ``zero``
+    on padding."""
     pad = cols < 0
     g = x.index_select(0, cols.clamp_min(0).reshape(-1)).reshape(
         tuple(cols.shape) + tuple(x.shape[1:]))
     if x.ndim == 2:
         pad = pad[..., None]
+    if weights is None:
+        contrib = sr.edge(g)
+    else:
+        contrib = sr.mul(weights if x.ndim == 1 else weights[..., None], g)
     return torch.where(pad, torch.tensor(sr.zero, dtype=x.dtype,
-                                         device=x.device), sr.edge(g))
+                                         device=x.device), contrib)
 
 
 def _combine_and_scatter(sr: Semiring, tiled, y_blocks: torch.Tensor) -> torch.Tensor:
@@ -71,9 +84,11 @@ def _combine_and_scatter(sr: Semiring, tiled, y_blocks: torch.Tensor) -> torch.T
 
 
 def spmm_plain(sr: Semiring, tiled, x: torch.Tensor,
-               tile_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+               tile_mask: Optional[torch.Tensor] = None,
+               weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain PyTorch sweep for x [n] or [n, B]: gather, reduce over L,
     combine the tiles of each chunk (SlimChunk), scatter to vertex space.
+    ``weights`` [T, C, L] are the stored edge values, else the implicit one.
 
     Tiles are processed in slices so the [t, C, L(, B)] gather stays near
     ``_GATHER_BYTES``.
@@ -85,7 +100,8 @@ def spmm_plain(sr: Semiring, tiled, x: torch.Tensor,
     y_blocks = torch.full((tiled.n_chunks, C) + tuple(x.shape[1:]), sr.zero,
                           dtype=x.dtype, device=x.device)
     for t0 in range(0, T, step):
-        red = sr.reduce(tile_contributions(sr, tiled.cols[t0:t0 + step], x),
+        w = None if weights is None else weights[t0:t0 + step]
+        red = sr.reduce(tile_contributions(sr, tiled.cols[t0:t0 + step], x, w),
                         dim=2)                                  # [t, C(, B)]
         if tile_mask is not None:
             m = tile_mask[t0:t0 + step].reshape((-1,) + (1,) * (red.ndim - 1))
@@ -98,9 +114,10 @@ def spmm_plain(sr: Semiring, tiled, x: torch.Tensor,
 
 
 def spmv_plain(sr: Semiring, tiled, x: torch.Tensor,
-               tile_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+               tile_mask: Optional[torch.Tensor] = None,
+               weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain PyTorch SpMV: the SpMM over a one-column RHS."""
-    return spmm_plain(sr, tiled, x[:, None], tile_mask)[:, 0]
+    return spmm_plain(sr, tiled, x[:, None], tile_mask, weights)[:, 0]
 
 
 def pull_first_hits(sr: Semiring, tiled, X: torch.Tensor,
@@ -214,10 +231,13 @@ def spmm_packed_plain(tiled, X_words: torch.Tensor,
 
 
 def slimsell_spmv(sr: Semiring, tiled, x: torch.Tensor, *,
+                  weights: Optional[torch.Tensor] = None,
                   tile_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """y = A (x) over semiring ``sr``; x [n] -> y [n] in vertex space."""
+    """y = A (x) over semiring ``sr``; x [n] -> y [n] in vertex space.
+    ``weights`` [T, C, L]: the stored per-slot edge values, the min-plus
+    SSSP operand (``minplus`` raises without them)."""
     from ..kernels import ops  # deferred: the kernels import this module
-    return ops.spmv(sr, tiled, x, tile_mask=tile_mask)
+    return ops.spmv(sr, tiled, x, tile_mask=tile_mask, weights=weights)
 
 
 def slimsell_spmm(sr: Semiring, tiled, X: torch.Tensor, *,

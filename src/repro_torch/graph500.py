@@ -10,6 +10,11 @@ batch.
     from repro_torch.graph500 import run_graph500
     rep = run_graph500(scale=20, edge_factor=16, n_roots=64, batch_size=64)
     print(rep.summary())
+
+``run_graph500_sssp`` is the weighted twin (Graph500's second kernel):
+uniform weights on [2^-8, 1], delta-stepping from each key in turn,
+distances validated against Dijkstra and parents by the tight-relaxation
+check.
 """
 from __future__ import annotations
 
@@ -20,11 +25,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .configs import sssp_graph500 as cfg
 from .core.bfs_traditional import bfs_traditional
 from .core.formats import CSRGraph, SlimSellTiled, build_slimsell, resolve_device
 from .core.multi_bfs import multi_source_bfs
 from .core.options import EngineConfig
-from .graphs.generators import kronecker
+from .core.sssp import dijkstra_reference, sssp
+from .graphs.generators import kronecker, with_random_weights
 
 
 def sample_roots(csr: CSRGraph, n_roots: int = 64, *, seed: int = 2) -> np.ndarray:
@@ -180,3 +187,145 @@ def run_graph500(*, scale: int = 10, edge_factor: int = 16, n_roots: int = 64,
         semiring=semiring, device=str(dev), direction=config.direction,
         batch_size=batch_size, roots=roots, teps=teps,
         batch_seconds=np.asarray(batch_seconds), validated=validated)
+
+
+# ------------------------------------------------------------- SSSP kernel
+
+
+def validate_sssp_tree(csr: CSRGraph, root: int, d: np.ndarray,
+                       parents: Optional[np.ndarray] = None, *,
+                       d_ref: Optional[np.ndarray] = None,
+                       rtol: float = 1e-4, atol: float = 1e-5) -> None:
+    """Graph500-SSSP-style validation: distances match the Dijkstra oracle,
+    every parent edge exists and is tight (d[p] + w == d[v]); raises
+    AssertionError on the first violation."""
+    root = int(root)
+    _require(d[root] == 0, f"root {root} has distance {d[root]}")
+    if d_ref is None:
+        d_ref = dijkstra_reference(csr, root)
+    _require(np.allclose(d, d_ref, rtol=rtol, atol=atol, equal_nan=False),
+             f"distances differ from Dijkstra oracle at root {root}")
+    if parents is None:
+        return
+    _require(parents[root] == root, "root must be its own parent")
+    reach = np.isfinite(d) & (np.arange(csr.n) != root)
+    _require((parents[~np.isfinite(d)] == -1).all(),
+             "unreachable vertices must have no parent")
+    v_r = np.nonzero(reach)[0]
+    p_r = parents[v_r].astype(np.int64)
+    _require((p_r >= 0).all(), "reached vertices must have a parent")
+    # CSR rows are column-sorted, so the (v, p) keys are globally sorted and
+    # one searchsorted finds every parent edge: existence and tightness are
+    # checked for all vertices
+    u_all = np.repeat(np.arange(csr.n, dtype=np.int64), csr.deg)
+    keys = u_all * csr.n + csr.indices
+    q = v_r * csr.n + p_r
+    idx = np.searchsorted(keys, q)
+    ok = (idx < keys.size) & (keys[np.minimum(idx, keys.size - 1)] == q)
+    if not ok.all():
+        raise AssertionError("tree edges not in graph, e.g. "
+                             f"({p_r[~ok][0]}, {v_r[~ok][0]})")
+    w = csr.weights[idx]
+    tight = np.isclose(d[p_r] + w, d[v_r], rtol=rtol, atol=atol)
+    if not tight.all():
+        raise AssertionError("non-tight parent edge, e.g. "
+                             f"({p_r[~tight][0]}, {v_r[~tight][0]})")
+
+
+@dataclasses.dataclass
+class Graph500SSSPReport:
+    scale: int
+    edge_factor: int
+    n: int
+    m: int
+    device: str
+    mode: str
+    delta: float
+    roots: np.ndarray
+    teps: np.ndarray      # per-root TEPS-equivalent (reached edges / s)
+    sweeps: np.ndarray    # relaxation sweeps per root
+    buckets: np.ndarray   # delta buckets per root
+    validated: int
+
+    @property
+    def harmonic_mean_teps(self) -> float:
+        return float(1.0 / np.mean(1.0 / self.teps))
+
+    def summary(self) -> str:
+        return (f"graph500-sssp scale={self.scale} ef={self.edge_factor} "
+                f"n={self.n} m={self.m} device={self.device} "
+                f"mode={self.mode} delta={self.delta:.4g} "
+                f"roots={len(self.roots)} validated={self.validated} "
+                f"hmean_TEPS={self.harmonic_mean_teps:.3e} "
+                f"sweeps/root={float(self.sweeps.mean()):.1f}")
+
+
+def run_graph500_sssp(*, scale: int = 10, edge_factor: int = 16,
+                      n_roots: int = 16, delta: Optional[float] = None,
+                      C: int = 8, L: int = 128, seed: int = 1,
+                      weight_low: Optional[float] = None,
+                      weight_high: Optional[float] = None,
+                      validate: bool = True, need_parents: bool = True,
+                      csr: Optional[CSRGraph] = None,
+                      tiled: Optional[SlimSellTiled] = None,
+                      config: Optional[EngineConfig] = None,
+                      device=None) -> Graph500SSSPReport:
+    """Weighted Graph500 kernel: delta-stepping from each sampled key in
+    turn (one ``sssp`` call per key), validated, scored. ``device`` None
+    means the card (raises when there is none); a given ``tiled`` may be
+    the host layout or one on that device, and must be the layout of the
+    given weighted ``csr``. ``config`` goes to ``sssp`` unchanged.
+
+    TEPS accounting mirrors the BFS harness: the edges charged to a root
+    are the undirected edges with a reached endpoint, the time its own
+    ``sssp`` call's wall time (the results come back as host arrays).
+    """
+    config = config if config is not None else EngineConfig()
+    dev = resolve_device(device)
+    if csr is None:
+        csr = with_random_weights(
+            kronecker(scale, edge_factor, seed=seed),
+            low=cfg.WEIGHT_LOW if weight_low is None else weight_low,
+            high=cfg.WEIGHT_HIGH if weight_high is None else weight_high,
+            seed=seed + 1)
+    elif csr.weights is None:
+        raise ValueError("run_graph500_sssp needs a weighted CSR")
+    elif csr.n != 1 << scale:
+        raise ValueError(f"csr has n={csr.n}, not the 2**{scale} vertices of "
+                         f"scale {scale}")
+    if tiled is None:
+        tiled = build_slimsell(csr, C=C, L=L, sigma=csr.n)
+    elif tiled.n != csr.n:
+        raise ValueError(f"tiled has n={tiled.n}, csr has n={csr.n}")
+    if tiled.device is None:
+        tiled = tiled.to_torch(dev)
+    roots = sample_roots(csr, n_roots)
+    if roots.size == 0:
+        raise ValueError(f"need at least one search key, got n_roots={n_roots}")
+
+    teps = np.empty(roots.size, np.float64)
+    sweeps = np.empty(roots.size, np.int32)
+    buckets = np.empty(roots.size, np.int32)
+    validated = 0
+    delta_used = None
+    for i, r in enumerate(roots):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res = sssp(tiled, int(r), delta=delta, need_parents=need_parents,
+                   config=config, device=dev)
+        dt = time.perf_counter() - t0
+        d = res.distances
+        delta_used = res.delta
+        teps[i] = max(1, int(csr.deg[np.isfinite(d)].sum()) // 2) / dt
+        sweeps[i] = res.sweeps
+        buckets[i] = res.buckets
+        if validate:
+            validate_sssp_tree(csr, int(r), d,
+                               res.parents if need_parents else None)
+            validated += 1
+    return Graph500SSSPReport(
+        scale=scale, edge_factor=edge_factor, n=csr.n, m=csr.m_undirected,
+        device=str(dev), mode=config.mode, delta=float(delta_used),
+        roots=roots, teps=teps, sweeps=sweeps, buckets=buckets,
+        validated=validated)

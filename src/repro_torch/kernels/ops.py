@@ -6,6 +6,11 @@ current stream (a CUDA tensor). On CUDA there is no fallback: a kernel that
 does not build or launch raises. ``Kernel.launches`` counts the launches,
 so a run can show that its path went through the kernel.
 
+``spmv(..., weights=)`` is the stored-weight (min-plus) sweep of SSSP:
+its kernel, ``slimsell_spmv_wts``, is an entry point of the SpMV source
+with a launch count of its own, so a run shows SSSP's sweeps apart from
+BFS's.
+
 The packed kernels (SlimSell-B) sweep int32 words that hold 32 bits each
 (``core.packing``): ``spmv_packed`` a frontier bitmap of ``ceil(n/32)``
 words, ``spmm_packed`` the ``ceil(B/32)`` word planes of a batch.
@@ -36,22 +41,24 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 class Kernel:
     """One kernel's C entry point, loaded at its first launch, and the
-    number of launches since the last ``reset_launches``."""
+    number of launches since the last ``reset_launches``. ``source`` names
+    the ``csrc/<source>.cu`` that holds it (default: the entry's name)."""
 
-    def __init__(self, name: str, argtypes: list):
+    def __init__(self, name: str, argtypes: list, source: Optional[str] = None):
         self.name = name
+        self.source = source or name
         self.launches = 0
         self._argtypes = argtypes
         self._fn = None
         self._error = None
 
     def _load(self):
-        build.build([self.name])
-        lib = ctypes.CDLL(str(build.library_path(self.name)))
+        build.build([self.source])
+        lib = ctypes.CDLL(str(build.library_path(self.source)))
         fn = getattr(lib, self.name)
         fn.argtypes = self._argtypes
         fn.restype = ctypes.c_int
-        err = getattr(lib, f"{self.name}_error")
+        err = getattr(lib, f"{self.source}_error")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         self._fn, self._error = fn, err
@@ -67,6 +74,9 @@ class Kernel:
 
 
 SPMV = Kernel("slimsell_spmv", [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
+SPMV_WTS = Kernel("slimsell_spmv_wts",
+                  [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+                  source="slimsell_spmv")
 SPMM = Kernel("slimsell_spmm",
               [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
 PULL = Kernel("slimsell_pull",
@@ -77,7 +87,7 @@ SPMV_PACKED = Kernel("slimsell_spmv_packed",
                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
 SPMM_PACKED = Kernel("slimsell_spmm_packed",
                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
-KERNELS = (SPMV, SPMM, PULL, PULL_MM, SPMV_PACKED, SPMM_PACKED)
+KERNELS = (SPMV, SPMV_WTS, SPMM, PULL, PULL_MM, SPMV_PACKED, SPMM_PACKED)
 
 
 def reset_launches() -> None:
@@ -110,6 +120,30 @@ def _check(sr: Semiring, tiled, x: torch.Tensor, ndim: int,
                          f"{tuple(tile_mask.shape)} on {tile_mask.device}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no SlimSell sweep for device {x.device}")
+
+
+def _implicit(sr: Semiring) -> None:
+    """The implicit-edge-value sweeps do not take ``minplus``: its edge
+    value is a stored weight, swept by ``spmv(..., weights=)``."""
+    if sr.name == "minplus":
+        raise ValueError("the minplus semiring needs stored weights "
+                         "(weights=tiled.wts, single-source SpMV only); for "
+                         "the implicit-1 edge value use the tropical semiring")
+
+
+def _check_weights(sr: Semiring, tiled, x: torch.Tensor,
+                   weights: torch.Tensor) -> None:
+    """Stored weights: min-plus only, float32 [T, C, L] beside the frontier."""
+    if sr.name != "minplus":
+        raise ValueError(f"stored weights are swept under minplus, got {sr.name}")
+    if (weights.dtype != torch.float32
+            or tuple(weights.shape) != tuple(tiled.cols.shape)
+            or weights.device != x.device):
+        raise ValueError(f"weights must be float32{tuple(tiled.cols.shape)} on "
+                         f"{x.device}, got {weights.dtype}"
+                         f"{tuple(weights.shape)} on {weights.device}")
+    if x.device.type == "cuda" and not weights.is_contiguous():
+        raise ValueError("weights must be contiguous")
 
 
 def _check_rows(x: torch.Tensor, row_mask: torch.Tensor) -> None:
@@ -148,17 +182,29 @@ def _cuda_operands(tiled, x: torch.Tensor, tile_mask: Optional[torch.Tensor]):
 
 
 def spmv(sr: Semiring, tiled, x: torch.Tensor, *,
-         tile_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """SlimSell SpMV: x [n] -> y [n] in vertex space."""
+         tile_mask: Optional[torch.Tensor] = None,
+         weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """SlimSell SpMV: x [n] -> y [n] in vertex space. With ``weights``
+    (float32 [T, C, L], under ``minplus``): y[v] = min over the kept slots
+    of v's row of ``w + x[col]``, the stored-weight kernel."""
     _check(sr, tiled, x, 1, tile_mask)
+    if weights is None:
+        _implicit(sr)
+    else:
+        _check_weights(sr, tiled, x, weights)
     if x.device.type == "cpu":
-        return spmv_plain(sr, tiled, x, tile_mask)
-    ptrs = _cuda_operands(tiled, x, tile_mask)
+        return spmv_plain(sr, tiled, x, tile_mask, weights)
+    cols, *rest = _cuda_operands(tiled, x, tile_mask)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        SPMV.launch(sr.code, *ptrs, x.data_ptr(), y.data_ptr(),
-                    tiled.n_chunks, tiled.C, tiled.L, stream)
+        if weights is None:
+            SPMV.launch(sr.code, cols, *rest, x.data_ptr(), y.data_ptr(),
+                        tiled.n_chunks, tiled.C, tiled.L, stream)
+        else:
+            SPMV_WTS.launch(cols, weights.data_ptr(), *rest, x.data_ptr(),
+                            y.data_ptr(), tiled.n_chunks, tiled.C, tiled.L,
+                            stream)
     return y
 
 
@@ -166,6 +212,7 @@ def spmm(sr: Semiring, tiled, X: torch.Tensor, *,
          tile_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """SlimSell SpMM: X [n, B] -> Y [n, B] in vertex space."""
     _check(sr, tiled, X, 2, tile_mask)
+    _implicit(sr)
     if X.device.type == "cpu":
         return spmm_plain(sr, tiled, X, tile_mask)
     ptrs = _cuda_operands(tiled, X, tile_mask)
@@ -184,6 +231,7 @@ def pull(sr: Semiring, tiled, x: torch.Tensor, row_mask: torch.Tensor, *,
     """SlimSell pull sweep: x [n], row_mask bool[n] -> y [n] in vertex
     space, first-hit semantics (``core.spmv``)."""
     _check(sr, tiled, x, 1, tile_mask)
+    _implicit(sr)
     _check_rows(x, row_mask)
     if x.device.type == "cpu":
         return pull_plain(sr, tiled, x, row_mask, tile_mask)
@@ -201,6 +249,7 @@ def pull_mm(sr: Semiring, tiled, X: torch.Tensor, row_mask: torch.Tensor, *,
     """Batched SlimSell pull sweep: X [n, B], row_mask bool[n, B] ->
     Y [n, B] in vertex space, the early exit per (row, column)."""
     _check(sr, tiled, X, 2, tile_mask)
+    _implicit(sr)
     _check_rows(X, row_mask)
     if X.device.type == "cpu":
         return pull_mm_plain(sr, tiled, X, row_mask, tile_mask)

@@ -12,7 +12,8 @@ from repro_torch import convert, graph500, profile_graph500
 from repro_torch.core import bfs as pbfs
 from repro_torch.core import formats as pf
 from repro_torch.core import multi_bfs as pmulti
-from repro_torch.graphs.generators import kronecker
+from repro_torch.core import sssp as psssp
+from repro_torch.graphs.generators import kronecker, with_random_weights
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
@@ -31,6 +32,9 @@ def _imported_roots(path):
 
 def test_port_imports_no_jax_and_no_jax_package():
     assert len(PORT_FILES) > 10
+    names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    assert {"src/repro_torch/core/sssp.py",
+            "src/repro_torch/configs/sssp_graph500.py"} <= names
     bad = {str(p.relative_to(REPO)): sorted(set(_imported_roots(p)) & {"jax", "repro"})
            for p in PORT_FILES}
     assert not {k: v for k, v in bad.items() if v}
@@ -75,3 +79,16 @@ def test_cpu_layout_is_not_moved_to_another_device(no_card):
         pmulti.multi_source_bfs(cpu, [0])
     with pytest.raises(ValueError, match="layout is on cpu"):
         pbfs.bfs(cpu, 0, device="meta")
+
+
+def test_sssp_entry_points_without_card_raise(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ran = []
+    monkeypatch.setattr(psssp.eng, "run_fused", lambda *a, **k: ran.append(1))
+    host = pf.build_slimsell(with_random_weights(kronecker(6, 4, seed=0)),
+                             C=8, L=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        psssp.sssp(host, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        graph500.run_graph500_sssp(scale=5)
+    assert not ran

@@ -11,11 +11,13 @@ import torch
 
 from repro_torch.core import packing
 from repro_torch.core import semiring as psr
+from repro_torch.core import sssp as psssp
 from repro_torch.core.formats import build_slimsell
 from repro_torch.core.spmv import (pull_mm_plain, pull_plain,
                                    spmm_packed_plain, spmm_plain,
                                    spmv_packed_plain, spmv_plain)
-from repro_torch.graphs.generators import erdos_renyi, kronecker
+from repro_torch.graphs.generators import (erdos_renyi, kronecker,
+                                           with_random_weights)
 from repro_torch.kernels import ops
 
 pytestmark = pytest.mark.gpu
@@ -144,3 +146,36 @@ def test_packed_kernel_equals_plain(request, mask_kind, width, density, graph):
     assert got.is_cuda and torch.equal(got, want)
     assert packing.check_tail_zero_host(got.cpu().numpy(),
                                         tiled.n if width is None else width)
+
+
+@pytest.fixture(scope="module")
+def cuda_weighted(cuda):
+    """A weighted layout with the Graph500 SSSP weights on [2^-8, 1]."""
+    dev, _ = cuda
+    csr = with_random_weights(kronecker(12, 16, seed=1), low=1.0 / 256.0,
+                              high=1.0, seed=2)
+    return dev, build_slimsell(csr, C=8, L=128).to_torch(dev)
+
+
+@pytest.mark.parametrize("x_kind", ["all_inf", "sparse", "dense"])
+@pytest.mark.parametrize("mask_kind", MASKS)
+@pytest.mark.parametrize("view", ["full", "light", "heavy"])
+def test_weighted_kernel_equals_plain(cuda_weighted, view, mask_kind, x_kind):
+    """The stored-weight (min-plus) SpMV over the full ``wts`` and its
+    light / heavy views at the default delta, exactly."""
+    dev, tiled = cuda_weighted
+    rng = np.random.default_rng([len(view), MASKS.index(mask_kind),
+                                 len(x_kind), 3])
+    views = psssp.weight_views(tiled.wts, psssp.default_delta(tiled))
+    w = {"full": tiled.wts, "light": views[0], "heavy": views[1]}[view]
+    mask = _mask(mask_kind, tiled, rng, dev)
+    x = rng.uniform(0.0, 8.0, tiled.n).astype(np.float32)
+    x[rng.random(tiled.n) >= {"all_inf": 0.0, "sparse": 0.02,
+                              "dense": 0.7}[x_kind]] = np.inf
+    x = torch.from_numpy(x).to(dev)
+    before = ops.SPMV_WTS.launches
+    got = ops.spmv(psr.MINPLUS, tiled, x, tile_mask=mask, weights=w)
+    want = spmv_plain(psr.MINPLUS, tiled, x, mask, w)
+    torch.cuda.synchronize()
+    assert ops.SPMV_WTS.launches == before + 1
+    assert got.is_cuda and torch.equal(got, want)
