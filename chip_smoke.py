@@ -7,7 +7,7 @@ Phases, each of which must pass (any failure ends the run with a nonzero
 exit and no result line):
 
 1. the card's name and power limit;
-2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (seven
+2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (eight
    entry points in six sources);
 3. every kernel against its plain PyTorch version on the card, exactly
    (all values are integers or +-inf), on a scale-14 Kronecker graph:
@@ -61,14 +61,32 @@ exit and no result line):
    printed); (c) the kernel at the real state of the sweep with the most
    tiles, with that sweep's mask and with every tile kept, against its
    plain version, timed beside it, the implicit-value SpMV on the same
+   frontier, a library call and its bound;
+9. batched multi-source SSSP through the stored-weight (min-plus) SpMM
+   kernel: (a) at scale 14 the kernel against its plain version, exactly
+   (the five masks of 7a x B=1/5/33/64/97/160 x frontiers sparse and
+   dense, each with the layout's weights and with every padding slot's
+   weight poisoned to -1000; 160 takes a second, partly used block along
+   grid y), then ``multi_source_sssp`` on the card against the CPU, fused
+   and hostloop; (b) at scale 20, ``multi_source_sssp`` over the 64
+   phase-5 roots in one batch of 64, default delta, parents on, fused and
+   hostloop: fused == hostloop, and each row's distances, parents, sweeps
+   and buckets == phase 8b's per-root ``sssp`` of that root; (c)
+   ``run_graph500_sssp(batched=True, batch_size=64)`` with and without
+   parents, its sweeps and buckets == the per-root harness's, and the
+   batch's trees validated against the per-root distances (all 64, or the
+   first 16 when 64 would not fit the time limit: the count is printed);
+   (d) the kernel at the real state of the batch's sweep with the most
+   tiles, with that sweep's mask and with every tile kept, against its
+   plain version, timed beside it, the implicit-value SpMM on the same
    frontier, a library call and its bound.
 
 The graphs carry the Graph500 SSSP weights (uniform on [2^-8, 1]); one
 weighted layout per scale serves every phase (the BFS phases never read
 the weights). The launch counts of each main path must be nonzero: the
 four lane kernels over phases 4b and 5, the two packed kernels over phase
-7b, the stored-weight kernel over phase 8b, each counted from zero. The
-last lines are the kernel table, the card, and ``{"ok": true, "device":
+7b, the stored-weight SpMV over phase 8b, the stored-weight SpMM over
+phases 9b and 9c, each counted from zero. The last lines are the kernel table, the card, and ``{"ok": true, "device":
 {...}}``.
 """
 from __future__ import annotations
@@ -92,8 +110,10 @@ F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 SEMIRINGS = ("tropical", "real", "boolean", "selmax")
 SCALE, EDGE_FACTOR, SMALL_SCALE = 20, 16, 14
 # the whole run must end within 1200 s; phase 8b validates 64 SSSP trees
-# only if that still ends by this mark, else the first 16
+# only if that still ends by this mark, else the first 16; phase 9c the
+# same by its own mark
 VALIDATE_ALL_BY_S = 900.0
+VALIDATE_BATCH_BY_S = 1000.0
 KERNEL_INFO = {
     "slimsell_spmv": ("src/repro_torch/kernels/csrc/slimsell_spmv.cu",
                       "src/repro/kernels/slimsell_spmv.py:66"),
@@ -101,6 +121,8 @@ KERNEL_INFO = {
                           "src/repro/kernels/slimsell_spmv.py:66"),
     "slimsell_spmm": ("src/repro_torch/kernels/csrc/slimsell_spmm.cu",
                       "src/repro/kernels/slimsell_spmm.py:44"),
+    "slimsell_spmm_wts": ("src/repro_torch/kernels/csrc/slimsell_spmm.cu",
+                          "src/repro/kernels/slimsell_spmm.py:44"),
     "slimsell_pull": ("src/repro_torch/kernels/csrc/slimsell_pull.cu",
                       "src/repro/kernels/slimsell_pull.py:53"),
     "slimsell_pull_mm": ("src/repro_torch/kernels/csrc/slimsell_pull_mm.cu",
@@ -174,11 +196,11 @@ def tile_slots(tiled) -> torch.Tensor:
     return (tiled.cl.long()[rb] - rank * tiled.L).clamp(0, tiled.L)
 
 
-def sssp_frontier(n, finite, rng, device) -> torch.Tensor:
-    """Float32 distances on a ``finite`` share of the vertices, +inf on
-    the rest."""
-    x = rng.uniform(0.0, 8.0, n).astype(np.float32)
-    x[rng.random(n) >= finite] = np.inf
+def sssp_frontier(shape, finite, rng, device) -> torch.Tensor:
+    """Float32 distances on a ``finite`` share of the vertices (of each
+    column for an [n, B] shape), +inf on the rest."""
+    x = rng.uniform(0.0, 8.0, shape).astype(np.float32)
+    x[rng.random(shape) >= finite] = np.inf
     return torch.from_numpy(x).to(device)
 
 
@@ -274,6 +296,7 @@ def main() -> int:
     from repro_torch.core.formats import build_slimsell, storage_summary
     from repro_torch.core.multi_bfs import (multi_bfs_spec, multi_source_bfs,
                                             packed_multi_bfs_spec)
+    from repro_torch.core.multi_sssp import multi_source_sssp, multi_sssp_spec
     from repro_torch.core.options import EngineConfig
     from repro_torch.core.spmv import (pull_first_hits, pull_mm_plain,
                                        pull_plain, spmm_packed_plain,
@@ -958,6 +981,175 @@ def main() -> int:
         f"{masked_ms:.4f} ms bound {masked_bound_ms:.4f} ms "
         f"({masked_moved / 1e9:.4f} GB) on {card}")
     torch.cuda.synchronize()
+
+    # ---- 9: batched multi-source SSSP, the stored-weight (min-plus) SpMM
+    t9 = time.perf_counter()
+    # (a) scale 14: the kernel against its plain version, then
+    # multi_source_sssp on the card against the same on the CPU
+    g9 = np.random.default_rng(9)
+    n_cases = 0
+    poisoned = torch.where(small.cols < 0, -1000.0, small.wts)
+    for mask_name, mask in packed_masks.items():
+        for width in (1, 5, 33, 64, 97, 160):
+            for kind, finite in (("sparse", 0.02), ("dense", 0.7)):
+                X = sssp_frontier((small.n, width), finite, g9, dev)
+                want = spmm_plain(minplus, small, X, mask, small.wts)
+                for wname, w in (("wts", small.wts), ("poisoned", poisoned)):
+                    check_equal("slimsell_spmm_wts",
+                                ops.spmm(minplus, small, X, tile_mask=mask,
+                                         weights=w), want, errs,
+                                f"scale {SMALL_SCALE} B={width} "
+                                f"mask={mask_name} x={kind} {wname}")
+                    n_cases += 1
+    torch.cuda.synchronize()
+    msssp_fields = ("distances", "parents", "sweeps", "buckets", "iterations",
+                    "work_log", "delta")
+    runs = []
+    for mode in ("fused", "hostloop"):
+        kw = dict(need_parents=True, log_work=True,
+                  config=EngineConfig(mode=mode))
+        ref = multi_source_sssp(small_cpu, small_roots[:16], device="cpu", **kw)
+        got = multi_source_sssp(small, small_roots[:16], device=dev, **kw)
+        for f in msssp_fields:
+            if not np.array_equal(getattr(ref, f), getattr(got, f)):
+                raise AssertionError(f"multi_source_sssp {mode}: {f} on the "
+                                     "card != on the CPU")
+        runs.append(f"{mode} iterations={got.iterations.tolist()} "
+                    f"sweeps={got.sweeps.tolist()}")
+    log(f"[9a] stored-weight SpMM kernel == plain on {n_cases} cases; "
+        f"multi_source_sssp card == CPU at scale {SMALL_SCALE}, 16 roots "
+        f"(distances, parents, sweeps, buckets, iterations, work_log): "
+        f"{'; '.join(runs)}")
+
+    # (b) scale 20: the batched SSSP main path, its launches counted from
+    # zero over (b) and (c)
+    ops.reset_launches()
+    batch_runs = {}
+    for mode in ("fused", "hostloop"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = multi_source_sssp(tiled, roots, need_parents=True, log_work=True,
+                                config=EngineConfig(mode=mode), device=dev)
+        batch_runs[mode] = (res, time.perf_counter() - t0)
+    mf, mh = batch_runs["fused"][0], batch_runs["hostloop"][0]
+    it = int(mf.iterations[0])
+    for f in ("distances", "parents", "sweeps", "buckets", "iterations",
+              "delta"):
+        if not np.array_equal(getattr(mf, f), getattr(mh, f)):
+            raise AssertionError(f"multi_source_sssp at scale {SCALE}: {f} "
+                                 "fused != hostloop")
+    if not np.array_equal(mf.work_log[0][:it], mh.work_log[0]):
+        raise AssertionError("multi_source_sssp work log fused != hostloop")
+    if mf.delta != fused.delta:
+        raise AssertionError("the batch took another delta than phase 8b")
+    for i, r in enumerate(roots):
+        t = trees[i]
+        if not (np.array_equal(mf.distances[i], t.distances)
+                and np.array_equal(mf.parents[i], t.parents)
+                and (mf.sweeps[i], mf.buckets[i]) == (t.sweeps, t.buckets)):
+            raise AssertionError(f"multi_source_sssp row {i} (root {r}) != "
+                                 "the per-root sssp")
+    for mode, (res, dt) in batch_runs.items():
+        log(f"[9b] multi_source_sssp {mode}: 64 roots, B=64, delta="
+            f"{res.delta:.6g} iterations={int(res.iterations[0])} "
+            f"{dt:.4f} s with parents")
+    log(f"[9b] fused == hostloop (distances, parents, sweeps, buckets, "
+        f"iterations, work_log); every row == phase 8b's per-root sssp "
+        f"(distances, parents, sweeps, buckets); sweeps per root "
+        f"{int(mf.sweeps.min())}..{int(mf.sweeps.max())}, batch iterations "
+        f"{it}; work_log={mf.work_log[0][:it].tolist()}")
+
+    # (c) the batched Graph500 SSSP harness, with and without parents
+    for parents in (True, False):
+        t0 = time.perf_counter()
+        rep9 = run_graph500_sssp(scale=SCALE, edge_factor=EDGE_FACTOR,
+                                 n_roots=64, batched=True, batch_size=64,
+                                 csr=csr, tiled=tiled, validate=False,
+                                 need_parents=parents, device=dev)
+        call_s = time.perf_counter() - t0
+        if not (np.array_equal(rep9.roots, roots)
+                and np.array_equal(rep9.sweeps, rep.sweeps)
+                and np.array_equal(rep9.buckets, rep.buckets)):
+            raise AssertionError("the batched SSSP harness: other roots, "
+                                 "sweeps or buckets than the per-root one")
+        log(f"[9c] {rep9.summary()} ({'with' if parents else 'without'} "
+            f"parents)")
+        log(f"[9c] batched sssp hmean TEPS {rep9.harmonic_mean_teps:.6e} "
+            f"{'with' if parents else 'without'} parents (harness call "
+            f"{call_s:.4f} s; per-root harness, phase 8b: "
+            f"{rep.harmonic_mean_teps:.6e}) on {card}")
+    msssp_launches = ops.launch_counts()["slimsell_spmm_wts"]
+    if msssp_launches == 0:
+        raise AssertionError("the stored-weight SpMM never ran on the "
+                             "batched SSSP main path")
+    launches["slimsell_spmm_wts"] = msssp_launches
+    t0 = time.perf_counter()
+    validate_sssp_tree(csr, int(roots[0]), mf.distances[0], mf.parents[0],
+                       d_ref=trees[0].distances)
+    one_s = time.perf_counter() - t0
+    n_check = 64 if time.perf_counter() - t_start + 64 * one_s \
+        < VALIDATE_BATCH_BY_S else 16
+    for i in range(n_check):
+        validate_sssp_tree(csr, int(roots[i]), mf.distances[i], mf.parents[i],
+                           d_ref=trees[i].distances)
+    log(f"[9c] {n_check} of 64 batched SSSP trees validated against the "
+        f"per-root distances in {time.perf_counter() - t0:.1f} s; main-path "
+        f"launches slimsell_spmm_wts={msssp_launches} (9b and 9c)")
+
+    # (d) the kernel at the real state of the batch's sweep with the most
+    # tiles: with that sweep's mask and with every tile kept
+    k = 1 + int(np.argmax(mf.work_log[0][:it]))
+    spec = multi_sssp_spec(tiled, mf.delta)
+    st = engine.run_fused(spec, tiled, torch.from_numpy(roots),
+                          max_iters=k - 1).state
+    X = spec.frontier(st, k)
+    mask = dm.push_tile_mask(tiled, spec.source_bits(st, k))
+    n_kept = int(mask.sum())
+    if n_kept != int(mf.work_log[0][k - 1]):
+        raise AssertionError("the rebuilt batch state is not the run's")
+    for m in (mask, full):
+        check_equal("slimsell_spmm_wts",
+                    ops.spmm(minplus, tiled, X, tile_mask=m, weights=tiled.wts),
+                    spmm_plain(minplus, tiled, X, m, tiled.wts), errs,
+                    f"scale {SCALE} real batch state, sweep {k}")
+    log(f"[9a] stored-weight SpMM kernel == plain at scale {SCALE}, B={B}, "
+        f"the batch's sweep {k} ({n_kept} tiles): with its mask and with "
+        f"every tile kept")
+    ms = time_ms(lambda: ops.spmm(minplus, tiled, X, tile_mask=full,
+                                  weights=tiled.wts), 20)
+    masked_ms = time_ms(lambda: ops.spmm(minplus, tiled, X, tile_mask=mask,
+                                         weights=tiled.wts), 20)
+    plain_ms = time_ms(lambda: spmm_plain(minplus, tiled, X, full, tiled.wts),
+                       3)
+    implicit_ms = time_ms(lambda: ops.spmm(tropical, tiled, X, tile_mask=full),
+                          20)
+    X_fin = torch.where(torch.isfinite(X), X, 0.0)
+    library_ms = time_ms(lambda: torch.sparse.mm(adj_wt, X_fin), 20)
+    phases = st["phase"]
+    # cols and wts up to cl, the indices, X in, Y out; an add and a min per
+    # edge and column against the float32 rate
+    moved = layout_bytes + wts_bytes + 2 * 4 * tiled.n * B
+    masked_moved = 8 * int(slots[mask].sum()) + index_bytes \
+        + 2 * 4 * tiled.n * B
+    masked_bound_ms = 1e3 * max(masked_moved / HBM_BYTES_PER_S,
+                                2 * edges * B / F32_OPS_PER_S)
+    bound_ms = row("slimsell_spmm_wts", ms, plain_ms, library_ms, moved,
+                   2 * edges * B, semiring_name="minplus", batch=B, sweep=k,
+                   light_columns=int((phases == 0).sum()),
+                   tiles_kept=n_kept, masked_ms=masked_ms,
+                   masked_bound_ms=masked_bound_ms, implicit_ms=implicit_ms,
+                   library_call="torch.sparse.mm (real, the same weights; "
+                   "not the same function)")
+    log(f"[9d] slimsell_spmm_wts B={B} at sweep {k} "
+        f"({int((phases == 0).sum())} columns light): every tile kept kernel "
+        f"{ms:.4f} ms plain {plain_ms:.3f} ms implicit-value SpMM "
+        f"{implicit_ms:.4f} ms library (not the same function) "
+        f"{library_ms:.4f} ms bound {bound_ms:.4f} ms ({moved / 1e9:.4f} GB) "
+        f"| sweep mask ({n_kept} tiles) kernel {masked_ms:.4f} ms bound "
+        f"{masked_bound_ms:.4f} ms ({masked_moved / 1e9:.4f} GB) on {card}")
+    torch.cuda.synchronize()
+    log(f"[9] phase 9 took {time.perf_counter() - t9:.1f} s; the run "
+        f"{time.perf_counter() - t_start:.1f} s so far")
 
     print(json.dumps({"kernels": table}))
     print(card)

@@ -40,10 +40,12 @@ Spec callables (B = batch width for ``batched`` specs):
                     that switches between views keeps its switch there
   ================= ======================================================
 
-A spec with ``weights`` sweeps push only, single source: the stored-weight
-sweep is ``slimsell_spmv(..., weights=)``. The hostloop hands the kernel
-the whole weight array with the bool tile mask, as it does ``cols``: the
-kernel skips the masked tiles, so no weight subset is gathered.
+A spec with ``weights`` sweeps push only: the stored-weight sweep is
+``slimsell_spmv(..., weights=)``, or ``slimsell_spmm(..., weights=)`` for
+a batched spec (one weight operand for every column). The hostloop hands
+the kernel the whole weight array with the bool tile mask, as it does
+``cols``: the kernel skips the masked tiles, so no weight subset is
+gathered.
 
 A spec over the "or" semiring (``boolean_packed``, SlimSell-B) sweeps
 packed int32 words (``core.packing``): a single-source one a frontier
@@ -118,14 +120,14 @@ def _sweep(spec: FixpointSpec, tiled, x: torch.Tensor,
     """One sweep: push without ``rows``, pull over the not-final ``rows``
     with them; the matrix form for batched specs, the packed sweeps under
     the "or" semiring (``slimsell_spmm`` routes the batched one), the
-    stored-weight SpMV with ``weights``."""
+    stored-weight SpMV or SpMM with ``weights``."""
     sr = sm.get(spec.sr_name)
     if weights is not None:
-        if rows is not None or spec.batched:
+        if rows is not None:
             raise ValueError(f"{spec.name}: stored-weight sweeps are "
-                             "single-source push")
-        return slimsell_spmv(sr, tiled, x, weights=weights,
-                             tile_mask=tile_mask)
+                             "push-only")
+        sweep = slimsell_spmm if spec.batched else slimsell_spmv
+        return sweep(sr, tiled, x, weights=weights, tile_mask=tile_mask)
     if sr.reduction == "or":
         if rows is not None:
             raise ValueError(f"{spec.name}: packed sweeps are push-only")
@@ -213,9 +215,10 @@ def run_fused(spec: FixpointSpec, tiled, arg, *, slimwork: bool = True,
     work = torch.zeros(WORK_LOG if log_work else 1, dtype=torch.int32,
                        device=device)
     if spec.batched:
-        return _run_fused_batched(spec, tiled, state, work, slimwork=slimwork,
-                                  max_iters=max_iters, log_work=log_work,
-                                  direction=direction)
+        # a batched spec's arg is its roots, one per column
+        return _run_fused_batched(spec, tiled, state, work, len(arg),
+                                  slimwork=slimwork, max_iters=max_iters,
+                                  log_work=log_work, direction=direction)
     dirs = np.full(WORK_LOG if log_work else 1, -1, np.int32)
     d = dm.PULL if direction == "pull" else dm.PUSH
     sb = nf = None
@@ -253,14 +256,14 @@ def run_fused(spec: FixpointSpec, tiled, arg, *, slimwork: bool = True,
 
 
 def _run_fused_batched(spec: FixpointSpec, tiled, state: dict,
-                       work: torch.Tensor, *, slimwork: bool, max_iters: int,
-                       log_work: bool, direction: str) -> EngineResult:
-    """The batched loop: push and pull sweep the whole batch one way;
-    "auto" keeps a direction per column on the device and sweeps the SpMM
-    over the union of the push mask of its push columns and the pull mask
-    of its pull columns, as the JAX package does."""
+                       work: torch.Tensor, B: int, *, slimwork: bool,
+                       max_iters: int, log_work: bool,
+                       direction: str) -> EngineResult:
+    """The batched loop over ``B`` columns: push and pull sweep the whole
+    batch one way; "auto" keeps a direction per column on the device and
+    sweeps the SpMM over the union of the push mask of its push columns and
+    the pull mask of its pull columns, as the JAX package does."""
     device = tiled.cols.device
-    B = state["d"].shape[1]  # a packed frontier is ceil(B/32) words wide
     dcur = torch.full((B,), dm.PULL if direction == "pull" else dm.PUSH,
                       dtype=torch.int32, device=device)
     plog = torch.zeros_like(work)

@@ -20,7 +20,8 @@ drops masked tiles: they contribute ``zero``.
 ``weights`` is a float32 [T, C, L] array aligned with ``cols``
 (``SlimSellTiled.wts`` or a view of it) and an edge contributes
 ``mul(w, x[col])``, ``w + x[col]`` under ``minplus``: one relaxation of
-SSSP. A padding slot still contributes ``zero``, whatever its weight.
+SSSP. ``slimsell_spmm(..., weights=)`` is its matrix form, the weight
+broadcast over the B columns: one relaxation of B roots at once. A padding slot still contributes ``zero``, whatever its weight.
 ``minplus`` needs the weights; the pull sweeps take none.
 
 The device of the tensors picks the implementation: a CUDA tensor goes to
@@ -241,15 +242,19 @@ def slimsell_spmv(sr: Semiring, tiled, x: torch.Tensor, *,
 
 
 def slimsell_spmm(sr: Semiring, tiled, X: torch.Tensor, *,
+                  weights: Optional[torch.Tensor] = None,
                   tile_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Y = A (X) over semiring ``sr``; X [n, B] -> Y [n, B] in vertex space.
-    ``tile_mask`` applies SlimWork to the whole batch at once. Under the
-    "or" semiring (``boolean_packed``) X holds packed word planes
-    [n, ceil(B/32)] and the sweep takes the word-wise packed kernel."""
+    ``tile_mask`` applies SlimWork to the whole batch at once. ``weights``
+    [T, C, L]: the stored per-slot edge values, the same for every column,
+    the batched min-plus SSSP operand (``minplus`` raises without them, any
+    other semiring with them). Under the "or" semiring (``boolean_packed``)
+    X holds packed word planes [n, ceil(B/32)] and the sweep takes the
+    word-wise packed kernel."""
     from ..kernels import ops  # deferred: the kernels import this module
-    if sr.reduction == "or":
+    if sr.reduction == "or" and weights is None:
         return ops.spmm_packed(tiled, X, tile_mask=tile_mask)
-    return ops.spmm(sr, tiled, X, tile_mask=tile_mask)
+    return ops.spmm(sr, tiled, X, tile_mask=tile_mask, weights=weights)
 
 
 def slimsell_spmv_packed(tiled, x_words: torch.Tensor, *,

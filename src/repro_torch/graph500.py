@@ -12,9 +12,10 @@ batch.
     print(rep.summary())
 
 ``run_graph500_sssp`` is the weighted twin (Graph500's second kernel):
-uniform weights on [2^-8, 1], delta-stepping from each key in turn,
-distances validated against Dijkstra and parents by the tight-relaxation
-check.
+uniform weights on [2^-8, 1], delta-stepping from each key in turn, or
+with ``batched=True`` from ``batch_size`` keys at once through
+``multi_source_sssp`` (one min-plus SpMM per sweep), distances validated
+against Dijkstra and parents by the tight-relaxation check.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from .configs import sssp_graph500 as cfg
 from .core.bfs_traditional import bfs_traditional
 from .core.formats import CSRGraph, SlimSellTiled, build_slimsell, resolve_device
 from .core.multi_bfs import multi_source_bfs
+from .core.multi_sssp import multi_source_sssp
 from .core.options import EngineConfig
 from .core.sssp import dijkstra_reference, sssp
 from .graphs.generators import kronecker, with_random_weights
@@ -246,15 +248,18 @@ class Graph500SSSPReport:
     sweeps: np.ndarray    # relaxation sweeps per root
     buckets: np.ndarray   # delta buckets per root
     validated: int
+    batched: bool = False  # min-plus SpMM batches across roots?
+    batch_size: int = 1    # roots per SpMM batch when batched
 
     @property
     def harmonic_mean_teps(self) -> float:
         return float(1.0 / np.mean(1.0 / self.teps))
 
     def summary(self) -> str:
+        batch = f"batch={self.batch_size} " if self.batched else ""
         return (f"graph500-sssp scale={self.scale} ef={self.edge_factor} "
                 f"n={self.n} m={self.m} device={self.device} "
-                f"mode={self.mode} delta={self.delta:.4g} "
+                f"mode={self.mode} {batch}delta={self.delta:.4g} "
                 f"roots={len(self.roots)} validated={self.validated} "
                 f"hmean_TEPS={self.harmonic_mean_teps:.3e} "
                 f"sweeps/root={float(self.sweeps.mean()):.1f}")
@@ -262,6 +267,7 @@ class Graph500SSSPReport:
 
 def run_graph500_sssp(*, scale: int = 10, edge_factor: int = 16,
                       n_roots: int = 16, delta: Optional[float] = None,
+                      batched: bool = False, batch_size: int = 16,
                       C: int = 8, L: int = 128, seed: int = 1,
                       weight_low: Optional[float] = None,
                       weight_high: Optional[float] = None,
@@ -270,17 +276,24 @@ def run_graph500_sssp(*, scale: int = 10, edge_factor: int = 16,
                       tiled: Optional[SlimSellTiled] = None,
                       config: Optional[EngineConfig] = None,
                       device=None) -> Graph500SSSPReport:
-    """Weighted Graph500 kernel: delta-stepping from each sampled key in
-    turn (one ``sssp`` call per key), validated, scored. ``device`` None
-    means the card (raises when there is none); a given ``tiled`` may be
-    the host layout or one on that device, and must be the layout of the
-    given weighted ``csr``. ``config`` goes to ``sssp`` unchanged.
+    """Weighted Graph500 kernel: delta-stepping from the sampled keys,
+    validated, scored. ``batched=False`` runs one ``sssp`` call per key;
+    ``batched=True`` runs the keys in batches of ``batch_size`` through
+    ``multi_source_sssp``, one min-plus SpMM sweep advancing every root of
+    a batch. Per-root distances, sweeps and buckets are the same either
+    way. ``device`` None means the card (raises when there is none); a
+    given ``tiled`` may be the host layout or one on that device, and must
+    be the layout of the given weighted ``csr``. ``config`` goes to
+    ``sssp`` / ``multi_source_sssp`` unchanged.
 
     TEPS accounting mirrors the BFS harness: the edges charged to a root
-    are the undirected edges with a reached endpoint, the time its own
-    ``sssp`` call's wall time (the results come back as host arrays).
+    are the undirected edges with a reached endpoint; the time charged is
+    its own call's wall time per root, or its batch's wall time divided by
+    the batch width when batched (the results come back as host arrays).
     """
     config = config if config is not None else EngineConfig()
+    if batch_size <= 0:
+        raise ValueError(f"batch_size must be positive, got {batch_size}")
     dev = resolve_device(device)
     if csr is None:
         csr = with_random_weights(
@@ -308,24 +321,38 @@ def run_graph500_sssp(*, scale: int = 10, edge_factor: int = 16,
     buckets = np.empty(roots.size, np.int32)
     validated = 0
     delta_used = None
-    for i, r in enumerate(roots):
+    step = batch_size if batched else 1
+    for start in range(0, roots.size, step):
+        batch = roots[start:start + step]
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        res = sssp(tiled, int(r), delta=delta, need_parents=need_parents,
-                   config=config, device=dev)
-        dt = time.perf_counter() - t0
-        d = res.distances
+        if batched:
+            res = multi_source_sssp(tiled, batch, delta=delta,
+                                    need_parents=need_parents, config=config,
+                                    device=dev)
+            dists, parents = res.distances, res.parents
+            sweeps[start:start + batch.size] = res.sweeps
+            buckets[start:start + batch.size] = res.buckets
+        else:
+            res = sssp(tiled, int(batch[0]), delta=delta,
+                       need_parents=need_parents, config=config, device=dev)
+            dists = res.distances[None]
+            parents = None if res.parents is None else res.parents[None]
+            sweeps[start], buckets[start] = res.sweeps, res.buckets
+        per_root_s = (time.perf_counter() - t0) / batch.size
         delta_used = res.delta
-        teps[i] = max(1, int(csr.deg[np.isfinite(d)].sum()) // 2) / dt
-        sweeps[i] = res.sweeps
-        buckets[i] = res.buckets
-        if validate:
-            validate_sssp_tree(csr, int(r), d,
-                               res.parents if need_parents else None)
-            validated += 1
+        for b, r in enumerate(batch):
+            d = dists[b]
+            teps[start + b] = \
+                max(1, int(csr.deg[np.isfinite(d)].sum()) // 2) / per_root_s
+            if validate:
+                validate_sssp_tree(csr, int(r), d,
+                                   parents[b] if need_parents else None)
+                validated += 1
     return Graph500SSSPReport(
         scale=scale, edge_factor=edge_factor, n=csr.n, m=csr.m_undirected,
         device=str(dev), mode=config.mode, delta=float(delta_used),
         roots=roots, teps=teps, sweeps=sweeps, buckets=buckets,
-        validated=validated)
+        validated=validated, batched=batched,
+        batch_size=batch_size if batched else 1)

@@ -6,10 +6,11 @@ current stream (a CUDA tensor). On CUDA there is no fallback: a kernel that
 does not build or launch raises. ``Kernel.launches`` counts the launches,
 so a run can show that its path went through the kernel.
 
-``spmv(..., weights=)`` is the stored-weight (min-plus) sweep of SSSP:
-its kernel, ``slimsell_spmv_wts``, is an entry point of the SpMV source
-with a launch count of its own, so a run shows SSSP's sweeps apart from
-BFS's.
+``spmv(..., weights=)`` and ``spmm(..., weights=)`` are the stored-weight
+(min-plus) sweeps of single- and multi-source SSSP: their kernels,
+``slimsell_spmv_wts`` and ``slimsell_spmm_wts``, are entry points of the
+SpMV and SpMM sources with launch counts of their own, so a run shows
+SSSP's sweeps apart from BFS's.
 
 The packed kernels (SlimSell-B) sweep int32 words that hold 32 bits each
 (``core.packing``): ``spmv_packed`` a frontier bitmap of ``ceil(n/32)``
@@ -79,6 +80,9 @@ SPMV_WTS = Kernel("slimsell_spmv_wts",
                   source="slimsell_spmv")
 SPMM = Kernel("slimsell_spmm",
               [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+SPMM_WTS = Kernel("slimsell_spmm_wts",
+                  [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+                  source="slimsell_spmm")
 PULL = Kernel("slimsell_pull",
               [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
 PULL_MM = Kernel("slimsell_pull_mm",
@@ -87,7 +91,8 @@ SPMV_PACKED = Kernel("slimsell_spmv_packed",
                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
 SPMM_PACKED = Kernel("slimsell_spmm_packed",
                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
-KERNELS = (SPMV, SPMV_WTS, SPMM, PULL, PULL_MM, SPMV_PACKED, SPMM_PACKED)
+KERNELS = (SPMV, SPMV_WTS, SPMM, SPMM_WTS, PULL, PULL_MM, SPMV_PACKED,
+           SPMM_PACKED)
 
 
 def reset_launches() -> None:
@@ -124,10 +129,10 @@ def _check(sr: Semiring, tiled, x: torch.Tensor, ndim: int,
 
 def _implicit(sr: Semiring) -> None:
     """The implicit-edge-value sweeps do not take ``minplus``: its edge
-    value is a stored weight, swept by ``spmv(..., weights=)``."""
+    value is a stored weight, swept by ``spmv`` / ``spmm(..., weights=)``."""
     if sr.name == "minplus":
         raise ValueError("the minplus semiring needs stored weights "
-                         "(weights=tiled.wts, single-source SpMV only); for "
+                         "(weights=tiled.wts, push SpMV and SpMM only); for "
                          "the implicit-1 edge value use the tropical semiring")
 
 
@@ -156,13 +161,14 @@ def _check_rows(x: torch.Tensor, row_mask: torch.Tensor) -> None:
         raise ValueError("row_mask must be contiguous")
 
 
-def _lanes(tiled, B: int) -> int:
+def _lanes(tiled, B: int, staged: int = 1) -> int:
     """The batch-column tile of one block of the matrix kernels: whole
-    warps, at most 1024 threads, and the kernels' tile must fit their 48 KB
-    of static shared memory."""
-    if tiled.C * tiled.L * 4 > 48 * 1024:
-        raise ValueError(f"a C x L = {tiled.C} x {tiled.L} tile does not fit "
-                         "the matrix kernels' 48 KB of shared memory")
+    warps, at most 1024 threads, and the ``staged`` C x L arrays of one
+    tile (cols, and the weights of the stored-weight SpMM) must fit the
+    kernels' 48 KB of shared memory."""
+    if staged * tiled.C * tiled.L * 4 > 48 * 1024:
+        raise ValueError(f"{staged} C x L = {tiled.C} x {tiled.L} tile(s) do "
+                         "not fit the matrix kernels' 48 KB of shared memory")
     return min(-(-B // 32) * 32, 128, (1024 // tiled.C) // 32 * 32)
 
 
@@ -209,20 +215,32 @@ def spmv(sr: Semiring, tiled, x: torch.Tensor, *,
 
 
 def spmm(sr: Semiring, tiled, X: torch.Tensor, *,
-         tile_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """SlimSell SpMM: X [n, B] -> Y [n, B] in vertex space."""
+         tile_mask: Optional[torch.Tensor] = None,
+         weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """SlimSell SpMM: X [n, B] -> Y [n, B] in vertex space, any B. With
+    ``weights`` (float32 [T, C, L], under ``minplus``): Y[v, b] = min over
+    the kept slots of v's row of ``w + X[col, b]``, the same weight for
+    every column, the stored-weight kernel."""
     _check(sr, tiled, X, 2, tile_mask)
-    _implicit(sr)
+    if weights is None:
+        _implicit(sr)
+    else:
+        _check_weights(sr, tiled, X, weights)
     if X.device.type == "cpu":
-        return spmm_plain(sr, tiled, X, tile_mask)
-    ptrs = _cuda_operands(tiled, X, tile_mask)
+        return spmm_plain(sr, tiled, X, tile_mask, weights)
+    cols, *rest = _cuda_operands(tiled, X, tile_mask)
     B = X.shape[1]
-    lanes = _lanes(tiled, B)
     Y = torch.empty_like(X)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
-        SPMM.launch(sr.code, *ptrs, X.data_ptr(), Y.data_ptr(),
-                    tiled.n_chunks, tiled.C, tiled.L, B, lanes, stream)
+        if weights is None:
+            SPMM.launch(sr.code, cols, *rest, X.data_ptr(), Y.data_ptr(),
+                        tiled.n_chunks, tiled.C, tiled.L, B, _lanes(tiled, B),
+                        stream)
+        else:
+            SPMM_WTS.launch(cols, weights.data_ptr(), *rest, X.data_ptr(),
+                            Y.data_ptr(), tiled.n_chunks, tiled.C, tiled.L,
+                            B, _lanes(tiled, B, staged=2), stream)
     return Y
 
 

@@ -12,6 +12,7 @@ from repro_torch import convert, graph500, profile_graph500
 from repro_torch.core import bfs as pbfs
 from repro_torch.core import formats as pf
 from repro_torch.core import multi_bfs as pmulti
+from repro_torch.core import multi_sssp as pmsssp
 from repro_torch.core import sssp as psssp
 from repro_torch.graphs.generators import kronecker, with_random_weights
 
@@ -34,6 +35,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert len(PORT_FILES) > 10
     names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
     assert {"src/repro_torch/core/sssp.py",
+            "src/repro_torch/core/multi_sssp.py",
             "src/repro_torch/configs/sssp_graph500.py"} <= names
     bad = {str(p.relative_to(REPO)): sorted(set(_imported_roots(p)) & {"jax", "repro"})
            for p in PORT_FILES}
@@ -87,8 +89,17 @@ def test_sssp_entry_points_without_card_raise(monkeypatch):
     monkeypatch.setattr(psssp.eng, "run_fused", lambda *a, **k: ran.append(1))
     host = pf.build_slimsell(with_random_weights(kronecker(6, 4, seed=0)),
                              C=8, L=16)
+    monkeypatch.setattr(pmsssp.eng, "run_fused", lambda *a, **k: ran.append(1))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         psssp.sssp(host, 0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        pmsssp.multi_source_sssp(host, [0, 1])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        repro_torch.multi_source_sssp(host.to_torch("cpu"), [0])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         graph500.run_graph500_sssp(scale=5)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        graph500.run_graph500_sssp(scale=5, batched=True, batch_size=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profile_graph500.main(["--scale", "5", "--batch", "2", "--sssp"])
     assert not ran

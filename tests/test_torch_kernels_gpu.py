@@ -179,3 +179,55 @@ def test_weighted_kernel_equals_plain(cuda_weighted, view, mask_kind, x_kind):
     torch.cuda.synchronize()
     assert ops.SPMV_WTS.launches == before + 1
     assert got.is_cuda and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("x_kind", ["all_inf", "sparse", "dense"])
+@pytest.mark.parametrize("poisoned", [False, True])
+@pytest.mark.parametrize("width", [1, 5, 33, 64, 97, 160])
+@pytest.mark.parametrize("mask_kind", MASKS)
+def test_weighted_spmm_kernel_equals_plain(cuda_weighted, mask_kind, width,
+                                           poisoned, x_kind):
+    """The stored-weight (min-plus) SpMM over the full ``wts``, exactly, at
+    widths of one, two and three warps of lanes and past one lane tile
+    (160: a second, partly used block along grid y). Poisoned padding
+    weights (-1000) must change nothing."""
+    dev, tiled = cuda_weighted
+    rng = np.random.default_rng([MASKS.index(mask_kind), width, poisoned,
+                                 len(x_kind), 4])
+    w = torch.where(tiled.cols < 0, -1000.0, tiled.wts) if poisoned \
+        else tiled.wts
+    mask = _mask(mask_kind, tiled, rng, dev)
+    X = rng.uniform(0.0, 8.0, (tiled.n, width)).astype(np.float32)
+    X[rng.random(X.shape) >= {"all_inf": 0.0, "sparse": 0.02,
+                              "dense": 0.7}[x_kind]] = np.inf
+    X = torch.from_numpy(X).to(dev)
+    before = ops.SPMM_WTS.launches
+    got = ops.spmm(psr.MINPLUS, tiled, X, tile_mask=mask, weights=w)
+    want = spmm_plain(psr.MINPLUS, tiled, X, mask, tiled.wts)
+    torch.cuda.synchronize()
+    assert ops.SPMM_WTS.launches == before + 1
+    assert got.is_cuda and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("delta", [None, float("inf"), 0.05])
+@pytest.mark.parametrize("mode", ["fused", "hostloop"])
+def test_multi_source_sssp_card_equals_cpu(cuda, mode, delta):
+    """``multi_source_sssp`` on the card (the stored-weight SpMM kernel)
+    against the plain path on the CPU: every field equal."""
+    from repro_torch.core.multi_sssp import multi_source_sssp
+    from repro_torch.core.options import EngineConfig
+    from repro_torch.graph500 import sample_roots
+    dev, _ = cuda
+    csr = with_random_weights(kronecker(10, 16, seed=1), low=1.0 / 256.0,
+                              high=1.0, seed=2)
+    host = build_slimsell(csr, C=8, L=128)
+    roots = sample_roots(csr, 37)
+    kw = dict(delta=delta, need_parents=True, log_work=True,
+              config=EngineConfig(mode=mode))
+    ref = multi_source_sssp(host.to_torch("cpu"), roots, device="cpu", **kw)
+    before = ops.SPMM_WTS.launches
+    got = multi_source_sssp(host.to_torch(dev), roots, device=dev, **kw)
+    assert ops.SPMM_WTS.launches > before
+    for f in ("distances", "parents", "sweeps", "buckets", "iterations",
+              "work_log", "delta"):
+        assert np.array_equal(getattr(got, f), getattr(ref, f)), f

@@ -242,7 +242,8 @@ def test_cpu_pull_launches_no_kernel(kron):
     _, _, pt = kron
     before = ops.launch_counts()
     assert set(before) == {"slimsell_spmv", "slimsell_spmv_wts",
-                           "slimsell_spmm", "slimsell_pull",
+                           "slimsell_spmm", "slimsell_spmm_wts",
+                           "slimsell_pull",
                            "slimsell_pull_mm", "slimsell_spmv_packed",
                            "slimsell_spmm_packed"}
     rows = torch.ones(pt.n, dtype=torch.bool)
