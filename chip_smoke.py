@@ -7,7 +7,7 @@ Phases, each of which must pass (any failure ends the run with a nonzero
 exit and no result line):
 
 1. the card's name and power limit;
-2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (eight
+2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nine
    entry points in six sources);
 3. every kernel against its plain PyTorch version on the card, exactly
    (all values are integers or +-inf), on a scale-14 Kronecker graph:
@@ -79,15 +79,34 @@ exit and no result line):
    (d) the kernel at the real state of the batch's sweep with the most
    tiles, with that sweep's mask and with every tile kept, against its
    plain version, timed beside it, the implicit-value SpMM on the same
-   frontier, a library call and its bound.
+   frontier, a library call and its bound;
+10. GCN inference (gcn-cora, 2 layers 1433 -> 16 -> 16) on the SlimSell-W
+   aggregation through the GCN-weighted SpMM kernel: (a) the kernel
+   against its plain version, rtol = atol = 1e-5 and no NaN, on an
+   Erdos-Renyi graph of Cora's shape (2,708 nodes, average degree 3.9) at
+   C=8, L=16 and the scale-14 graph (isolated vertices) at C=8, L=128 and
+   L=16, x B=1/5/16/33/64/160 x the five masks of 7a (160 takes a second
+   block along grid y); then ``gcn_forward`` on the card against the CPU,
+   both aggregations, at d_in 1433 on the first two graphs, atol = rtol =
+   1e-4; (b) at scale 20, N(0, 1) features from a seeded card generator
+   (6.01 GB): three requests (``aggregation="slimsell"`` forwards under
+   ``torch.inference_mode()``), equal to each other and to the segment
+   aggregation within atol = rtol = 1e-3, then the warm forward of each
+   aggregation timed (median of 5) with its ``x @ w`` and aggregation
+   shares and nodes/s; (c) the kernel at d = 16 with every tile kept
+   against a float64 run of its plain version (atol = rtol = 1e-4), timed
+   beside the plain version, the implicit real SpMM on the same X,
+   ``torch.sparse.mm`` on the GCN-normalised CSR (the same function) and
+   its bound.
 
 The graphs carry the Graph500 SSSP weights (uniform on [2^-8, 1]); one
 weighted layout per scale serves every phase (the BFS phases never read
 the weights). The launch counts of each main path must be nonzero: the
 four lane kernels over phases 4b and 5, the two packed kernels over phase
 7b, the stored-weight SpMV over phase 8b, the stored-weight SpMM over
-phases 9b and 9c, each counted from zero. The last lines are the kernel table, the card, and ``{"ok": true, "device":
-{...}}``.
+phases 9b and 9c, the GCN SpMM over phase 10b, each counted from zero.
+The last lines are the kernel table, the card, and ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -111,9 +130,10 @@ SEMIRINGS = ("tropical", "real", "boolean", "selmax")
 SCALE, EDGE_FACTOR, SMALL_SCALE = 20, 16, 14
 # the whole run must end within 1200 s; phase 8b validates 64 SSSP trees
 # only if that still ends by this mark, else the first 16; phase 9c the
-# same by its own mark
-VALIDATE_ALL_BY_S = 900.0
-VALIDATE_BATCH_BY_S = 1000.0
+# same by its own mark; both leave phase 10 its reserve
+GCN_RESERVE_S = 60.0
+VALIDATE_ALL_BY_S = 900.0 - GCN_RESERVE_S
+VALIDATE_BATCH_BY_S = 1000.0 - GCN_RESERVE_S
 KERNEL_INFO = {
     "slimsell_spmv": ("src/repro_torch/kernels/csrc/slimsell_spmv.cu",
                       "src/repro/kernels/slimsell_spmv.py:66"),
@@ -122,6 +142,8 @@ KERNEL_INFO = {
     "slimsell_spmm": ("src/repro_torch/kernels/csrc/slimsell_spmm.cu",
                       "src/repro/kernels/slimsell_spmm.py:44"),
     "slimsell_spmm_wts": ("src/repro_torch/kernels/csrc/slimsell_spmm.cu",
+                          "src/repro/kernels/slimsell_spmm.py:44"),
+    "slimsell_spmm_gcn": ("src/repro_torch/kernels/csrc/slimsell_spmm.cu",
                           "src/repro/kernels/slimsell_spmm.py:44"),
     "slimsell_pull": ("src/repro_torch/kernels/csrc/slimsell_pull.cu",
                       "src/repro/kernels/slimsell_pull.py:53"),
@@ -246,6 +268,28 @@ def check_equal(kern, got, want, errs, what):
         raise AssertionError(f"{kern} != plain: {what}")
 
 
+def check_close(kern, got, want, errs, what, tol):
+    """Float sums in another order: within rtol = atol = ``tol``, no NaN."""
+    if torch.isnan(got).any() or torch.isnan(want).any():
+        raise AssertionError(f"{kern}: NaN: {what}")
+    err = max_abs_err(got, want)
+    if errs is not None:
+        errs[kern] = max(errs[kern], err)
+    if not torch.allclose(got.double(), want.double(), rtol=tol, atol=tol):
+        raise AssertionError(f"{kern}: not within {tol} of the reference: "
+                             f"{what}; max abs err {err}")
+
+
+def gcn_batch(csr, feat: torch.Tensor, tiled, device) -> dict:
+    """A GCN batch of a graph: features, edge list, degrees, layout."""
+    src = np.repeat(np.arange(csr.n, dtype=np.int32), np.diff(csr.indptr))
+    edge_index = np.stack([src, csr.indices.astype(np.int32)])
+    return {"node_feat": feat.to(device),
+            "edge_index": torch.from_numpy(edge_index).to(device),
+            "deg": torch.from_numpy(csr.deg.astype(np.int32)).to(device),
+            "tiled": tiled}
+
+
 def pull_work(tiled, ranks, nf, mask):
     """What the first-hit pull needs at this state, worked out from the
     plain version's hit ranks (int32[n, B], -1 for no hit): a pending
@@ -307,7 +351,10 @@ def main() -> int:
     from repro_torch.graph500 import (batch_teps, run_graph500,
                                       run_graph500_sssp, sample_roots,
                                       validate_bfs_tree, validate_sssp_tree)
-    from repro_torch.graphs.generators import kronecker, with_random_weights
+    from repro_torch.configs.gcn_cora import make_config
+    from repro_torch.graphs.generators import (erdos_renyi, kronecker,
+                                               with_random_weights)
+    from repro_torch.models.gnn import _gcn_aggregate, gcn_forward, gcn_init
 
     def weighted_kronecker(scale):
         return with_random_weights(kronecker(scale, EDGE_FACTOR, seed=1),
@@ -1150,6 +1197,180 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[9] phase 9 took {time.perf_counter() - t9:.1f} s; the run "
         f"{time.perf_counter() - t_start:.1f} s so far")
+
+    # ---- 10: GCN inference on the SlimSell-W aggregation (kernel 2g)
+    t10 = time.perf_counter()
+    # GCN is float32 end to end, as in the JAX package: no TF32 anywhere
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gcn_cfg = make_config()
+    slim_cfg = dataclasses.replace(gcn_cfg, aggregation="slimsell")
+    seg_cfg = dataclasses.replace(gcn_cfg, aggregation="segment")
+    # (a) the kernel against its plain version, then the card against the CPU
+    g10 = np.random.default_rng(10)
+    cora_csr = erdos_renyi(2708, 3.9, seed=10)
+    cora_host = build_slimsell(cora_csr, C=8, L=16)
+    cora = cora_host.to_torch(dev)
+    gcn_layouts = {
+        "cora-shape ER C=8 L=16": cora,
+        f"kronecker({SMALL_SCALE}) C=8 L=128": small,
+        f"kronecker({SMALL_SCALE}) C=8 L=16":
+            build_slimsell(small_csr, C=8, L=16).to_torch(dev)}
+    n_cases = 0
+    for lname, t in gcn_layouts.items():
+        deg_t = t.deg.float()
+        gmasks = masks(t, g10, dev)
+        keep_chunk = torch.from_numpy(g10.random(t.n_chunks) < 0.6).to(dev)
+        gmasks["whole_chunks"] = keep_chunk[t.row_block.long()]
+        for mask_name, mask in gmasks.items():
+            for width in (1, 5, 16, 33, 64, 160):
+                X = torch.from_numpy(g10.standard_normal(
+                    (t.n, width)).astype(np.float32)).to(dev)
+                check_close("slimsell_spmm_gcn",
+                            ops.spmm(real, t, X, tile_mask=mask, deg=deg_t),
+                            spmm_plain(real, t, X, mask, deg=deg_t), errs,
+                            f"{lname} B={width} mask={mask_name}", 1e-5)
+                n_cases += 1
+    torch.cuda.synchronize()
+    cpu_params = gcn_init(gcn_cfg, generator=torch.Generator().manual_seed(10),
+                          device="cpu")
+    dev_params = {"w": [w.to(dev) for w in cpu_params["w"]]}
+    card_cpu = []
+    for gname, gcsr, ghost, gtiled in (
+            ("cora-shape ER", cora_csr, cora_host, cora),
+            (f"kronecker({SMALL_SCALE})", small_csr, small_host, small)):
+        feat = torch.from_numpy(g10.standard_normal(
+            (gcsr.n, gcn_cfg.d_in)).astype(np.float32))
+        cpu_batch = gcn_batch(gcsr, feat, ghost.to_torch("cpu"), "cpu")
+        dev_batch = gcn_batch(gcsr, feat, gtiled, dev)
+        for cfg in (seg_cfg, slim_cfg):
+            with torch.inference_mode():
+                want = gcn_forward(cpu_params, cpu_batch, cfg, device="cpu")
+                got = gcn_forward(dev_params, dev_batch, cfg, device=dev)
+            check_close("gcn_forward", got.cpu(), want, None,
+                        f"{gname} {cfg.aggregation} card vs CPU", 1e-4)
+            card_cpu.append(f"{gname} {cfg.aggregation} "
+                            f"{max_abs_err(got.cpu(), want):.3e}")
+    log(f"[10a] slimsell_spmm_gcn within 1e-5 of plain, no NaN, on {n_cases} "
+        f"cases ({', '.join(gcn_layouts)}; B=1/5/16/33/64/160 x 5 masks); "
+        f"gcn_forward at d_in {gcn_cfg.d_in} card == CPU within 1e-4, max abs "
+        f"err: {'; '.join(card_cpu)}")
+
+    # (b) the GCN main path at scale 20: three requests, counted from zero
+    ops.reset_launches()
+    feat = torch.randn((tiled.n, gcn_cfg.d_in),
+                       generator=torch.Generator(device=dev).manual_seed(10),
+                       device=dev)
+    params = gcn_init(gcn_cfg, generator=torch.Generator().manual_seed(11),
+                      device=dev)
+    batch = gcn_batch(csr, feat, tiled, dev)
+    answers = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            y = gcn_forward(params, batch, slim_cfg)
+        torch.cuda.synchronize()
+        answers.append((y, time.perf_counter() - t0))
+    y_slim = answers[0][0]
+    if y_slim.shape != (tiled.n, gcn_cfg.n_classes) \
+            or not torch.isfinite(y_slim).all():
+        raise AssertionError(f"GCN logits: shape {tuple(y_slim.shape)}, or "
+                             "not finite")
+    if not all(torch.equal(y, y_slim) for y, _ in answers):
+        raise AssertionError("the three GCN requests gave different logits")
+    with torch.inference_mode():
+        y_seg = gcn_forward(params, batch, seg_cfg)
+    check_close("gcn_forward", y_slim, y_seg, None,
+                f"slimsell vs segment at scale {SCALE}", 1e-3)
+    seg_err = max_abs_err(y_slim, y_seg)
+    fwd = {"slimsell": [], "segment": []}
+    for _ in range(5):
+        for name, cfg in (("slimsell", slim_cfg), ("segment", seg_cfg)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                gcn_forward(params, batch, cfg)
+            torch.cuda.synchronize()
+            fwd[name].append(time.perf_counter() - t0)
+    gcn_launches = ops.launch_counts()["slimsell_spmm_gcn"]
+    if gcn_launches != 2 * (len(answers) + len(fwd["slimsell"])):
+        raise AssertionError(f"slimsell_spmm_gcn launched {gcn_launches} times "
+                             f"over {len(answers) + 5} SlimSell forwards")
+    launches["slimsell_spmm_gcn"] = gcn_launches
+    log(f"[10b] gcn-cora at scale {SCALE} (n={tiled.n}, d_in "
+        f"{gcn_cfg.d_in}, features {feat.numel() * 4 / 1e9:.2f} GB): 3 "
+        f"requests {[round(dt, 6) for _, dt in answers]} s, bit-equal to "
+        f"each other; slimsell == segment within 1e-3 (max abs err "
+        f"{seg_err:.3e}, logits max abs {float(y_seg.abs().max()):.3e}); "
+        f"main-path launches slimsell_spmm_gcn={gcn_launches}")
+    # where a warm forward's time goes: x @ w (two layers) and the two
+    # aggregations (each layer's input is [n, 16])
+    w0, w1 = params["w"]
+    with torch.inference_mode():
+        xw = feat @ w0
+        h = torch.relu(gcn_forward({"w": [w0]}, batch, slim_cfg))
+        mm_ms = time_ms(lambda: feat @ w0, 5) + time_ms(lambda: h @ w1, 5)
+        agg_ms = {name: 2 * time_ms(
+            lambda: _gcn_aggregate(xw, batch, tiled.n, name), 5)
+            for name in ("slimsell", "segment")}
+    for name in ("slimsell", "segment"):
+        med = float(np.median(fwd[name]))
+        log(f"[10b] {name} forward, warm, median of 5: {med:.6f} s "
+            f"({fwd[name]}), {tiled.n / med:.6e} nodes/s; x @ w "
+            f"{mm_ms:.4f} ms ({mm_ms / 1e3 / med:.4f}), aggregation "
+            f"{agg_ms[name]:.4f} ms ({agg_ms[name] / 1e3 / med:.4f}) on {card}")
+    del feat, batch, xw, h, answers, y, y_slim, y_seg
+    torch.cuda.empty_cache()
+
+    # (c) the kernel alone at d = 16, every tile kept
+    degf = tiled.deg.float()
+    X16 = torch.from_numpy(g10.standard_normal((tiled.n, 16)).astype(
+        np.float32)).to(dev)
+    got = ops.spmm(real, tiled, X16, tile_mask=full, deg=degf)
+    want32 = spmm_plain(real, tiled, X16, full, deg=degf)
+    check_close("slimsell_spmm_gcn", got, want32, errs,
+                f"scale {SCALE} B=16 every tile kept", 1e-5)
+    want64 = spmm_plain(real, tiled, X16.double(), full, deg=degf.double())
+    check_close("slimsell_spmm_gcn", got, want64, None,
+                f"scale {SCALE} B=16 against float64", 1e-4)
+    err64 = max_abs_err(got, want64)
+    plain_err64 = max_abs_err(want32, want64)
+    del want64
+    norm = torch.rsqrt(degf.clamp_min(1.0)).cpu().numpy()
+    rows = np.repeat(np.arange(csr.n), np.diff(csr.indptr))
+    adj_gcn = torch.sparse_csr_tensor(
+        torch.from_numpy(csr.indptr),
+        torch.from_numpy(csr.indices.astype(np.int64)),
+        torch.from_numpy(norm[rows] * norm[csr.indices]),
+        size=(csr.n, csr.n)).to(dev)
+    lib_err = max_abs_err(got, torch.sparse.mm(adj_gcn, X16))
+    ms = time_ms(lambda: ops.spmm(real, tiled, X16, tile_mask=full,
+                                  deg=degf), 20)
+    plain_ms = time_ms(lambda: spmm_plain(real, tiled, X16, full, deg=degf), 3)
+    implicit_ms = time_ms(lambda: ops.spmm(real, tiled, X16, tile_mask=full),
+                          20)
+    library_ms = time_ms(lambda: torch.sparse.mm(adj_gcn, X16), 20)
+    # cols up to cl, the indices and mask, deg, X in, Y out; per edge one
+    # weight product, and a multiply and an add per column; per vertex a
+    # clamp, a root and a division
+    moved = layout_bytes + 4 * tiled.n + 2 * 4 * tiled.n * 16
+    bound_ms = row("slimsell_spmm_gcn", ms, plain_ms, library_ms, moved,
+                   2 * edges * 16 + edges + 3 * tiled.n, semiring_name="real",
+                   batch=16, implicit_ms=implicit_ms,
+                   max_abs_err_vs_float64=err64,
+                   library_call="torch.sparse.mm on the GCN-normalised CSR "
+                   "(real; the same function)")
+    log(f"[10c] slimsell_spmm_gcn B=16, every tile kept: kernel {ms:.4f} ms "
+        f"plain {plain_ms:.3f} ms implicit real SpMM {implicit_ms:.4f} ms "
+        f"library (the same function) {library_ms:.4f} ms bound "
+        f"{bound_ms:.4f} ms ({moved / 1e9:.4f} GB) on {card}; max abs err "
+        f"vs float64: kernel {err64:.3e}, float32 plain {plain_err64:.3e}, "
+        f"vs library {lib_err:.3e}")
+    torch.cuda.synchronize()
+    log(f"[10] phase 10 took {time.perf_counter() - t10:.1f} s (reserve "
+        f"{GCN_RESERVE_S:.0f} s); the run {time.perf_counter() - t_start:.1f} "
+        f"s so far")
 
     print(json.dumps({"kernels": table}))
     print(card)

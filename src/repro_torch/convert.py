@@ -2,18 +2,20 @@
 
 ``tiled_from_arrays`` builds the port's ``SlimSellTiled`` from the fields of
 a layout the JAX package built; ``state_from_arrays`` does the same for a
-BFS state dict. With these, one layout and one state go through both
-packages unchanged. Nothing here imports the JAX package: the caller hands
-over plain arrays.
+BFS state dict. ``gcn_params_from_arrays`` and ``gcn_batch_from_arrays``
+carry a GCN's weights and its input batch. With these, one layout, one
+state and one model go through both packages unchanged. Nothing here
+imports the JAX package: the caller hands over plain arrays.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .core.formats import SlimSellTiled, chunk_tile_ptr, resolve_device
+from .models.gnn import GCNConfig, layer_shapes
 
 REQUIRED_ARRAYS = ("cols", "row_block", "row_vertex", "cl", "deg")
 LAYOUT_ARRAYS = REQUIRED_ARRAYS + ("inc_src", "inc_tile", "inc_ptr", "wts")
@@ -80,3 +82,58 @@ def state_from_arrays(state: Mapping[str, np.ndarray], device=None) -> dict:
             v = v.view(np.int32)
         out[k] = torch.from_numpy(v).to(dev)
     return out
+
+
+def gcn_params_from_arrays(params: Mapping[str, Sequence[np.ndarray]],
+                           cfg: Optional[GCNConfig] = None,
+                           device=None) -> dict:
+    """The port's GCN params from the JAX package's ``{"w": [array, ...]}``,
+    on ``device`` (default: the card; raises when there is none), in
+    ``cfg.dtype`` (float32 without a config). The weights must chain
+    ([a, b] then [b, c]) and, with ``cfg``, have its layer shapes."""
+    ws = [np.asarray(w) for w in params["w"]]
+    shapes = [w.shape for w in ws]
+    if not ws or any(len(s) != 2 for s in shapes) or any(
+            a[1] != b[0] for a, b in zip(shapes, shapes[1:])):
+        raise ValueError(f"GCN weights must be chained 2-D arrays, got {shapes}")
+    if cfg is not None and shapes != layer_shapes(cfg):
+        raise ValueError(f"GCN weights have shapes {shapes}, the config "
+                         f"{cfg.name} wants {layer_shapes(cfg)}")
+    dev = resolve_device(device)
+    dtype = torch.float32 if cfg is None else cfg.dtype
+    return {"w": [torch.from_numpy(np.array(w, dtype=np.float32)).to(
+        device=dev, dtype=dtype) for w in ws]}
+
+
+def gcn_batch_from_arrays(arrays: Mapping[str, np.ndarray],
+                          layout: Optional[Tuple[Mapping, Mapping]] = None,
+                          device=None) -> dict:
+    """A GCN input batch on ``device`` (default: the card) from numpy
+    arrays: ``node_feat`` [N, F] (float32), ``edge_index`` int[2, E] (-1
+    pads; int32), ``deg`` [N] (int32). ``layout``, the ``(fields, meta)`` of
+    a SlimSell layout of the same graph (``tiled_from_arrays``), adds
+    ``tiled`` for the ``"slimsell"`` aggregation."""
+    feat = np.asarray(arrays["node_feat"])
+    edge_index = np.asarray(arrays["edge_index"])
+    deg = np.asarray(arrays["deg"])
+    if feat.ndim != 2:
+        raise ValueError(f"node_feat must be [N, F], got {feat.shape}")
+    n = feat.shape[0]
+    if edge_index.ndim != 2 or edge_index.shape[0] != 2:
+        raise ValueError(f"edge_index must be [2, E], got {edge_index.shape}")
+    if deg.shape != (n,):
+        raise ValueError(f"deg must be [{n}], got {deg.shape}")
+    if edge_index.size and (edge_index.min() < -1 or edge_index.max() >= n):
+        raise ValueError(f"edge_index holds ids outside -1..{n - 1}")
+    dev = resolve_device(device)
+    batch = {
+        "node_feat": torch.from_numpy(np.array(feat, dtype=np.float32)).to(dev),
+        "edge_index": torch.from_numpy(np.array(edge_index, dtype=np.int32)).to(dev),
+        "deg": torch.from_numpy(np.array(deg, dtype=np.int32)).to(dev),
+    }
+    if layout is not None:
+        tiled = tiled_from_arrays(*layout, device=dev)
+        if tiled.n != n:
+            raise ValueError(f"the layout has {tiled.n} vertices, node_feat {n}")
+        batch["tiled"] = tiled
+    return batch

@@ -24,6 +24,11 @@ SSSP. ``slimsell_spmm(..., weights=)`` is its matrix form, the weight
 broadcast over the B columns: one relaxation of B roots at once. A padding slot still contributes ``zero``, whatever its weight.
 ``minplus`` needs the weights; the pull sweeps take none.
 
+``slimsell_spmm(..., deg=)`` is the GCN aggregation (SlimSell-W with a
+*derived* weight): under ``real`` an edge (v, u) contributes
+``rsqrt(max(deg[v], 1)) * rsqrt(max(deg[u], 1)) * X[u, :]``, the weight
+worked out from the degree vector (``gcn_edge_weight``) and never stored.
+
 The device of the tensors picks the implementation: a CUDA tensor goes to
 the hand-written kernel through ``kernels.ops``, a CPU tensor to the plain
 PyTorch version in this module (``spmm_plain``), which is also the
@@ -49,6 +54,20 @@ from .semiring import BOOLEAN, Semiring
 
 # bytes one slice of the plain version's [t, C, L(, B)] gather may take
 _GATHER_BYTES = 1 << 30
+
+
+def gcn_edge_weight(deg: torch.Tensor, dtype: torch.dtype = torch.float32):
+    """The symmetric-normalised GCN weight, derived from degrees: a callable
+    of ``(rv_tile, safe_cols)`` (the row vertex of each slot's row, -1 on a
+    padding row, and the slot's column with padding clamped to 0) giving
+    ``rsqrt(max(deg, 1)[row]) * rsqrt(max(deg, 1)[col])``, in that order,
+    computed in ``dtype`` (float32, as the JAX package does)."""
+    d = deg.to(dtype).clamp_min(1.0)
+
+    def w(rv_tile: torch.Tensor, safe_cols: torch.Tensor) -> torch.Tensor:
+        return torch.rsqrt(d[rv_tile.clamp_min(0).long()]) \
+            * torch.rsqrt(d[safe_cols.long()])
+    return w
 
 
 def tile_contributions(sr: Semiring, cols: torch.Tensor, x: torch.Tensor,
@@ -86,14 +105,20 @@ def _combine_and_scatter(sr: Semiring, tiled, y_blocks: torch.Tensor) -> torch.T
 
 def spmm_plain(sr: Semiring, tiled, x: torch.Tensor,
                tile_mask: Optional[torch.Tensor] = None,
-               weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+               weights: Optional[torch.Tensor] = None,
+               deg: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain PyTorch sweep for x [n] or [n, B]: gather, reduce over L,
     combine the tiles of each chunk (SlimChunk), scatter to vertex space.
-    ``weights`` [T, C, L] are the stored edge values, else the implicit one.
+    ``weights`` [T, C, L] are the stored edge values; with ``deg`` [n] the
+    edge value is the GCN weight derived from it (``gcn_edge_weight``, in
+    x's dtype), slice by slice; else the implicit one.
 
     Tiles are processed in slices so the [t, C, L(, B)] gather stays near
     ``_GATHER_BYTES``.
     """
+    if weights is not None and deg is not None:
+        raise ValueError("pass stored weights= or the GCN degrees deg=, not both")
+    derived = None if deg is None else gcn_edge_weight(deg, x.dtype)
     T, C, L = tiled.cols.shape
     width = x.shape[1] if x.ndim == 2 else 1
     step = max(1, _GATHER_BYTES // (C * L * width * x.element_size()))
@@ -101,9 +126,13 @@ def spmm_plain(sr: Semiring, tiled, x: torch.Tensor,
     y_blocks = torch.full((tiled.n_chunks, C) + tuple(x.shape[1:]), sr.zero,
                           dtype=x.dtype, device=x.device)
     for t0 in range(0, T, step):
+        cols = tiled.cols[t0:t0 + step]
         w = None if weights is None else weights[t0:t0 + step]
-        red = sr.reduce(tile_contributions(sr, tiled.cols[t0:t0 + step], x, w),
-                        dim=2)                                  # [t, C(, B)]
+        if derived is not None:
+            rv = tiled.row_vertex.index_select(
+                0, tiled.row_block[t0:t0 + step].long())[:, :, None]
+            w = derived(rv, cols.clamp_min(0))                  # [t, C, L]
+        red = sr.reduce(tile_contributions(sr, cols, x, w), dim=2)  # [t, C(, B)]
         if tile_mask is not None:
             m = tile_mask[t0:t0 + step].reshape((-1,) + (1,) * (red.ndim - 1))
             red = torch.where(m, red, zero)
@@ -242,19 +271,22 @@ def slimsell_spmv(sr: Semiring, tiled, x: torch.Tensor, *,
 
 
 def slimsell_spmm(sr: Semiring, tiled, X: torch.Tensor, *,
+                  deg: Optional[torch.Tensor] = None,
                   weights: Optional[torch.Tensor] = None,
                   tile_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Y = A (X) over semiring ``sr``; X [n, B] -> Y [n, B] in vertex space.
     ``tile_mask`` applies SlimWork to the whole batch at once. ``weights``
     [T, C, L]: the stored per-slot edge values, the same for every column,
     the batched min-plus SSSP operand (``minplus`` raises without them, any
-    other semiring with them). Under the "or" semiring (``boolean_packed``)
-    X holds packed word planes [n, ceil(B/32)] and the sweep takes the
-    word-wise packed kernel."""
+    other semiring with them). ``deg`` float32 [n], under ``real`` only: the
+    GCN aggregation, each edge weighted by ``gcn_edge_weight(deg)``. Under
+    the "or" semiring (``boolean_packed``) X holds packed word planes
+    [n, ceil(B/32)] and the sweep takes the word-wise packed kernel."""
     from ..kernels import ops  # deferred: the kernels import this module
-    if sr.reduction == "or" and weights is None:
+    if sr.reduction == "or" and weights is None and deg is None:
         return ops.spmm_packed(tiled, X, tile_mask=tile_mask)
-    return ops.spmm(sr, tiled, X, tile_mask=tile_mask, weights=weights)
+    return ops.spmm(sr, tiled, X, tile_mask=tile_mask, weights=weights,
+                    deg=deg)
 
 
 def slimsell_spmv_packed(tiled, x_words: torch.Tensor, *,

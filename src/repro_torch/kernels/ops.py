@@ -10,7 +10,10 @@ so a run can show that its path went through the kernel.
 (min-plus) sweeps of single- and multi-source SSSP: their kernels,
 ``slimsell_spmv_wts`` and ``slimsell_spmm_wts``, are entry points of the
 SpMV and SpMM sources with launch counts of their own, so a run shows
-SSSP's sweeps apart from BFS's.
+SSSP's sweeps apart from BFS's. ``spmm(..., deg=)`` is the GCN
+aggregation under ``real``: its kernel, ``slimsell_spmm_gcn``, works the
+symmetric-normalised weight out of the degrees and has no backward, so on
+CUDA it refuses an X that autograd would have to see through.
 
 The packed kernels (SlimSell-B) sweep int32 words that hold 32 bits each
 (``core.packing``): ``spmv_packed`` a frontier bitmap of ``ceil(n/32)``
@@ -83,6 +86,9 @@ SPMM = Kernel("slimsell_spmm",
 SPMM_WTS = Kernel("slimsell_spmm_wts",
                   [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
                   source="slimsell_spmm")
+SPMM_GCN = Kernel("slimsell_spmm_gcn",
+                  [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+                  source="slimsell_spmm")
 PULL = Kernel("slimsell_pull",
               [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
 PULL_MM = Kernel("slimsell_pull_mm",
@@ -91,8 +97,8 @@ SPMV_PACKED = Kernel("slimsell_spmv_packed",
                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
 SPMM_PACKED = Kernel("slimsell_spmm_packed",
                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
-KERNELS = (SPMV, SPMV_WTS, SPMM, SPMM_WTS, PULL, PULL_MM, SPMV_PACKED,
-           SPMM_PACKED)
+KERNELS = (SPMV, SPMV_WTS, SPMM, SPMM_WTS, SPMM_GCN, PULL, PULL_MM,
+           SPMV_PACKED, SPMM_PACKED)
 
 
 def reset_launches() -> None:
@@ -151,6 +157,22 @@ def _check_weights(sr: Semiring, tiled, x: torch.Tensor,
         raise ValueError("weights must be contiguous")
 
 
+def _check_deg(sr: Semiring, tiled, x: torch.Tensor, deg: torch.Tensor,
+               weights: Optional[torch.Tensor]) -> None:
+    """GCN degrees: real only, exclusive with stored weights, float32 [n]
+    beside the operand."""
+    if weights is not None:
+        raise ValueError("pass stored weights= or the GCN degrees deg=, not both")
+    if sr.name != "real":
+        raise ValueError(f"the GCN weight is swept under real, got {sr.name}")
+    if (deg.dtype != torch.float32 or tuple(deg.shape) != (tiled.n,)
+            or deg.device != x.device):
+        raise ValueError(f"deg must be float32[{tiled.n}] on {x.device}, got "
+                         f"{deg.dtype}{tuple(deg.shape)} on {deg.device}")
+    if x.device.type == "cuda" and not deg.is_contiguous():
+        raise ValueError("deg must be contiguous")
+
+
 def _check_rows(x: torch.Tensor, row_mask: torch.Tensor) -> None:
     if (row_mask.dtype != torch.bool or row_mask.shape != x.shape
             or row_mask.device != x.device):
@@ -164,8 +186,8 @@ def _check_rows(x: torch.Tensor, row_mask: torch.Tensor) -> None:
 def _lanes(tiled, B: int, staged: int = 1) -> int:
     """The batch-column tile of one block of the matrix kernels: whole
     warps, at most 1024 threads, and the ``staged`` C x L arrays of one
-    tile (cols, and the weights of the stored-weight SpMM) must fit the
-    kernels' 48 KB of shared memory."""
+    tile (cols, and the weights or GCN column factors beside them) must
+    fit the kernels' 48 KB of shared memory."""
     if staged * tiled.C * tiled.L * 4 > 48 * 1024:
         raise ValueError(f"{staged} C x L = {tiled.C} x {tiled.L} tile(s) do "
                          "not fit the matrix kernels' 48 KB of shared memory")
@@ -216,24 +238,38 @@ def spmv(sr: Semiring, tiled, x: torch.Tensor, *,
 
 def spmm(sr: Semiring, tiled, X: torch.Tensor, *,
          tile_mask: Optional[torch.Tensor] = None,
-         weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+         weights: Optional[torch.Tensor] = None,
+         deg: Optional[torch.Tensor] = None) -> torch.Tensor:
     """SlimSell SpMM: X [n, B] -> Y [n, B] in vertex space, any B. With
     ``weights`` (float32 [T, C, L], under ``minplus``): Y[v, b] = min over
     the kept slots of v's row of ``w + X[col, b]``, the same weight for
-    every column, the stored-weight kernel."""
+    every column, the stored-weight kernel. With ``deg`` (float32 [n],
+    under ``real``): Y[v, b] = sum over the kept slots of
+    ``rsqrt(max(deg[v], 1)) * rsqrt(max(deg[col], 1)) * X[col, b]``, the
+    GCN kernel, which has no backward."""
     _check(sr, tiled, X, 2, tile_mask)
-    if weights is None:
+    if deg is not None:
+        _check_deg(sr, tiled, X, deg, weights)
+    elif weights is None:
         _implicit(sr)
     else:
         _check_weights(sr, tiled, X, weights)
     if X.device.type == "cpu":
-        return spmm_plain(sr, tiled, X, tile_mask, weights)
+        return spmm_plain(sr, tiled, X, tile_mask, weights, deg)
+    if deg is not None and torch.is_grad_enabled() and X.requires_grad:
+        raise RuntimeError("the GCN SpMM kernel has no backward: run the "
+                           "forward under torch.no_grad() or "
+                           "torch.inference_mode()")
     cols, *rest = _cuda_operands(tiled, X, tile_mask)
     B = X.shape[1]
     Y = torch.empty_like(X)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
-        if weights is None:
+        if deg is not None:
+            SPMM_GCN.launch(cols, deg.data_ptr(), *rest, X.data_ptr(),
+                            Y.data_ptr(), tiled.n_chunks, tiled.C, tiled.L,
+                            B, _lanes(tiled, B, staged=2), stream)
+        elif weights is None:
             SPMM.launch(sr.code, cols, *rest, X.data_ptr(), Y.data_ptr(),
                         tiled.n_chunks, tiled.C, tiled.L, B, _lanes(tiled, B),
                         stream)

@@ -36,7 +36,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
     assert {"src/repro_torch/core/sssp.py",
             "src/repro_torch/core/multi_sssp.py",
-            "src/repro_torch/configs/sssp_graph500.py"} <= names
+            "src/repro_torch/configs/sssp_graph500.py",
+            "src/repro_torch/models/gnn.py",
+            "src/repro_torch/configs/gcn_cora.py"} <= names
     bad = {str(p.relative_to(REPO)): sorted(set(_imported_roots(p)) & {"jax", "repro"})
            for p in PORT_FILES}
     assert not {k: v for k, v in bad.items() if v}
@@ -103,3 +105,30 @@ def test_sssp_entry_points_without_card_raise(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         profile_graph500.main(["--scale", "5", "--batch", "2", "--sssp"])
     assert not ran
+
+
+def test_gcn_entry_points_without_card_raise(monkeypatch):
+    from repro_torch.configs.gcn_cora import reduced_config
+    from repro_torch.models import gnn
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced_config()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        repro_torch.gcn_init(cfg)
+    params = repro_torch.gcn_init(cfg, device="cpu")
+    csr = kronecker(6, 4, seed=0)
+    src = np.repeat(np.arange(csr.n), np.diff(csr.indptr))
+    batch = {"node_feat": torch.zeros(csr.n, cfg.d_in),
+             "edge_index": torch.from_numpy(np.stack([src, csr.indices])),
+             "deg": torch.from_numpy(csr.deg),
+             "tiled": pf.build_slimsell(csr, C=8, L=16).to_torch("cpu")}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        repro_torch.gcn_forward(params, batch, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gnn.GCN(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.gcn_params_from_arrays({"w": [w.numpy() for w in params["w"]]})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.gcn_batch_from_arrays({k: v.numpy() for k, v in batch.items()
+                                       if k != "tiled"})
+    assert repro_torch.gcn_forward(params, batch, cfg, device="cpu").shape == \
+        (csr.n, cfg.n_classes)

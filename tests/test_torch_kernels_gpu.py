@@ -231,3 +231,80 @@ def test_multi_source_sssp_card_equals_cpu(cuda, mode, delta):
     for f in ("distances", "parents", "sweeps", "buckets", "iterations",
               "work_log", "delta"):
         assert np.array_equal(getattr(got, f), getattr(ref, f)), f
+
+
+@pytest.fixture(scope="module")
+def cuda_l16(cuda):
+    """The scale-12 graph at C=8, L=16: chunks of many narrow tiles."""
+    dev, _ = cuda
+    return dev, build_slimsell(kronecker(12, 16, seed=1), C=8, L=16).to_torch(dev)
+
+
+@pytest.mark.parametrize("layout", ["L128", "L16"])
+@pytest.mark.parametrize("width", [1, 5, 16, 33, 64, 160])
+@pytest.mark.parametrize("mask_kind", MASKS)
+def test_gcn_kernel_equals_plain(request, mask_kind, width, layout):
+    """The GCN-weighted SpMM (real, weight from deg) against its plain
+    version: rtol = atol = 1e-5 (float32 sums in another order), no NaN on
+    a graph with vertices of degree 0. 160 takes a second block along grid
+    y."""
+    dev, tiled = request.getfixturevalue("cuda" if layout == "L128"
+                                         else "cuda_l16")
+    rng = np.random.default_rng([MASKS.index(mask_kind), width, len(layout), 5])
+    mask = _mask(mask_kind, tiled, rng, dev)
+    X = torch.from_numpy(rng.standard_normal((tiled.n, width)).astype(
+        np.float32)).to(dev)
+    deg = tiled.deg.float()
+    assert (deg == 0).any()
+    before = ops.SPMM_GCN.launches
+    got = ops.spmm(psr.REAL, tiled, X, tile_mask=mask, deg=deg)
+    want = spmm_plain(psr.REAL, tiled, X, mask, deg=deg)
+    torch.cuda.synchronize()
+    assert ops.SPMM_GCN.launches == before + 1
+    assert got.is_cuda and not torch.isnan(got).any()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_gcn_kernel_refuses_grad(cuda):
+    """The kernel has no backward: with grad mode on and X requiring grad
+    the wrapper raises; under no_grad it runs."""
+    dev, tiled = cuda
+    X = torch.randn(tiled.n, 16, device=dev, requires_grad=True)
+    deg = tiled.deg.float()
+    before = ops.SPMM_GCN.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.spmm(psr.REAL, tiled, X, deg=deg)
+    assert ops.SPMM_GCN.launches == before
+    with torch.no_grad():
+        y = ops.spmm(psr.REAL, tiled, X, deg=deg)
+    assert ops.SPMM_GCN.launches == before + 1 and not y.requires_grad
+
+
+@pytest.mark.parametrize("aggregation", ["segment", "slimsell"])
+def test_gcn_forward_card_equals_cpu(cuda, aggregation):
+    """``gcn_forward`` at the gcn-cora widths on the card against the CPU:
+    atol = rtol = 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs.gcn_cora import make_config
+    from repro_torch.models.gnn import gcn_forward, gcn_init
+    dev, _ = cuda
+    csr = erdos_renyi(2708, 3.9, seed=6)
+    host = build_slimsell(csr, C=8, L=16)
+    cfg = dataclasses.replace(make_config(), aggregation=aggregation)
+    rng = np.random.default_rng(6)
+    src = np.repeat(np.arange(csr.n), np.diff(csr.indptr))
+    arrays = {"node_feat": torch.from_numpy(rng.standard_normal(
+                  (csr.n, cfg.d_in)).astype(np.float32)),
+              "edge_index": torch.from_numpy(np.stack([src, csr.indices]).astype(
+                  np.int32)),
+              "deg": torch.from_numpy(csr.deg.astype(np.int32))}
+    params = gcn_init(cfg, device="cpu")
+    out = {}
+    for d in ("cpu", dev):
+        batch = {k: v.to(d) for k, v in arrays.items()}
+        batch["tiled"] = host.to_torch(d)
+        with torch.inference_mode():
+            out[str(d)] = gcn_forward({"w": [w.to(d) for w in params["w"]]},
+                                      batch, cfg, device=d).cpu()
+    torch.testing.assert_close(out[str(dev)], out["cpu"], rtol=1e-4, atol=1e-4)
