@@ -7,8 +7,8 @@ Phases, each of which must pass (any failure ends the run with a nonzero
 exit and no result line):
 
 1. the card's name and power limit;
-2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nine
-   entry points in six sources);
+2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (ten
+   entry points in seven sources);
 3. every kernel against its plain PyTorch version on the card, exactly
    (all values are integers or +-inf), on a scale-14 Kronecker graph:
    4 semirings x {SpMV, SpMM B=1/5/64} x 4 tile masks (none given, all
@@ -97,14 +97,33 @@ exit and no result line):
    against a float64 run of its plain version (atol = rtol = 1e-4), timed
    beside the plain version, the implicit real SpMM on the same X,
    ``torch.sparse.mm`` on the GCN-normalised CSR (the same function) and
-   its bound.
+   its bound;
+11. DLRM inference at the dlrm-mlperf widths through the embedding-bag
+   kernel (7), after freeing what phases 4-10 hold: (a) the kernel against
+   its plain version, bit-equal (sum and mean; the JAX package's (V, d, B,
+   K) sweep, d = 16 and 130, B = 1 and 13; pads none, random and whole
+   bags; the bags a strided field and contiguous), on a table of 2^24 +
+   2^20 rows (past 2^31 elements) read to its last row, ids past V giving
+   NaN bags, then ``dlrm_forward`` on the card against the CPU within 1e-4
+   (``reduced_config()``, and the MLPerf widths with 1,000-row tables at
+   multi_hot 1 and 3 with pads); (b) ``capped_config()`` (every table cut
+   to 2^24 rows, 45.03 GB, initialised on the card): three requests at
+   ``serve_p99`` (B=512) and ``serve_bulk`` (B=262,144), each bit-equal to
+   the first, then warm forwards timed (median of 20 and of 5), 26
+   launches a forward, the logits bit-equal to those with the plain
+   lookups, the forward split by CUDA events (bottom MLP, lookups,
+   interaction, top MLP), peak memory, and ``retrieval_cand`` (the user
+   tower and 10^6 candidate scores); (c) the kernel at both serving shapes
+   on a 2^24-row table, K = 1 and K = 3 with pads, beside its plain
+   version, ``F.embedding_bag`` and its bound.
 
 The graphs carry the Graph500 SSSP weights (uniform on [2^-8, 1]); one
 weighted layout per scale serves every phase (the BFS phases never read
 the weights). The launch counts of each main path must be nonzero: the
 four lane kernels over phases 4b and 5, the two packed kernels over phase
 7b, the stored-weight SpMV over phase 8b, the stored-weight SpMM over
-phases 9b and 9c, the GCN SpMM over phase 10b, each counted from zero.
+phases 9b and 9c, the GCN SpMM over phase 10b, each counted from zero;
+the embedding bag over phase 11b, 26 times a forward.
 The last lines are the kernel table, the card, and ``{"ok": true,
 "device": {...}}``.
 """
@@ -112,6 +131,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
+import itertools
 import json
 import os
 import subprocess
@@ -130,10 +151,11 @@ SEMIRINGS = ("tropical", "real", "boolean", "selmax")
 SCALE, EDGE_FACTOR, SMALL_SCALE = 20, 16, 14
 # the whole run must end within 1200 s; phase 8b validates 64 SSSP trees
 # only if that still ends by this mark, else the first 16; phase 9c the
-# same by its own mark; both leave phase 10 its reserve
+# same by its own mark; both leave phases 10 and 11 their reserves
 GCN_RESERVE_S = 60.0
-VALIDATE_ALL_BY_S = 900.0 - GCN_RESERVE_S
-VALIDATE_BATCH_BY_S = 1000.0 - GCN_RESERVE_S
+DLRM_RESERVE_S = 90.0
+VALIDATE_ALL_BY_S = 900.0 - GCN_RESERVE_S - DLRM_RESERVE_S
+VALIDATE_BATCH_BY_S = 1000.0 - GCN_RESERVE_S - DLRM_RESERVE_S
 KERNEL_INFO = {
     "slimsell_spmv": ("src/repro_torch/kernels/csrc/slimsell_spmv.cu",
                       "src/repro/kernels/slimsell_spmv.py:66"),
@@ -155,11 +177,18 @@ KERNEL_INFO = {
     "slimsell_spmm_packed": (
         "src/repro_torch/kernels/csrc/slimsell_spmm_packed.cu",
         "src/repro/kernels/slimsell_packed.py:134"),
+    "embedding_bag": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
+                      "src/repro/kernels/embedding_bag.py:23"),
 }
 LANE_KERNELS = ("slimsell_spmv", "slimsell_spmm", "slimsell_pull",
                 "slimsell_pull_mm")
 PACKED_KERNELS = ("slimsell_spmv_packed", "slimsell_spmm_packed")
 NF_KINDS = ("random", "all", "none")
+# (V, d, B, K) of kernel 7's checks: the JAX package's sweep, then d = 16
+# and 130 (the scalar path), B = 1 and 13 (not multiples of 8)
+BAG_CASES = ((500, 128, 16, 1), (1000, 128, 32, 8), (200, 256, 8, 4),
+             (64, 16, 13, 3), (50, 130, 1, 5), (300, 128, 13, 1))
+SERVE_SHAPES = ("serve_p99", "serve_bulk")
 
 
 def log(msg: str) -> None:
@@ -290,6 +319,24 @@ def gcn_batch(csr, feat: torch.Tensor, tiled, device) -> dict:
             "tiled": tiled}
 
 
+@contextlib.contextmanager
+def plain_lookups(dlrm, embedding_bag_ref):
+    """Route DLRM's lookups to the plain embedding bag: the reference run."""
+    saved = dlrm._lookup
+    dlrm._lookup = lambda table, idx: embedding_bag_ref(table, idx, "sum")
+    try:
+        yield
+    finally:
+        dlrm._lookup = saved
+
+
+def bag_ids(V, shape, pad_share, rng) -> np.ndarray:
+    """int32 ids on 0..V-1, a ``pad_share`` of them -1."""
+    ids = rng.integers(0, V, size=shape).astype(np.int32)
+    ids[rng.random(shape) < pad_share] = -1
+    return ids
+
+
 def pull_work(tiled, ranks, nf, mask):
     """What the first-hit pull needs at this state, worked out from the
     plain version's hit ranks (int32[n, B], -1 for no hit): a pending
@@ -355,6 +402,12 @@ def main() -> int:
     from repro_torch.graphs.generators import (erdos_renyi, kronecker,
                                                with_random_weights)
     from repro_torch.models.gnn import _gcn_aggregate, gcn_forward, gcn_init
+    from repro_torch import convert
+    from repro_torch.configs.dlrm_mlperf import (RECSYS_SHAPES, capped_config,
+                                                 reduced_config)
+    from repro_torch.data.pipeline import CriteoPipeline
+    from repro_torch.kernels.ref import embedding_bag_ref
+    from repro_torch.models import dlrm
 
     def weighted_kronecker(scale):
         return with_random_weights(kronecker(scale, EDGE_FACTOR, seed=1),
@@ -1370,6 +1423,285 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[10] phase 10 took {time.perf_counter() - t10:.1f} s (reserve "
         f"{GCN_RESERVE_S:.0f} s); the run {time.perf_counter() - t_start:.1f} "
+        f"s so far")
+
+    # ---- 11: DLRM inference (dlrm-mlperf widths) with the embedding bag (7)
+    t11 = time.perf_counter()
+    # free what phases 4-10 hold on the card: the capped tables take 45 GB
+    held = torch.cuda.memory_allocated()
+    del (tiled, small, cora, gcn_layouts, adj, adj_gcn, adj_wt, x, X, xr, Xr,
+         x_fin, X_fin, X16, got, want32, degf, full, states, st, mask,
+         packed_masks, light, heavy, poisoned)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[11] device memory held {held / 2**30:.2f} GiB before phase 11, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB after freeing")
+    # DLRM is float32 end to end, as in the JAX package: matmul and bmm stay
+    # in full float32 (allow_tf32 is False since phase 10, PyTorch's default)
+    # (a) kernel 7 against its plain version, bit-equal (both add in slot
+    # order); the bags a strided field of a [B, 3, K] id tensor, and the
+    # same bags contiguous
+    g11 = np.random.default_rng(11)
+    n_cases = 0
+    for V, d, B, K in BAG_CASES:
+        tab = torch.from_numpy(g11.standard_normal((V, d)).astype(
+            np.float32)).to(dev)
+        for pads in ("none", "random", "empty"):
+            ids = bag_ids(V, (B, 3, K), 0.0 if pads == "none" else 0.3, g11)
+            if pads != "none":
+                ids[0, 1, :] = -1
+            if pads == "empty":
+                ids[:] = -1
+            field = torch.from_numpy(ids).to(dev)[:, 1]
+            for bags in (field, field.contiguous()):
+                for mode in ("sum", "mean"):
+                    check_equal("embedding_bag", ops.embedding_bag(tab, bags, mode),
+                                embedding_bag_ref(tab, bags, mode), errs,
+                                f"V={V} d={d} B={B} K={K} {pads} {mode} "
+                                f"contiguous={bags.is_contiguous()}")
+                    n_cases += 1
+    # a table past 2^31 elements, its last rows read: 64-bit row offsets
+    V_big = 2 ** 24 + 2 ** 20
+    big = torch.randn((V_big, 128), generator=torch.Generator(
+        device=dev).manual_seed(11), device=dev)
+    ids = bag_ids(2 ** 20, (4096, 3), 0.2, g11)
+    ids[ids >= 0] += 2 ** 24
+    ids[:, 0] = np.arange(V_big - 4096, V_big)  # the very last rows
+    bags = torch.from_numpy(ids).to(dev)
+    for mode in ("sum", "mean"):
+        check_equal("embedding_bag", ops.embedding_bag(big, bags, mode),
+                    embedding_bag_ref(big, bags, mode), errs,
+                    f"V={V_big} ({V_big * 128} elements) {mode}")
+        n_cases += 1
+    last = ops.embedding_bag(big, bags[:, :1])
+    if not torch.equal(last, big[-4096:]):
+        raise AssertionError("embedding_bag misread the last rows of a table "
+                             "past 2^31 elements")
+    del big, last
+    # out of contract: ids at or past V are never read and make their bag NaN
+    tab = torch.randn((100, 128), device=dev)
+    bags = torch.from_numpy(bag_ids(100, (64, 3), 0.2, g11)).to(dev)
+    bags[5, 1], bags[9, 0] = 100, 2 ** 31 - 1
+    y = ops.embedding_bag(tab, bags)
+    nan_rows = torch.isnan(y).any(dim=1).nonzero().flatten().tolist()
+    if nan_rows != [5, 9] or not torch.isnan(y[[5, 9]]).all():
+        raise AssertionError(f"ids past the table: NaN rows {nan_rows}")
+    torch.cuda.synchronize()
+    # dlrm_forward on the card against the CPU, within 1e-4
+    card_cpu = []
+    for cname, cfg_a in (("reduced", reduced_config()),
+                         ("mlperf widths, 1000 rows", capped_config(1000)),
+                         ("mlperf widths, 1000 rows, multi_hot 3",
+                          dataclasses.replace(capped_config(1000), multi_hot=3))):
+        cpu_p = dlrm.dlrm_init(cfg_a, generator=torch.Generator().manual_seed(12),
+                               device="cpu")
+        dev_p = {"tables": [t.to(dev) for t in cpu_p["tables"]],
+                 **{k: [{n: v.to(dev) for n, v in layer.items()}
+                        for layer in cpu_p[k]] for k in ("bot", "top")}}
+        arrays = CriteoPipeline(cfg_a.vocabs, 256, cfg_a.multi_hot,
+                                seed=12).get_batch(0)
+        if cfg_a.multi_hot > 1:
+            arrays["sparse"][g11.random(arrays["sparse"].shape) < 0.3] = -1
+            arrays["sparse"][0, :, :] = -1  # every bag of one sample empty
+        with torch.inference_mode():
+            want = dlrm.dlrm_forward(cpu_p, convert.dlrm_batch_from_arrays(
+                arrays, device="cpu"), cfg_a, device="cpu")
+            got_f = dlrm.dlrm_forward(dev_p, convert.dlrm_batch_from_arrays(
+                arrays, device=dev), cfg_a, device=dev)
+        check_close("dlrm_forward", got_f.cpu(), want, None,
+                    f"{cname} card vs CPU", 1e-4)
+        card_cpu.append(f"{cname} {max_abs_err(got_f.cpu(), want):.3e} "
+                        f"(logits max abs {float(want.abs().max()):.3e})")
+    del tab, bags, y, dev_p
+    log(f"[11a] embedding_bag == plain (bit-equal) on {n_cases} cases "
+        f"(B x K x d sweep, sum and mean, pads none / random / empty, strided "
+        f"and contiguous bags, a {V_big}-row table past 2^31 elements read to "
+        f"its last row); ids past V give NaN bags {nan_rows}; dlrm_forward "
+        f"card == CPU within 1e-4, max abs err: {'; '.join(card_cpu)}")
+
+    # (b) the main path at full width on the capped tables
+    cfg = capped_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen11 = torch.Generator(device=dev).manual_seed(11)
+    params = dlrm.dlrm_init(cfg, generator=gen11, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    table_bytes = sum(t.numel() * t.element_size() for t in params["tables"])
+    t0 = time.perf_counter()
+    batches = {name: convert.dlrm_batch_from_arrays(CriteoPipeline(
+        cfg.vocabs, RECSYS_SHAPES[name]["batch"], cfg.multi_hot,
+        seed=11).get_batch(0), device=dev) for name in SERVE_SHAPES}
+    torch.cuda.synchronize()
+    log(f"[11b] {cfg.name} capped at 2^24 rows a table: {sum(cfg.vocabs)} "
+        f"rows, tables {table_bytes} bytes, initialised on the card in "
+        f"{init_s:.2f} s; batches {dict((k, RECSYS_SHAPES[k]['batch']) for k in SERVE_SHAPES)} "
+        f"made in {time.perf_counter() - t0:.2f} s")
+
+    def forward_s(batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            y = dlrm.dlrm_forward(params, batch, cfg)
+        torch.cuda.synchronize()
+        return y, time.perf_counter() - t0
+
+    ops.reset_launches()
+    n_fwd = 0
+    first, fwd = {}, {}
+    for name in SERVE_SHAPES:
+        B = RECSYS_SHAPES[name]["batch"]
+        answers = [forward_s(batches[name]) for _ in range(3)]
+        y0 = answers[0][0]
+        if y0.shape != (B,) or not torch.isfinite(y0).all():
+            raise AssertionError(f"{name}: logits of shape {tuple(y0.shape)}, "
+                                 "or not finite")
+        if not all(torch.equal(y, y0) for y, _ in answers):
+            raise AssertionError(f"{name}: the three requests differ")
+        first[name] = y0
+        fwd[name] = [forward_s(batches[name])[1]
+                     for _ in range(20 if name == "serve_p99" else 5)]
+        n_fwd += len(answers) + len(fwd[name])
+        log(f"[11b] {name} B={B}: 3 requests "
+            f"{[round(dt, 6) for _, dt in answers]} s, bit-equal, finite")
+    bag_launches = ops.launch_counts()["embedding_bag"]
+    if bag_launches != cfg.n_sparse * n_fwd:
+        raise AssertionError(f"embedding_bag launched {bag_launches} times over "
+                             f"{n_fwd} forwards of {cfg.n_sparse} lookups")
+    launches["embedding_bag"] = bag_launches
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[11b] main-path launches embedding_bag={bag_launches} "
+        f"({n_fwd} forwards x {cfg.n_sparse}); peak device memory "
+        f"{peak / 2**30:.2f} GiB ({peak} bytes)")
+    # the kernel's logits against the plain lookups' on the card: bit-equal
+    for name in SERVE_SHAPES:
+        with plain_lookups(dlrm, embedding_bag_ref):
+            before = ops.launch_counts()
+            with torch.inference_mode():
+                y_plain = dlrm.dlrm_forward(params, batches[name], cfg)
+            if ops.launch_counts() != before:
+                raise AssertionError("the plain reference run launched a kernel")
+        if not torch.equal(y_plain, first[name]):
+            raise AssertionError(f"{name}: logits with kernel 7 != logits with "
+                                 "the plain lookups")
+    log(f"[11b] logits with kernel 7 == logits with embedding_bag_ref in "
+        f"_lookup, bit-equal, at {', '.join(SERVE_SHAPES)}")
+
+    def split_ms(batch):
+        """CUDA events between the forward's parts: the bottom MLP, the 26
+        lookups, the interaction and the top MLP."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        with torch.inference_mode():
+            ev[0].record()
+            dense = dlrm.bottom(params, batch["dense"], cfg)
+            ev[1].record()
+            embs = dlrm.lookups(params, batch["sparse"])
+            ev[2].record()
+            xi = dlrm.interact(dense, embs)
+            ev[3].record()
+            dlrm.top(params, xi)
+            ev[4].record()
+        ev[4].synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+
+    serve = {}
+    for name in SERVE_SHAPES:
+        B = RECSYS_SHAPES[name]["batch"]
+        split_ms(batches[name])
+        parts = np.median([split_ms(batches[name]) for _ in range(5)], axis=0)
+        med = float(np.median(fwd[name]))
+        serve[name] = {"batch": B, "forward_ms": 1e3 * med,
+                       "samples_per_s": B / med,
+                       "bottom_ms": parts[0], "lookups_ms": parts[1],
+                       "interaction_ms": parts[2], "top_ms": parts[3]}
+        log(f"[11b] {name} B={B} forward, warm, median of {len(fwd[name])}: "
+            f"{med * 1e3:.4f} ms, {B / med:.6e} samples/s on {card}; CUDA "
+            f"events (median of 5): bottom MLP {parts[0]:.4f} ms, 26 lookups "
+            f"{parts[1]:.4f} ms, interaction {parts[2]:.4f} ms, top MLP "
+            f"{parts[3]:.4f} ms (sum {parts.sum():.4f})")
+    # the retrieval path: one user against 10^6 candidates
+    n_cand = RECSYS_SHAPES["retrieval_cand"]["n_candidates"]
+    cands = torch.randn((n_cand, cfg.embed_dim), generator=gen11, device=dev)
+    user = {"dense": batches["serve_p99"]["dense"][:1]}
+
+    def retrieve():
+        with torch.inference_mode():
+            u = dlrm.dlrm_user_tower(params, user, cfg)[0]
+            return u, dlrm.retrieval_scores(u, cands)
+
+    u, scores = retrieve()
+    check_close("retrieval_scores", scores, cands.double() @ u.double(), None,
+                "against float64", 1e-4)
+    retrieval_ms = time_ms(retrieve, 20)
+    log(f"[11b] retrieval_cand: user tower + {n_cand} x {cfg.embed_dim} "
+        f"scores {retrieval_ms:.4f} ms on {card}; scores within 1e-4 of float64")
+    del batches, first, y_plain, cands, u, scores
+
+    # (c) kernel 7 at both serving shapes on one 2^24-row table, K = 1 and
+    # K = 3 with pads, beside its plain version, F.embedding_bag and its
+    # bound; enough bag sets in turn that the rows read exceed the 50 MB L2
+    tab = params["tables"][0]
+    V, d = tab.shape
+    shape_rows = []
+    for name in SERVE_SHAPES:
+        B = RECSYS_SHAPES[name]["batch"]
+        for K, pad_share in ((1, 0.0), (3, 0.3)):
+            n_sets = max(2, -(-(64 << 20) // (B * K * 4 * d)))
+            sets = [bag_ids(V, (B, K), pad_share, g11) for _ in range(n_sets)]
+            dev_sets = [torch.from_numpy(s_).to(dev) for s_ in sets]
+            lib_sets = []
+            for s_ in sets:  # the 1-D ids and offsets of F.embedding_bag
+                keep = s_ >= 0
+                offsets = np.concatenate([[0], np.cumsum(keep.sum(axis=1))[:-1]])
+                lib_sets.append((torch.from_numpy(s_[keep].astype(np.int64)).to(dev),
+                                 torch.from_numpy(offsets.astype(np.int64)).to(dev)))
+            got_b = ops.embedding_bag(tab, dev_sets[0])
+            check_equal("embedding_bag", got_b,
+                        embedding_bag_ref(tab, dev_sets[0]), errs,
+                        f"{name} K={K} on a 2^24-row table")
+            lib_err = max_abs_err(torch.nn.functional.embedding_bag(
+                lib_sets[0][0], tab, lib_sets[0][1], mode="sum"), got_b)
+            it_k, it_p, it_l = (itertools.cycle(dev_sets),
+                                itertools.cycle(dev_sets),
+                                itertools.cycle(lib_sets))
+
+            def library():
+                flat, offsets = next(it_l)
+                return torch.nn.functional.embedding_bag(flat, tab, offsets,
+                                                         mode="sum")
+
+            reps = max(20, 2 * n_sets)
+            ms = time_ms(lambda: ops.embedding_bag(tab, next(it_k)), reps)
+            plain_ms = time_ms(lambda: embedding_bag_ref(tab, next(it_p)), reps)
+            library_ms = time_ms(library, reps)
+            # the ids, the rows they name (pads read nothing) and the output;
+            # one add per element of a row read
+            rows_read = sum(int((s_ >= 0).sum()) for s_ in sets) / n_sets
+            moved = 4 * B * K + 4 * rows_read * d + 4 * B * d
+            adds = rows_read * d
+            bound_ms = 1e3 * max(moved / HBM_BYTES_PER_S, adds / F32_OPS_PER_S)
+            shape_rows.append({"shape": name, "batch": B, "K": K,
+                               "pad_share": pad_share, "ms": ms,
+                               "plain_ms": plain_ms, "library_ms": library_ms,
+                               "bound_ms": bound_ms, "bytes": moved,
+                               "adds": adds, "bag_sets": n_sets,
+                               "max_abs_err_vs_library": lib_err})
+            log(f"[11c] embedding_bag {name} B={B} K={K} (pads {pad_share}): "
+                f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms F.embedding_bag "
+                f"{library_ms:.4f} ms bound {bound_ms:.4f} ms ({moved / 1e6:.2f} "
+                f"MB, {n_sets} bag sets in turn) on {card}; vs library max abs "
+                f"err {lib_err:.3e}")
+    del dev_sets, lib_sets
+    head = shape_rows[2]  # serve_bulk, K = 1: the main path's lookup
+    row("embedding_bag", head["ms"], head["plain_ms"], head["library_ms"],
+        head["bytes"], head["adds"], semiring_name=None, batch=head["batch"],
+        K=1, library_call="torch.nn.functional.embedding_bag (sum, 1-D ids "
+        "and offsets; the same function)", shapes=shape_rows,
+        serving=serve, retrieval_ms=retrieval_ms, peak_bytes=peak)
+    del params, tab
+    torch.cuda.empty_cache()
+    log(f"[11] phase 11 took {time.perf_counter() - t11:.1f} s (reserve "
+        f"{DLRM_RESERVE_S:.0f} s); the run {time.perf_counter() - t_start:.1f} "
         f"s so far")
 
     print(json.dumps({"kernels": table}))

@@ -3,8 +3,9 @@
 ``tiled_from_arrays`` builds the port's ``SlimSellTiled`` from the fields of
 a layout the JAX package built; ``state_from_arrays`` does the same for a
 BFS state dict. ``gcn_params_from_arrays`` and ``gcn_batch_from_arrays``
-carry a GCN's weights and its input batch. With these, one layout, one
-state and one model go through both packages unchanged. Nothing here
+carry a GCN's weights and its input batch, ``dlrm_params_from_arrays`` and
+``dlrm_batch_from_arrays`` a DLRM's. With these, one layout, one state and
+one model go through both packages unchanged. Nothing here
 imports the JAX package: the caller hands over plain arrays.
 """
 from __future__ import annotations
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from .core.formats import SlimSellTiled, chunk_tile_ptr, resolve_device
+from .models.dlrm import DLRMConfig, top_sizes
 from .models.gnn import GCNConfig, layer_shapes
 
 REQUIRED_ARRAYS = ("cols", "row_block", "row_vertex", "cl", "deg")
@@ -136,4 +138,69 @@ def gcn_batch_from_arrays(arrays: Mapping[str, np.ndarray],
         if tiled.n != n:
             raise ValueError(f"the layout has {tiled.n} vertices, node_feat {n}")
         batch["tiled"] = tiled
+    return batch
+
+
+def _tensor(a, dtype, dev) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=dtype)).to(dev)
+
+
+def dlrm_params_from_arrays(params: Mapping, cfg: Optional[DLRMConfig] = None,
+                            device=None) -> dict:
+    """The port's DLRM params from the JAX package's ``{"tables": [V_i x d],
+    "bot": [{"w", "b"}, ...], "top": [...]}`` as numpy arrays, in float32 on
+    ``device`` (default: the card; raises when there is none). Tables must
+    share one width, MLP weights must chain, and with ``cfg`` every shape
+    must be the config's."""
+    tables = [np.asarray(t) for t in params["tables"]]
+    mlps = {part: [(np.asarray(l["w"]), np.asarray(l["b"])) for l in params[part]]
+            for part in ("bot", "top")}
+    if not tables or any(t.ndim != 2 or t.shape[1] != tables[0].shape[1]
+                         for t in tables):
+        raise ValueError("DLRM tables must be 2-D arrays of one width, got "
+                         f"{[t.shape for t in tables]}")
+    for part, layers in mlps.items():
+        shapes = [w.shape for w, _ in layers]
+        if not layers or any(len(s) != 2 for s in shapes) or any(
+                a[1] != b[0] for a, b in zip(shapes, shapes[1:])) or any(
+                b.shape != (w.shape[1],) for w, b in layers):
+            raise ValueError(f"the {part} MLP must be chained 2-D weights with "
+                             f"matching biases, got {shapes}")
+    if cfg is not None:
+        want = {"tables": [(v, cfg.embed_dim) for v in cfg.vocabs],
+                "bot": list(zip(cfg.bot_mlp[:-1], cfg.bot_mlp[1:])),
+                "top": list(zip(top_sizes(cfg)[:-1], top_sizes(cfg)[1:]))}
+        got = {"tables": [t.shape for t in tables],
+               **{part: [w.shape for w, _ in layers]
+                  for part, layers in mlps.items()}}
+        for part in want:
+            if [tuple(s) for s in got[part]] != want[part]:
+                raise ValueError(f"DLRM {part} have shapes {got[part]}, the "
+                                 f"config {cfg.name} wants {want[part]}")
+    dev = resolve_device(device)
+    return {"tables": [_tensor(t, np.float32, dev) for t in tables],
+            **{part: [{"w": _tensor(w, np.float32, dev),
+                       "b": _tensor(b, np.float32, dev)} for w, b in layers]
+               for part, layers in mlps.items()}}
+
+
+def dlrm_batch_from_arrays(arrays: Mapping[str, np.ndarray], device=None) -> dict:
+    """A DLRM batch on ``device`` (default: the card) from numpy arrays:
+    ``dense`` [B, n_dense] (float32), ``sparse`` [B, n_sparse, multi_hot]
+    (-1 pads; int32) and, where given, ``label`` [B] (int32)."""
+    dense = np.asarray(arrays["dense"])
+    sparse = np.asarray(arrays["sparse"])
+    if dense.ndim != 2:
+        raise ValueError(f"dense must be [B, n_dense], got {dense.shape}")
+    if sparse.ndim != 3 or sparse.shape[0] != dense.shape[0]:
+        raise ValueError(f"sparse must be [{dense.shape[0]}, n_sparse, "
+                         f"multi_hot], got {sparse.shape}")
+    dev = resolve_device(device)
+    batch = {"dense": _tensor(dense, np.float32, dev),
+             "sparse": _tensor(sparse, np.int32, dev)}
+    if "label" in arrays:
+        label = np.asarray(arrays["label"])
+        if label.shape != (dense.shape[0],):
+            raise ValueError(f"label must be [{dense.shape[0]}], got {label.shape}")
+        batch["label"] = _tensor(label, np.int32, dev)
     return batch

@@ -19,6 +19,11 @@ The packed kernels (SlimSell-B) sweep int32 words that hold 32 bits each
 (``core.packing``): ``spmv_packed`` a frontier bitmap of ``ceil(n/32)``
 words, ``spmm_packed`` the ``ceil(B/32)`` word planes of a batch.
 
+``embedding_bag`` is DLRM's sparse lookup, the one kernel here that is not
+a SlimSell sweep: the sum (or mean) of the table rows each bag of ids
+names, -1 padding a bag. Its plain version is ``kernels.ref``'s
+``embedding_bag_ref``.
+
 The kernels take the SlimWork mask as the bool ``tile_mask`` itself and
 write straight into vertex space through ``row_vertex``, so neither the
 TPU wrapper's tile-id compaction nor its chunk-row scatter epilogue is
@@ -35,12 +40,14 @@ from typing import Optional
 import torch
 
 from ..core import packing
+from ..core.options import check_choice
 from ..core.semiring import BOOLEAN_PACKED, Semiring
 from ..core.spmv import (pull_mm_plain, pull_plain, spmm_packed_plain,
                          spmm_plain, spmv_packed_plain, spmv_plain)
 from . import build
+from .ref import BAG_MODES, embedding_bag_ref
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 class Kernel:
@@ -97,8 +104,10 @@ SPMV_PACKED = Kernel("slimsell_spmv_packed",
                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
 SPMM_PACKED = Kernel("slimsell_spmm_packed",
                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+EMBEDDING_BAG = Kernel("embedding_bag", [_P, _P, _L, _L, _P, _I, _I, _I, _L,
+                                         _I, _P])
 KERNELS = (SPMV, SPMV_WTS, SPMM, SPMM_WTS, SPMM_GCN, PULL, PULL_MM,
-           SPMV_PACKED, SPMM_PACKED)
+           SPMV_PACKED, SPMM_PACKED, EMBEDDING_BAG)
 
 
 def reset_launches() -> None:
@@ -351,3 +360,45 @@ def spmm_packed(tiled, X_words: torch.Tensor, *,
                            tiled.n_chunks, tiled.C, tiled.L, X_words.shape[1],
                            stream)
     return Y
+
+
+def embedding_bag(table: torch.Tensor, bags: torch.Tensor,
+                  mode: str = "sum") -> torch.Tensor:
+    """Embedding bag: table float32 [V, d], bags int32 [B, K] (-1 pads) ->
+    [B, d], the sum (or mean) of the rows each bag names, in slot order
+    (``kernels.ref.embedding_bag_ref``). An id at or past V is outside the
+    contract: the kernel never reads it and makes its bag NaN, as the plain
+    version does. On CUDA the table must be contiguous; ``bags`` may be any
+    strided view (one field of a [B, F, K] id tensor), read in place
+    without a copy. The kernel has no backward, so on CUDA a table that
+    requires grad is refused while grad mode is on."""
+    check_choice("embedding_bag mode", mode, BAG_MODES)
+    if table.dtype != torch.float32:
+        raise TypeError(f"embedding_bag takes a float32 table, got {table.dtype}")
+    if bags.dtype != torch.int32:
+        raise TypeError(f"embedding_bag takes int32 bags, got {bags.dtype}")
+    if table.ndim != 2 or bags.ndim != 2:
+        raise ValueError(f"expected table [V, d] and bags [B, K], got "
+                         f"{tuple(table.shape)} and {tuple(bags.shape)}")
+    if bags.device != table.device:
+        raise ValueError(f"bags on {bags.device}, table on {table.device}")
+    if table.device.type == "cpu":
+        return embedding_bag_ref(table, bags, mode)
+    if table.device.type != "cuda":
+        raise ValueError(f"no embedding bag for device {table.device}")
+    if torch.is_grad_enabled() and table.requires_grad:
+        raise RuntimeError("the embedding-bag kernel has no backward: run the "
+                           "forward under torch.no_grad() or "
+                           "torch.inference_mode()")
+    if not table.is_contiguous():
+        raise ValueError("the table must be contiguous")
+    (V, d), (B, K) = table.shape, bags.shape
+    out = torch.empty((B, d), dtype=table.dtype, device=table.device)
+    if B == 0 or d == 0:
+        return out
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        EMBEDDING_BAG.launch(table.data_ptr(), bags.data_ptr(), bags.stride(0),
+                             bags.stride(1), out.data_ptr(), B, K, d, V,
+                             int(mode == "mean"), stream)
+    return out

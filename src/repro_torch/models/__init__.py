@@ -1,1 +1,2 @@
-"""Models on the SlimSell layout: GCN (``models.gnn``)."""
+"""Models: GCN on the SlimSell layout (``models.gnn``) and DLRM with the
+embedding-bag kernel (``models.dlrm``)."""

@@ -1,5 +1,6 @@
 """GCN inference (Kipf & Welling, arXiv:1609.02907), the port of the GCN of
-the JAX package's ``repro/models/gnn.py``.
+the JAX package's ``repro/models/gnn.py``, and that module's MLP helpers
+(``mlp_init``, ``mlp_apply``), which DLRM (``models.dlrm``) builds on.
 
 A layer is ``aggregate(x @ w)``, with ReLU between layers. The aggregation
 is the symmetric-normalised neighbourhood sum: an edge (v, u) carries
@@ -25,6 +26,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from ..core.formats import resolve_device
 from ..core.semiring import REAL
@@ -44,6 +46,33 @@ def seg_sum(data: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
 def gather_nodes(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """The rows of ``x`` at ``ids``, a -1 pad reading row 0."""
     return x.index_select(0, ids.clamp_min(0).long())
+
+
+def mlp_init(sizes, *, generator: Optional[torch.Generator] = None,
+             device=None, dtype: torch.dtype = torch.float32) -> list:
+    """``[{"w", "b"}, ...]`` for the layers ``sizes[i] -> sizes[i + 1]``:
+    ``w`` He-normal, N(0, 2 / fan_in), drawn from ``generator`` (default: a
+    CPU generator seeded with 0) on its device and placed on ``device``
+    (default: the card; raises when there is none); ``b`` zero."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    return [{"w": (torch.randn((a, b), generator=generator, dtype=torch.float32,
+                               device=generator.device) * (2.0 / a) ** 0.5
+                   ).to(device=dev, dtype=dtype),
+             "b": torch.zeros((b,), dtype=dtype, device=dev)}
+            for a, b in zip(sizes[:-1], sizes[1:])]
+
+
+def mlp_apply(layers, x: torch.Tensor, act=F.silu,
+              final_act: bool = False) -> torch.Tensor:
+    """``x @ w + b`` layer by layer, ``act`` after every layer but the last
+    (and after the last too with ``final_act``)."""
+    for i, layer in enumerate(layers):
+        x = x @ layer["w"] + layer["b"]
+        if i < len(layers) - 1 or final_act:
+            x = act(x)
+    return x
 
 
 @dataclasses.dataclass(frozen=True)

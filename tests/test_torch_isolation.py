@@ -38,7 +38,11 @@ def test_port_imports_no_jax_and_no_jax_package():
             "src/repro_torch/core/multi_sssp.py",
             "src/repro_torch/configs/sssp_graph500.py",
             "src/repro_torch/models/gnn.py",
-            "src/repro_torch/configs/gcn_cora.py"} <= names
+            "src/repro_torch/configs/gcn_cora.py",
+            "src/repro_torch/models/dlrm.py",
+            "src/repro_torch/configs/dlrm_mlperf.py",
+            "src/repro_torch/data/pipeline.py",
+            "src/repro_torch/kernels/ref.py"} <= names
     bad = {str(p.relative_to(REPO)): sorted(set(_imported_roots(p)) & {"jax", "repro"})
            for p in PORT_FILES}
     assert not {k: v for k, v in bad.items() if v}
@@ -132,3 +136,30 @@ def test_gcn_entry_points_without_card_raise(monkeypatch):
                                        if k != "tiled"})
     assert repro_torch.gcn_forward(params, batch, cfg, device="cpu").shape == \
         (csr.n, cfg.n_classes)
+
+
+def test_dlrm_entry_points_without_card_raise(monkeypatch):
+    from repro_torch.configs.dlrm_mlperf import reduced_config
+    from repro_torch.data.pipeline import CriteoPipeline
+    from repro_torch.models import dlrm
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced_config()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        repro_torch.dlrm_init(cfg)
+    params = repro_torch.dlrm_init(cfg, device="cpu")
+    arrays = CriteoPipeline(cfg.vocabs, 8).get_batch(0)
+    batch = convert.dlrm_batch_from_arrays(arrays, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        repro_torch.dlrm_forward(params, batch, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dlrm.dlrm_loss(params, dict(batch, label=torch.zeros(8)), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dlrm.DLRM(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.dlrm_params_from_arrays(
+            {"tables": [t.numpy() for t in params["tables"]],
+             **{k: [{n: v.numpy() for n, v in layer.items()} for layer in params[k]]
+                for k in ("bot", "top")}})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.dlrm_batch_from_arrays(arrays)
+    assert repro_torch.dlrm_forward(params, batch, cfg, device="cpu").shape == (8,)

@@ -308,3 +308,105 @@ def test_gcn_forward_card_equals_cpu(cuda, aggregation):
             out[str(d)] = gcn_forward({"w": [w.to(d) for w in params["w"]]},
                                       batch, cfg, device=d).cpu()
     torch.testing.assert_close(out[str(dev)], out["cpu"], rtol=1e-4, atol=1e-4)
+
+
+# (V, d, B, K): the JAX test's sweep, then d = 16 and 130 (the scalar path),
+# B = 1 and 13 (not multiples of 8)
+BAG_CASES = [(500, 128, 16, 1), (1000, 128, 32, 8), (200, 256, 8, 4),
+             (64, 16, 13, 3), (50, 130, 1, 5), (300, 128, 13, 1)]
+
+
+@pytest.mark.parametrize("pads", ["none", "random", "empty"])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("V,d,B,K", BAG_CASES)
+def test_embedding_bag_kernel_equals_plain(cuda, V, d, B, K, mode, pads):
+    """Kernel 7 against its plain version on the card, bit-equal: both add
+    in slot order. Bags are a strided field of a [B, 3, K] id tensor."""
+    from repro_torch.kernels.ref import embedding_bag_ref
+    dev, _ = cuda
+    rng = np.random.default_rng([V, d, B, K, len(mode), len(pads)])
+    table = torch.from_numpy(rng.standard_normal((V, d)).astype(np.float32)).to(dev)
+    low = 0 if pads == "none" else -1
+    ids = rng.integers(low, V, size=(B, 3, K)).astype(np.int32)
+    if pads != "none":
+        ids[0, 1, :] = -1
+    if pads == "empty":
+        ids[:] = -1
+    bags = torch.from_numpy(ids).to(dev)[:, 1]
+    before = ops.EMBEDDING_BAG.launches
+    got = ops.embedding_bag(table, bags, mode)
+    want = embedding_bag_ref(table, bags, mode)
+    torch.cuda.synchronize()
+    assert ops.EMBEDDING_BAG.launches == before + 1
+    assert got.is_cuda and got.shape == (B, d) and torch.equal(got, want)
+
+
+def test_embedding_bag_kernel_ids_past_the_table(cuda):
+    """An id at or past V is never read: its bag is NaN, as in the plain
+    version, and the other bags are exact."""
+    from repro_torch.kernels.ref import embedding_bag_ref
+    dev, _ = cuda
+    table = torch.randn(100, 128, device=dev)
+    bags = torch.randint(-1, 100, (8, 3), dtype=torch.int32, device=dev)
+    bags[2, 1], bags[5, 0] = 100, 2 ** 31 - 1
+    got = ops.embedding_bag(table, bags)
+    want = embedding_bag_ref(table, bags)
+    torch.cuda.synchronize()
+    bad = torch.tensor([2, 5], device=dev)
+    ok = torch.tensor([0, 1, 3, 4, 6, 7], device=dev)
+    assert torch.isnan(got[bad]).all() and torch.isnan(want[bad]).all()
+    assert torch.equal(got[ok], want[ok])
+
+
+def test_embedding_bag_kernel_refusals(cuda):
+    """No backward: a table that requires grad is refused in grad mode and
+    runs under no_grad. A float64 table, int64 bags, and bags on the CPU
+    beside a card table are refused; nothing launches."""
+    dev, _ = cuda
+    table = torch.randn(50, 16, device=dev, requires_grad=True)
+    bags = torch.randint(-1, 50, (4, 2), dtype=torch.int32, device=dev)
+    before = ops.EMBEDDING_BAG.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.embedding_bag(table, bags)
+    with pytest.raises(TypeError, match="float32 table"):
+        ops.embedding_bag(table.detach().double(), bags)
+    with pytest.raises(TypeError, match="int32 bags"):
+        ops.embedding_bag(table.detach(), bags.long())
+    with pytest.raises(ValueError, match="bags on cpu"):
+        ops.embedding_bag(table.detach(), bags.cpu())
+    assert ops.EMBEDDING_BAG.launches == before
+    with torch.no_grad():
+        y = ops.embedding_bag(table, bags)
+    assert ops.EMBEDDING_BAG.launches == before + 1 and not y.requires_grad
+
+
+@pytest.mark.parametrize("multi_hot", [1, 3])
+def test_dlrm_forward_card_equals_cpu(cuda, multi_hot):
+    """``dlrm_forward`` at the MLPerf widths, every table cut to 1,000
+    rows, on the card against the CPU: atol = rtol = 1e-4; 26 launches of
+    kernel 7 a forward."""
+    import dataclasses
+
+    from repro_torch.configs.dlrm_mlperf import capped_config
+    from repro_torch.data.pipeline import CriteoPipeline
+    from repro_torch.models.dlrm import dlrm_forward, dlrm_init
+    dev, _ = cuda
+    cfg = dataclasses.replace(capped_config(1000), multi_hot=multi_hot)
+    params = dlrm_init(cfg, generator=torch.Generator().manual_seed(3),
+                       device="cpu")
+    arrays = CriteoPipeline(cfg.vocabs, 64, multi_hot, seed=3).get_batch(0)
+    sparse = arrays["sparse"]
+    if multi_hot > 1:
+        sparse[np.random.default_rng(3).random(sparse.shape) < 0.3] = -1
+    out = {}
+    for d in ("cpu", dev):
+        batch = {"dense": torch.from_numpy(arrays["dense"]).to(d),
+                 "sparse": torch.from_numpy(sparse).to(d)}
+        p = {"tables": [t.to(d) for t in params["tables"]],
+             **{k: [{n: v.to(d) for n, v in layer.items()} for layer in params[k]]
+                for k in ("bot", "top")}}
+        before = ops.EMBEDDING_BAG.launches
+        with torch.inference_mode():
+            out[str(d)] = dlrm_forward(p, batch, cfg, device=d).cpu()
+    assert ops.EMBEDDING_BAG.launches == before + cfg.n_sparse
+    torch.testing.assert_close(out[str(dev)], out["cpu"], rtol=1e-4, atol=1e-4)
