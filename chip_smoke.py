@@ -14,7 +14,11 @@ exit and no result line):
    4 semirings x {SpMV, SpMM B=1/5/64} x 4 tile masks (none given, all
    kept, none kept, random with whole chunks dropped), and 4 semirings x
    {pull, pull_mm B=1/5/64} x the same masks x not-final bits (random,
-   all, none);
+   all, none); then the three SpMM entries on a hub graph (an Erdos-Renyi
+   graph of 2^14 vertices and a vertex joined to all, whose chunk of 128
+   tiles the SpMM cuts into 64 pieces and folds): the implicit SpMM in 4
+   semirings and the stored-weight SpMM exactly, the GCN SpMM within
+   1e-5, at B=1/5/16/33/64/97/160 x the five masks of 7a;
 4. (a) the kernel path against the plain path at scale 14: single- and
    multi-source BFS in push, pull and auto, and single-source hostloop
    auto: distances, parents, iterations, work and direction logs equal;
@@ -28,7 +32,9 @@ exit and no result line):
    SpMV and SpMM (4 semirings x 4 masks), pull and pull_mm at a real pull
    state (the BFS state just before an iteration that pulls, 4
    semirings); then each kernel timed beside its plain version, a
-   library call and its bound;
+   library call and its bound, and the SpMM's time over parts of the
+   layout (``profile_spmm.chunk_split``: the heaviest chunk alone, the
+   rest, no tile);
 7. SlimSell-B, the bit-packed boolean path: (a) at scale 14 both packed
    kernels against their plain versions, exactly (5 masks x the SpMV and
    the SpMM at B=1/5/33/64/97/160 x 2 frontier densities; 97 and 160 fill
@@ -79,7 +85,8 @@ exit and no result line):
    (d) the kernel at the real state of the batch's sweep with the most
    tiles, with that sweep's mask and with every tile kept, against its
    plain version, timed beside it, the implicit-value SpMM on the same
-   frontier, a library call and its bound;
+   frontier, a library call and its bound, and over parts of the layout
+   as in phase 6;
 10. GCN inference (gcn-cora, 2 layers 1433 -> 16 -> 16) on the SlimSell-W
    aggregation through the GCN-weighted SpMM kernel: (a) the kernel
    against its plain version, rtol = atol = 1e-5 and no NaN, on an
@@ -97,25 +104,33 @@ exit and no result line):
    against a float64 run of its plain version (atol = rtol = 1e-4), timed
    beside the plain version, the implicit real SpMM on the same X,
    ``torch.sparse.mm`` on the GCN-normalised CSR (the same function) and
-   its bound;
+   its bound, and over parts of the layout as in phase 6;
 11. DLRM inference at the dlrm-mlperf widths through the embedding-bag
    kernel (7), after freeing what phases 4-10 hold: (a) the kernel against
    its plain version, bit-equal (sum and mean; the JAX package's (V, d, B,
    K) sweep, d = 16 and 130, B = 1 and 13; pads none, random and whole
    bags; the bags a strided field and contiguous), on a table of 2^24 +
    2^20 rows (past 2^31 elements) read to its last row, ids past V giving
-   NaN bags, then ``dlrm_forward`` on the card against the CPU within 1e-4
-   (``reduced_config()``, and the MLPerf widths with 1,000-row tables at
-   multi_hot 1 and 3 with pads); (b) ``capped_config()`` (every table cut
-   to 2^24 rows, 45.03 GB, initialised on the card): three requests at
-   ``serve_p99`` (B=512) and ``serve_bulk`` (B=262,144), each bit-equal to
-   the first, then warm forwards timed (median of 20 and of 5), 26
-   launches a forward, the logits bit-equal to those with the plain
+   NaN bags (one table: a launch with T = 1); five tables in one launch
+   against its plain version and against one launch a table, bit-equal
+   (tables of different rows, one of them the big table read to its last rows;
+   sum and mean; pads; an id past V in one table only; the output new or
+   the stacked slice DLRM writes), then ``dlrm_forward`` on the card
+   against the CPU within 1e-4 (``reduced_config()``, and the MLPerf
+   widths with 1,000-row tables at multi_hot 1 and 3 with pads); (b)
+   ``capped_config()`` (every table cut to 2^24 rows, 45.03 GB,
+   initialised on the card): three requests at ``serve_p99`` (B=512) and
+   ``serve_bulk`` (B=262,144), each bit-equal to the first, then warm
+   forwards timed (median of 20 and of 5), one launch a forward (all 26
+   tables in it), the logits bit-equal to those with the plain
    lookups, the forward split by CUDA events (bottom MLP, lookups,
    interaction, top MLP), peak memory, and ``retrieval_cand`` (the user
-   tower and 10^6 candidate scores); (c) the kernel at both serving shapes
-   on a 2^24-row table, K = 1 and K = 3 with pads, beside its plain
-   version, ``F.embedding_bag`` and its bound.
+   tower and 10^6 candidate scores); (c) the kernel at both serving
+   shapes on one 2^24-row table, K = 1 and K = 3 with pads, beside its
+   plain version, ``F.embedding_bag`` and its bound; then the launch over
+   all 26 tables at both shapes, K = 1 and K = 3 with pads, beside its
+   plain version, 26 launches of one table, 26 ``F.embedding_bag`` calls
+   and its bound (the bytes of each distinct row read once).
 
 The graphs carry the Graph500 SSSP weights (uniform on [2^-8, 1]); one
 weighted layout per scale serves every phase (the BFS phases never read
@@ -123,7 +138,7 @@ the weights). The launch counts of each main path must be nonzero: the
 four lane kernels over phases 4b and 5, the two packed kernels over phase
 7b, the stored-weight SpMV over phase 8b, the stored-weight SpMM over
 phases 9b and 9c, the GCN SpMM over phase 10b, each counted from zero;
-the embedding bag over phase 11b, 26 times a forward.
+the embedding bag over phase 11b, exactly once a forward.
 The last lines are the kernel table, the card, and ``{"ok": true,
 "device": {...}}``.
 """
@@ -177,8 +192,8 @@ KERNEL_INFO = {
     "slimsell_spmm_packed": (
         "src/repro_torch/kernels/csrc/slimsell_spmm_packed.cu",
         "src/repro/kernels/slimsell_packed.py:134"),
-    "embedding_bag": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
-                      "src/repro/kernels/embedding_bag.py:23"),
+    "embedding_bag_grouped": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
+                              "src/repro/kernels/embedding_bag.py:23"),
 }
 LANE_KERNELS = ("slimsell_spmv", "slimsell_spmm", "slimsell_pull",
                 "slimsell_pull_mm")
@@ -189,6 +204,10 @@ NF_KINDS = ("random", "all", "none")
 BAG_CASES = ((500, 128, 16, 1), (1000, 128, 32, 8), (200, 256, 8, 4),
              (64, 16, 13, 3), (50, 130, 1, 5), (300, 128, 13, 1))
 SERVE_SHAPES = ("serve_p99", "serve_bulk")
+# the parts of the layout the SpMM is timed over (profile_spmm.chunk_masks):
+# is one block's walk over the longest chunk back on the critical path,
+# and the floor of a sweep that keeps no tile
+SPLIT_PARTS = ("heaviest chunk", "all but the heaviest", "none")
 
 
 def log(msg: str) -> None:
@@ -278,19 +297,6 @@ def plain_sweeps(engine, spmv_plain, spmm_plain, pull_plain, pull_mm_plain):
             setattr(engine, n, fn)
 
 
-def time_ms(fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def check_equal(kern, got, want, errs, what):
     errs[kern] = max(errs[kern], max_abs_err(got, want))
     if not torch.equal(got, want):
@@ -320,14 +326,15 @@ def gcn_batch(csr, feat: torch.Tensor, tiled, device) -> dict:
 
 
 @contextlib.contextmanager
-def plain_lookups(dlrm, embedding_bag_ref):
+def plain_lookups(dlrm, embedding_bag_grouped_ref):
     """Route DLRM's lookups to the plain embedding bag: the reference run."""
-    saved = dlrm._lookup
-    dlrm._lookup = lambda table, idx: embedding_bag_ref(table, idx, "sum")
+    saved = dlrm._lookup_all
+    dlrm._lookup_all = lambda tables, sparse, out=None: \
+        embedding_bag_grouped_ref(tables, sparse, "sum", out)
     try:
         yield
     finally:
-        dlrm._lookup = saved
+        dlrm._lookup_all = saved
 
 
 def bag_ids(V, shape, pad_share, rng) -> np.ndarray:
@@ -335,6 +342,34 @@ def bag_ids(V, shape, pad_share, rng) -> np.ndarray:
     ids = rng.integers(0, V, size=shape).astype(np.int32)
     ids[rng.random(shape) < pad_share] = -1
     return ids
+
+
+def library_bags(ids: np.ndarray, device):
+    """The 1-D ids and offsets ``F.embedding_bag`` takes for bags [B, K]."""
+    keep = ids >= 0
+    offsets = np.concatenate([[0], np.cumsum(keep.sum(axis=1))[:-1]])
+    return (torch.from_numpy(ids[keep].astype(np.int64)).to(device),
+            torch.from_numpy(offsets.astype(np.int64)).to(device))
+
+
+def bag_rows(sets) -> float:
+    """The distinct rows that bag sets [B, K] of one table name (pads
+    aside), on average over the sets: the rows a lookup must read."""
+    return sum(np.unique(s_[s_ >= 0]).size for s_ in sets) / len(sets)
+
+
+def check_equal_nan(kern, got, want, errs, what):
+    """Bit-equal where the reference is a number, NaN where it is NaN."""
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan):
+        raise AssertionError(f"{kern}: NaN elsewhere than plain: {what}")
+    check_equal(kern, got[~nan], want[~nan], errs, what)
+
+
+def split_line(split: dict) -> str:
+    """``profile_spmm.chunk_split``'s times on one line."""
+    return ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()
+                     if k != "layout") + f" | {split['layout']}"
 
 
 def pull_work(tiled, ranks, nf, mask):
@@ -384,7 +419,8 @@ def main() -> int:
     from repro_torch.core import direction as dm
     from repro_torch.core import engine, packing, semiring
     from repro_torch.core.bfs import bfs, bfs_spec, packed_bfs_spec
-    from repro_torch.core.formats import build_slimsell, storage_summary
+    from repro_torch.core.formats import (build_csr, build_slimsell,
+                                          storage_summary)
     from repro_torch.core.multi_bfs import (multi_bfs_spec, multi_source_bfs,
                                             packed_multi_bfs_spec)
     from repro_torch.core.multi_sssp import multi_source_sssp, multi_sssp_spec
@@ -406,8 +442,10 @@ def main() -> int:
     from repro_torch.configs.dlrm_mlperf import (RECSYS_SHAPES, capped_config,
                                                  reduced_config)
     from repro_torch.data.pipeline import CriteoPipeline
-    from repro_torch.kernels.ref import embedding_bag_ref
+    from repro_torch.kernels.ref import (embedding_bag_grouped_ref,
+                                         embedding_bag_ref)
     from repro_torch.models import dlrm
+    from repro_torch.profile_spmm import chunk_split, time_ms
 
     def weighted_kronecker(scale):
         return with_random_weights(kronecker(scale, EDGE_FACTOR, seed=1),
@@ -465,6 +503,56 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[3] kernels == plain on {n_cases} cases (scale {SMALL_SCALE}, "
         f"n={small.n}, tiles={small.n_tiles})")
+    # the three SpMM entries where one chunk is cut into many pieces: an
+    # Erdos-Renyi graph with a vertex joined to all the others
+    g3 = np.random.default_rng(3)
+    hub_n = 2 ** 14
+    er = erdos_renyi(hub_n, 8.0, seed=7)
+    er_src = np.repeat(np.arange(hub_n), np.diff(er.indptr))
+    hub_edges = np.concatenate([
+        np.stack([er_src, er.indices], 1),
+        np.stack([np.zeros(hub_n - 1, np.int64), np.arange(1, hub_n)], 1)])
+    hub = build_slimsell(with_random_weights(
+        build_csr(hub_edges, hub_n), low=WEIGHT_LOW, high=WEIGHT_HIGH, seed=7),
+        C=8, L=128).to_torch(dev)
+    hub_pieces = int(ops.spmm_work(hub.tile_ptr, hub.cl, hub.L,
+                                   ops.piece_tiles(hub.L))[1][0, 2])
+    hub_masks = masks(hub, g3, dev)
+    hub_masks["whole_chunks"] = torch.from_numpy(
+        g3.random(hub.n_chunks) < 0.6).to(dev)[hub.row_block.long()]
+    hub_deg = hub.deg.float()
+    n_cases = 0
+    for mask_name, mask in hub_masks.items():
+        for width in (1, 5, 16, 33, 64, 97, 160):
+            what = f"hub graph B={width} mask={mask_name}"
+            for name in SEMIRINGS:
+                sr = semiring.get(name)
+                Xh = frontier(sr, (hub.n, width), g3, dev)
+                check_equal("slimsell_spmm", ops.spmm(sr, hub, Xh, tile_mask=mask),
+                            spmm_plain(sr, hub, Xh, mask), errs,
+                            f"{what} {name}")
+            Xh = sssp_frontier((hub.n, width), 0.5, g3, dev)
+            check_equal("slimsell_spmm_wts",
+                        ops.spmm(semiring.MINPLUS, hub, Xh, tile_mask=mask,
+                                 weights=hub.wts),
+                        spmm_plain(semiring.MINPLUS, hub, Xh, mask, hub.wts),
+                        errs, what)
+            Xh = torch.from_numpy(g3.standard_normal((hub.n, width)).astype(
+                np.float32)).to(dev)
+            check_close("slimsell_spmm_gcn",
+                        ops.spmm(semiring.REAL, hub, Xh, tile_mask=mask,
+                                 deg=hub_deg),
+                        spmm_plain(semiring.REAL, hub, Xh, mask, deg=hub_deg),
+                        errs, what, 1e-5)
+            n_cases += len(SEMIRINGS) + 2
+    torch.cuda.synchronize()
+    log(f"[3] SpMM entries == plain on {n_cases} cases of a hub graph "
+        f"(n={hub.n}, the hub's chunk "
+        f"{int(hub.tile_ptr[1] - hub.tile_ptr[0])} tiles in {hub_pieces} "
+        f"pieces; B=1/5/16/33/64/97/160 x 5 masks): the implicit SpMM in 4 "
+        f"semirings and the stored-weight SpMM exactly, the GCN SpMM within "
+        f"1e-5")
+    del hub, hub_masks, hub_deg, Xh
 
     # ---- 4a: the kernel path against the plain path at scale 14
     small_roots = sample_roots(small_csr, 64)
@@ -688,6 +776,11 @@ def main() -> int:
         log(f"[6] {kern} B={width}: kernel {ms:.4f} ms (real {ms_real:.4f}) "
             f"plain {plain_ms:.3f} ms library {library_ms:.4f} ms bound "
             f"{bound_ms:.4f} ms ({moved / 1e9:.3f} GB) on {card}")
+    split = chunk_split(lambda m: ops.spmm(tropical, tiled, X, tile_mask=m),
+                        tiled, parts=SPLIT_PARTS)
+    table[-1]["chunk_split"] = split
+    log(f"[6] slimsell_spmm B={B} over parts of the layout: {split_line(split)}"
+        f" on {card}")
     for kern, fn, plain_fn in (("slimsell_pull", ops.pull, pull_plain),
                                ("slimsell_pull_mm", ops.pull_mm, pull_mm_plain)):
         xt, nf, mask, fbits, k = states[kern]
@@ -1233,8 +1326,12 @@ def main() -> int:
         + 2 * 4 * tiled.n * B
     masked_bound_ms = 1e3 * max(masked_moved / HBM_BYTES_PER_S,
                                 2 * edges * B / F32_OPS_PER_S)
+    split = chunk_split(lambda m: ops.spmm(minplus, tiled, X, tile_mask=m,
+                                           weights=tiled.wts), tiled,
+                        parts=SPLIT_PARTS)
     bound_ms = row("slimsell_spmm_wts", ms, plain_ms, library_ms, moved,
                    2 * edges * B, semiring_name="minplus", batch=B, sweep=k,
+                   chunk_split=split,
                    light_columns=int((phases == 0).sum()),
                    tiles_kept=n_kept, masked_ms=masked_ms,
                    masked_bound_ms=masked_bound_ms, implicit_ms=implicit_ms,
@@ -1247,6 +1344,8 @@ def main() -> int:
         f"{library_ms:.4f} ms bound {bound_ms:.4f} ms ({moved / 1e9:.4f} GB) "
         f"| sweep mask ({n_kept} tiles) kernel {masked_ms:.4f} ms bound "
         f"{masked_bound_ms:.4f} ms ({masked_moved / 1e9:.4f} GB) on {card}")
+    log(f"[9d] slimsell_spmm_wts B={B} over parts of the layout: "
+        f"{split_line(split)} on {card}")
     torch.cuda.synchronize()
     log(f"[9] phase 9 took {time.perf_counter() - t9:.1f} s; the run "
         f"{time.perf_counter() - t_start:.1f} s so far")
@@ -1408,9 +1507,12 @@ def main() -> int:
     # weight product, and a multiply and an add per column; per vertex a
     # clamp, a root and a division
     moved = layout_bytes + 4 * tiled.n + 2 * 4 * tiled.n * 16
+    split = chunk_split(lambda m: ops.spmm(real, tiled, X16, tile_mask=m,
+                                           deg=degf), tiled,
+                        parts=SPLIT_PARTS)
     bound_ms = row("slimsell_spmm_gcn", ms, plain_ms, library_ms, moved,
                    2 * edges * 16 + edges + 3 * tiled.n, semiring_name="real",
-                   batch=16, implicit_ms=implicit_ms,
+                   batch=16, implicit_ms=implicit_ms, chunk_split=split,
                    max_abs_err_vs_float64=err64,
                    library_call="torch.sparse.mm on the GCN-normalised CSR "
                    "(real; the same function)")
@@ -1420,6 +1522,8 @@ def main() -> int:
         f"{bound_ms:.4f} ms ({moved / 1e9:.4f} GB) on {card}; max abs err "
         f"vs float64: kernel {err64:.3e}, float32 plain {plain_err64:.3e}, "
         f"vs library {lib_err:.3e}")
+    log(f"[10c] slimsell_spmm_gcn B=16 over parts of the layout: "
+        f"{split_line(split)} on {card}")
     torch.cuda.synchronize()
     log(f"[10] phase 10 took {time.perf_counter() - t10:.1f} s (reserve "
         f"{GCN_RESERVE_S:.0f} s); the run {time.perf_counter() - t_start:.1f} "
@@ -1455,7 +1559,8 @@ def main() -> int:
             field = torch.from_numpy(ids).to(dev)[:, 1]
             for bags in (field, field.contiguous()):
                 for mode in ("sum", "mean"):
-                    check_equal("embedding_bag", ops.embedding_bag(tab, bags, mode),
+                    check_equal("embedding_bag_grouped",
+                                ops.embedding_bag(tab, bags, mode),
                                 embedding_bag_ref(tab, bags, mode), errs,
                                 f"V={V} d={d} B={B} K={K} {pads} {mode} "
                                 f"contiguous={bags.is_contiguous()}")
@@ -1469,7 +1574,7 @@ def main() -> int:
     ids[:, 0] = np.arange(V_big - 4096, V_big)  # the very last rows
     bags = torch.from_numpy(ids).to(dev)
     for mode in ("sum", "mean"):
-        check_equal("embedding_bag", ops.embedding_bag(big, bags, mode),
+        check_equal("embedding_bag_grouped", ops.embedding_bag(big, bags, mode),
                     embedding_bag_ref(big, bags, mode), errs,
                     f"V={V_big} ({V_big * 128} elements) {mode}")
         n_cases += 1
@@ -1477,7 +1582,38 @@ def main() -> int:
     if not torch.equal(last, big[-4096:]):
         raise AssertionError("embedding_bag misread the last rows of a table "
                              "past 2^31 elements")
-    del big, last
+    # the grouped entry: five tables in one launch, the big one read to its
+    # last rows, ids strided along K, an id past V in table 4 only
+    vocabs = (100, 3, V_big, 1000, 17)
+    gtables = [big if v == V_big else torch.from_numpy(
+        g11.standard_normal((v, 128)).astype(np.float32)).to(dev)
+        for v in vocabs]
+    ids = np.stack([bag_ids(v, (4096, 3), 0.2, g11) for v in vocabs], 1)
+    ids[:, 2, 0] = np.arange(V_big - 4096, V_big)
+    ids[7, 4, 1] = vocabs[4]
+    gbags = torch.from_numpy(np.repeat(ids, 2, axis=2)).to(dev)[:, :, ::2]
+    n_grouped = 0
+    for mode in ("sum", "mean"):
+        for stacked in (False, True):
+            Zg = torch.full((4096, 1 + len(vocabs), 128), 5.0, device=dev)
+            got_g = ops.embedding_bag_grouped(gtables, gbags, mode,
+                                              out=Zg[:, 1:] if stacked else None)
+            what = f"grouped {mode} stacked={stacked}"
+            check_equal_nan("embedding_bag_grouped", got_g,
+                            embedding_bag_grouped_ref(gtables, gbags, mode),
+                            errs, what)
+            per_table = torch.stack([ops.embedding_bag(t, gbags[:, i], mode)
+                                     for i, t in enumerate(gtables)], 1)
+            check_equal_nan("embedding_bag_grouped", got_g, per_table, errs,
+                            f"{what} against one launch a table")
+            nan_bags = torch.isnan(got_g).any(dim=2).nonzero().tolist()
+            if nan_bags != [[7, 4]]:
+                raise AssertionError(f"grouped: NaN bags {nan_bags}, not [[7, 4]]")
+            if stacked and not torch.equal(Zg[:, 0], torch.full(
+                    (4096, 128), 5.0, device=dev)):
+                raise AssertionError("grouped: wrote outside its out slice")
+            n_grouped += 1
+    del big, last, gtables, gbags, Zg, got_g, per_table
     # out of contract: ids at or past V are never read and make their bag NaN
     tab = torch.randn((100, 128), device=dev)
     bags = torch.from_numpy(bag_ids(100, (64, 3), 0.2, g11)).to(dev)
@@ -1516,8 +1652,12 @@ def main() -> int:
     log(f"[11a] embedding_bag == plain (bit-equal) on {n_cases} cases "
         f"(B x K x d sweep, sum and mean, pads none / random / empty, strided "
         f"and contiguous bags, a {V_big}-row table past 2^31 elements read to "
-        f"its last row); ids past V give NaN bags {nan_rows}; dlrm_forward "
-        f"card == CPU within 1e-4, max abs err: {'; '.join(card_cpu)}")
+        f"its last row); ids past V give NaN bags {nan_rows}; "
+        f"embedding_bag_grouped == plain and == one launch a table "
+        f"(bit-equal) on {n_grouped} cases of 5 tables {vocabs}, the big one "
+        f"read to its last rows, an id past V in one table only giving NaN "
+        f"in that bag alone; dlrm_forward card == CPU within 1e-4, max abs "
+        f"err: {'; '.join(card_cpu)}")
 
     # (b) the main path at full width on the capped tables
     cfg = capped_config()
@@ -1564,18 +1704,20 @@ def main() -> int:
         n_fwd += len(answers) + len(fwd[name])
         log(f"[11b] {name} B={B}: 3 requests "
             f"{[round(dt, 6) for _, dt in answers]} s, bit-equal, finite")
-    bag_launches = ops.launch_counts()["embedding_bag"]
-    if bag_launches != cfg.n_sparse * n_fwd:
-        raise AssertionError(f"embedding_bag launched {bag_launches} times over "
-                             f"{n_fwd} forwards of {cfg.n_sparse} lookups")
-    launches["embedding_bag"] = bag_launches
+    counts = ops.launch_counts()
+    if counts["embedding_bag_grouped"] != n_fwd:
+        raise AssertionError(
+            f"embedding_bag_grouped launched {counts['embedding_bag_grouped']} "
+            f"times over {n_fwd} forwards: one launch a forward, all "
+            f"{len(cfg.vocabs)} tables in it")
+    launches["embedding_bag_grouped"] = counts["embedding_bag_grouped"]
     peak = torch.cuda.max_memory_allocated()
-    log(f"[11b] main-path launches embedding_bag={bag_launches} "
-        f"({n_fwd} forwards x {cfg.n_sparse}); peak device memory "
-        f"{peak / 2**30:.2f} GiB ({peak} bytes)")
+    log(f"[11b] main-path launches embedding_bag_grouped="
+        f"{counts['embedding_bag_grouped']} ({n_fwd} forwards x 1); peak "
+        f"device memory {peak / 2**30:.2f} GiB ({peak} bytes)")
     # the kernel's logits against the plain lookups' on the card: bit-equal
     for name in SERVE_SHAPES:
-        with plain_lookups(dlrm, embedding_bag_ref):
+        with plain_lookups(dlrm, embedding_bag_grouped_ref):
             before = ops.launch_counts()
             with torch.inference_mode():
                 y_plain = dlrm.dlrm_forward(params, batches[name], cfg)
@@ -1584,20 +1726,25 @@ def main() -> int:
         if not torch.equal(y_plain, first[name]):
             raise AssertionError(f"{name}: logits with kernel 7 != logits with "
                                  "the plain lookups")
-    log(f"[11b] logits with kernel 7 == logits with embedding_bag_ref in "
-        f"_lookup, bit-equal, at {', '.join(SERVE_SHAPES)}")
+    log(f"[11b] logits with the grouped kernel 7 == logits with "
+        f"embedding_bag_grouped_ref in _lookup_all, bit-equal, at "
+        f"{', '.join(SERVE_SHAPES)}")
 
     def split_ms(batch):
         """CUDA events between the forward's parts: the bottom MLP, the 26
-        lookups, the interaction and the top MLP."""
+        lookups (one grouped launch into the stacked tensor), the
+        interaction and the top MLP."""
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
         with torch.inference_mode():
             ev[0].record()
             dense = dlrm.bottom(params, batch["dense"], cfg)
             ev[1].record()
-            embs = dlrm.lookups(params, batch["sparse"])
+            Z = dense.new_empty((dense.shape[0], 1 + cfg.n_sparse,
+                                 dense.shape[1]))
+            dlrm._lookup_all(params["tables"], batch["sparse"], Z[:, 1:])
             ev[2].record()
-            xi = dlrm.interact(dense, embs)
+            Z[:, 0] = dense
+            xi = dlrm._interact(Z)
             ev[3].record()
             dlrm.top(params, xi)
             ev[4].record()
@@ -1616,7 +1763,7 @@ def main() -> int:
                        "interaction_ms": parts[2], "top_ms": parts[3]}
         log(f"[11b] {name} B={B} forward, warm, median of {len(fwd[name])}: "
             f"{med * 1e3:.4f} ms, {B / med:.6e} samples/s on {card}; CUDA "
-            f"events (median of 5): bottom MLP {parts[0]:.4f} ms, 26 lookups "
+            f"events (median of 5): bottom MLP {parts[0]:.4f} ms, lookups "
             f"{parts[1]:.4f} ms, interaction {parts[2]:.4f} ms, top MLP "
             f"{parts[3]:.4f} ms (sum {parts.sum():.4f})")
     # the retrieval path: one user against 10^6 candidates
@@ -1637,9 +1784,10 @@ def main() -> int:
         f"scores {retrieval_ms:.4f} ms on {card}; scores within 1e-4 of float64")
     del batches, first, y_plain, cands, u, scores
 
-    # (c) kernel 7 at both serving shapes on one 2^24-row table, K = 1 and
-    # K = 3 with pads, beside its plain version, F.embedding_bag and its
-    # bound; enough bag sets in turn that the rows read exceed the 50 MB L2
+    # (c) kernel 7 at both serving shapes on one 2^24-row table (a launch
+    # with T = 1), K = 1 and K = 3 with pads, beside its plain version,
+    # F.embedding_bag and its bound; enough bag sets in turn that the rows
+    # read exceed the 50 MB L2
     tab = params["tables"][0]
     V, d = tab.shape
     shape_rows = []
@@ -1649,14 +1797,9 @@ def main() -> int:
             n_sets = max(2, -(-(64 << 20) // (B * K * 4 * d)))
             sets = [bag_ids(V, (B, K), pad_share, g11) for _ in range(n_sets)]
             dev_sets = [torch.from_numpy(s_).to(dev) for s_ in sets]
-            lib_sets = []
-            for s_ in sets:  # the 1-D ids and offsets of F.embedding_bag
-                keep = s_ >= 0
-                offsets = np.concatenate([[0], np.cumsum(keep.sum(axis=1))[:-1]])
-                lib_sets.append((torch.from_numpy(s_[keep].astype(np.int64)).to(dev),
-                                 torch.from_numpy(offsets.astype(np.int64)).to(dev)))
+            lib_sets = [library_bags(s_, dev) for s_ in sets]
             got_b = ops.embedding_bag(tab, dev_sets[0])
-            check_equal("embedding_bag", got_b,
+            check_equal("embedding_bag_grouped", got_b,
                         embedding_bag_ref(tab, dev_sets[0]), errs,
                         f"{name} K={K} on a 2^24-row table")
             lib_err = max_abs_err(torch.nn.functional.embedding_bag(
@@ -1674,31 +1817,103 @@ def main() -> int:
             ms = time_ms(lambda: ops.embedding_bag(tab, next(it_k)), reps)
             plain_ms = time_ms(lambda: embedding_bag_ref(tab, next(it_p)), reps)
             library_ms = time_ms(library, reps)
-            # the ids, the rows they name (pads read nothing) and the output;
-            # one add per element of a row read
-            rows_read = sum(int((s_ >= 0).sum()) for s_ in sets) / n_sets
-            moved = 4 * B * K + 4 * rows_read * d + 4 * B * d
-            adds = rows_read * d
+            # the ids, each distinct row they name once (pads read nothing)
+            # and the output; one add per id that is not a pad, per element
+            moved = 4 * B * K + 4 * bag_rows(sets) * d + 4 * B * d
+            adds = sum(int((s_ >= 0).sum()) for s_ in sets) / n_sets * d
             bound_ms = 1e3 * max(moved / HBM_BYTES_PER_S, adds / F32_OPS_PER_S)
-            shape_rows.append({"shape": name, "batch": B, "K": K,
+            shape_rows.append({"shape": name, "batch": B, "tables": 1, "K": K,
                                "pad_share": pad_share, "ms": ms,
                                "plain_ms": plain_ms, "library_ms": library_ms,
                                "bound_ms": bound_ms, "bytes": moved,
                                "adds": adds, "bag_sets": n_sets,
                                "max_abs_err_vs_library": lib_err})
-            log(f"[11c] embedding_bag {name} B={B} K={K} (pads {pad_share}): "
+            log(f"[11c] embedding_bag (one table) {name} B={B} K={K} (pads "
+                f"{pad_share}): "
                 f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms F.embedding_bag "
                 f"{library_ms:.4f} ms bound {bound_ms:.4f} ms ({moved / 1e6:.2f} "
                 f"MB, {n_sets} bag sets in turn) on {card}; vs library max abs "
                 f"err {lib_err:.3e}")
     del dev_sets, lib_sets
-    head = shape_rows[2]  # serve_bulk, K = 1: the main path's lookup
-    row("embedding_bag", head["ms"], head["plain_ms"], head["library_ms"],
-        head["bytes"], head["adds"], semiring_name=None, batch=head["batch"],
-        K=1, library_call="torch.nn.functional.embedding_bag (sum, 1-D ids "
-        "and offsets; the same function)", shapes=shape_rows,
+    # the launch over all 26 tables, as a forward makes it, beside its plain
+    # version, 26 launches of one table and 26 F.embedding_bag calls
+    tables = params["tables"]
+    T = len(tables)
+    grouped_rows = []
+    for name in SERVE_SHAPES:
+        B = RECSYS_SHAPES[name]["batch"]
+        for K, pad_share in ((1, 0.0), (3, 0.3)):
+            n_sets = max(2, -(-(64 << 20) // (B * T * K * 4 * d)))
+            sets = [np.stack([bag_ids(v, (B, K), pad_share, g11)
+                              for v in cfg.vocabs], 1) for _ in range(n_sets)]
+            dev_sets = [torch.from_numpy(s_).to(dev) for s_ in sets]
+            lib_sets = [[library_bags(s_[:, t], dev) for t in range(T)]
+                        for s_ in sets]
+            got_g = ops.embedding_bag_grouped(tables, dev_sets[0])
+            check_equal("embedding_bag_grouped", got_g,
+                        embedding_bag_grouped_ref(tables, dev_sets[0]), errs,
+                        f"{name} K={K}, 26 capped tables")
+            check_equal("embedding_bag_grouped", got_g, torch.stack(
+                [ops.embedding_bag(t, dev_sets[0][:, i])
+                 for i, t in enumerate(tables)], 1), errs,
+                f"{name} K={K}, 26 capped tables, against one launch a table")
+            lib_err = max(max_abs_err(torch.nn.functional.embedding_bag(
+                flat, t, offsets, mode="sum"), got_g[:, i])
+                for i, (t, (flat, offsets)) in enumerate(zip(tables,
+                                                             lib_sets[0])))
+            del got_g
+            it_g, it_p, it_t, it_l = (itertools.cycle(dev_sets),
+                                      itertools.cycle(dev_sets),
+                                      itertools.cycle(dev_sets),
+                                      itertools.cycle(lib_sets))
+
+            def per_table():
+                bags = next(it_t)
+                return [ops.embedding_bag(t, bags[:, i])
+                        for i, t in enumerate(tables)]
+
+            def library():
+                return [torch.nn.functional.embedding_bag(
+                    flat, t, offsets, mode="sum")
+                    for t, (flat, offsets) in zip(tables, next(it_l))]
+
+            reps = max(20, 2 * n_sets)
+            ms = time_ms(lambda: ops.embedding_bag_grouped(tables, next(it_g)),
+                         reps)
+            per_table_ms = time_ms(per_table, reps)
+            library_ms = time_ms(library, reps)
+            plain_ms = time_ms(lambda: embedding_bag_grouped_ref(
+                tables, next(it_p)), max(3, n_sets))
+            moved = 4 * B * T * K + 4 * sum(
+                bag_rows([s_[:, t] for s_ in sets]) for t in range(T)) * d \
+                + 4 * B * T * d
+            adds = sum(int((s_ >= 0).sum()) for s_ in sets) / n_sets * d
+            bound_ms = 1e3 * max(moved / HBM_BYTES_PER_S, adds / F32_OPS_PER_S)
+            grouped_rows.append({"shape": name, "batch": B, "tables": T,
+                                 "K": K, "pad_share": pad_share, "ms": ms,
+                                 "per_table_ms": per_table_ms,
+                                 "plain_ms": plain_ms,
+                                 "library_ms": library_ms,
+                                 "bound_ms": bound_ms, "bytes": moved,
+                                 "adds": adds, "bag_sets": n_sets,
+                                 "max_abs_err_vs_library": lib_err})
+            log(f"[11c] embedding_bag_grouped {name} B={B} x {T} tables K={K} "
+                f"(pads {pad_share}): one launch {ms:.4f} ms, 26 one-table "
+                f"launches {per_table_ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, 26 F.embedding_bag {library_ms:.4f} ms, "
+                f"bound {bound_ms:.4f} ms ({moved / 1e6:.2f} MB, {n_sets} bag "
+                f"sets in turn) on {card}; vs library max abs err "
+                f"{lib_err:.3e}")
+            del dev_sets, lib_sets, sets
+    head = grouped_rows[0]  # serve_p99, K = 1: the cell the grouping is for
+    row("embedding_bag_grouped", head["ms"], head["plain_ms"],
+        head["library_ms"], head["bytes"], head["adds"], semiring_name=None,
+        batch=head["batch"], K=1, tables=T,
+        library_call="26 torch.nn.functional.embedding_bag calls (sum, 1-D "
+        "ids and offsets; the same function)",
+        shapes=grouped_rows + shape_rows,
         serving=serve, retrieval_ms=retrieval_ms, peak_bytes=peak)
-    del params, tab
+    del params, tab, tables
     torch.cuda.empty_cache()
     log(f"[11] phase 11 took {time.perf_counter() - t11:.1f} s (reserve "
         f"{DLRM_RESERVE_S:.0f} s); the run {time.perf_counter() - t_start:.1f} "

@@ -19,10 +19,17 @@ The packed kernels (SlimSell-B) sweep int32 words that hold 32 bits each
 (``core.packing``): ``spmv_packed`` a frontier bitmap of ``ceil(n/32)``
 words, ``spmm_packed`` the ``ceil(B/32)`` word planes of a batch.
 
-``embedding_bag`` is DLRM's sparse lookup, the one kernel here that is not
-a SlimSell sweep: the sum (or mean) of the table rows each bag of ids
-names, -1 padding a bag. Its plain version is ``kernels.ref``'s
-``embedding_bag_ref``.
+``embedding_bag_grouped`` is DLRM's sparse lookup, the one kernel here
+that is not a SlimSell sweep: over each of T tables, the sum (or mean) of
+the table rows each bag of ids names, -1 padding a bag, all of a
+forward's tables in one launch. ``embedding_bag`` is one table, the same
+launch with T = 1. Their plain versions are ``kernels.ref``'s
+``embedding_bag_ref`` and ``embedding_bag_grouped_ref``.
+
+The SpMM kernels do not give one block a whole chunk: ``spmm_work`` cuts
+each chunk's tiles into pieces of at most ``piece_tiles(L)`` tiles, one
+block each, and the kernel folds the pieces of a split chunk in order.
+The list is built at a layout's first SpMM launch and kept on the layout.
 
 The kernels take the SlimWork mask as the bool ``tile_mask`` itself and
 write straight into vertex space through ``row_vertex``, so neither the
@@ -35,7 +42,7 @@ wrapper's gather of those bits into chunk-row space is not needed either.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -45,7 +52,7 @@ from ..core.semiring import BOOLEAN_PACKED, Semiring
 from ..core.spmv import (pull_mm_plain, pull_plain, spmm_packed_plain,
                          spmm_plain, spmv_packed_plain, spmv_plain)
 from . import build
-from .ref import BAG_MODES, embedding_bag_ref
+from .ref import BAG_MODES, embedding_bag_grouped_ref, embedding_bag_ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -89,13 +96,14 @@ SPMV_WTS = Kernel("slimsell_spmv_wts",
                   [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
                   source="slimsell_spmv")
 SPMM = Kernel("slimsell_spmm",
-              [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+              [_I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I,
+               _P])
 SPMM_WTS = Kernel("slimsell_spmm_wts",
-                  [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-                  source="slimsell_spmm")
+                  [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I,
+                   _I, _P], source="slimsell_spmm")
 SPMM_GCN = Kernel("slimsell_spmm_gcn",
-                  [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-                  source="slimsell_spmm")
+                  [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P,
+                   _I, _I, _I, _P], source="slimsell_spmm")
 PULL = Kernel("slimsell_pull",
               [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
 PULL_MM = Kernel("slimsell_pull_mm",
@@ -104,10 +112,14 @@ SPMV_PACKED = Kernel("slimsell_spmv_packed",
                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
 SPMM_PACKED = Kernel("slimsell_spmm_packed",
                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
-EMBEDDING_BAG = Kernel("embedding_bag", [_P, _P, _L, _L, _P, _I, _I, _I, _L,
-                                         _I, _P])
+EMBEDDING_BAG_GROUPED = Kernel("embedding_bag_grouped",
+                               [_P, _P, _I, _P, _L, _L, _L, _P, _L, _L, _I, _I,
+                                _I, _I, _P], source="embedding_bag")
 KERNELS = (SPMV, SPMV_WTS, SPMM, SPMM_WTS, SPMM_GCN, PULL, PULL_MM,
-           SPMV_PACKED, SPMM_PACKED, EMBEDDING_BAG)
+           SPMV_PACKED, SPMM_PACKED, EMBEDDING_BAG_GROUPED)
+# the most tables of one embedding-bag launch (their pointers and row
+# counts are the launch's parameters, csrc/embedding_bag.cu)
+MAX_TABLES = 128
 
 
 def reset_launches() -> None:
@@ -192,14 +204,13 @@ def _check_rows(x: torch.Tensor, row_mask: torch.Tensor) -> None:
         raise ValueError("row_mask must be contiguous")
 
 
-def _lanes(tiled, B: int, staged: int = 1) -> int:
-    """The batch-column tile of one block of the matrix kernels: whole
-    warps, at most 1024 threads, and the ``staged`` C x L arrays of one
-    tile (cols, and the weights or GCN column factors beside them) must
-    fit the kernels' 48 KB of shared memory."""
-    if staged * tiled.C * tiled.L * 4 > 48 * 1024:
-        raise ValueError(f"{staged} C x L = {tiled.C} x {tiled.L} tile(s) do "
-                         "not fit the matrix kernels' 48 KB of shared memory")
+def _lanes(tiled, B: int) -> int:
+    """The batch-column tile of one block of the batched pull kernel: whole
+    warps, at most 1024 threads, and one C x L tile of cols must fit the
+    kernel's 48 KB of shared memory."""
+    if tiled.C * tiled.L * 4 > 48 * 1024:
+        raise ValueError(f"a C x L = {tiled.C} x {tiled.L} tile does not fit "
+                         "the pull kernel's 48 KB of shared memory")
     return min(-(-B // 32) * 32, 128, (1024 // tiled.C) // 32 * 32)
 
 
@@ -216,6 +227,63 @@ def _cuda_operands(tiled, x: torch.Tensor, tile_mask: Optional[torch.Tensor]):
     mask = 0 if tile_mask is None else tile_mask.data_ptr()
     return (tiled.cols.data_ptr(), tiled.tile_ptr.data_ptr(),
             tiled.row_vertex.data_ptr(), tiled.cl.data_ptr(), mask)
+
+
+# The most slots of one row that a warp of the SpMM walks in one piece: a
+# chunk's tiles below cl are cut into pieces of PIECE_SLOTS // L tiles (at
+# least one), each piece one block (csrc/slimsell_spmm.cu). 256 slots are
+# 32 steps of a warp at B = 16 and 128 at B = 64; at scale 20 the heaviest
+# chunk's 310 tiles become 155 pieces.
+PIECE_SLOTS = 256
+
+
+def piece_tiles(L: int) -> int:
+    """Tiles of one SpMM piece at tile width L."""
+    return max(1, PIECE_SLOTS // L)
+
+
+def spmm_work(tile_ptr: torch.Tensor, cl: torch.Tensor, L: int,
+              per_piece: int):
+    """The SpMM's work list, on the CPU: ``(pieces, folds, slots)``.
+
+    ``pieces`` int32 [P, 4]: (chunk, first tile, end tile, partial slot)
+    in chunk order, each chunk's tiles below its length ``cl`` cut into
+    consecutive pieces of at most ``per_piece`` tiles; a chunk with no
+    tile below ``cl`` has one empty piece (it writes the semiring zero).
+    The slot is -1 for a chunk of one piece, which writes Y itself; the
+    pieces of a chunk of several take consecutive partial slots.
+    ``folds`` int32 [F, 4]: (chunk, first slot, number of slots, 0) of
+    each chunk of several pieces. ``slots`` is the number of partial
+    slots."""
+    tp = tile_ptr.detach().cpu().long()
+    live = -(-cl.detach().cpu().long() // L)                 # tiles below cl
+    n_pieces = (-(-live // per_piece)).clamp_min(1)
+    chunk = torch.repeat_interleave(torch.arange(live.numel()), n_pieces)
+    start = torch.cumsum(n_pieces, 0) - n_pieces
+    j = torch.arange(chunk.numel()) - start[chunk]          # rank in the chunk
+    first = tp[chunk] + j * per_piece
+    end = tp[chunk] + torch.minimum((j + 1) * per_piece, live[chunk])
+    split = n_pieces[chunk] > 1
+    slot = torch.where(split, torch.cumsum(split.long(), 0) - 1, -1)
+    pieces = torch.stack([chunk, first, end, slot], 1).to(torch.int32)
+    heads = split & (j == 0)
+    folds = torch.stack([chunk[heads], slot[heads], n_pieces[chunk[heads]],
+                         torch.zeros_like(slot[heads])], 1).to(torch.int32)
+    return pieces, folds, int(split.sum())
+
+
+def _spmm_work_on_device(tiled):
+    """``spmm_work`` of a device layout, built at its first SpMM launch and
+    kept on the layout (``tiled.spmm_work``) beside the ``tile_ptr`` and
+    ``cl`` it was built from; built anew if either has been replaced."""
+    memo = tiled.spmm_work
+    if memo is None or memo[0] is not tiled.tile_ptr or memo[1] is not tiled.cl:
+        pieces, folds, slots = spmm_work(tiled.tile_ptr, tiled.cl, tiled.L,
+                                         piece_tiles(tiled.L))
+        dev = tiled.tile_ptr.device
+        memo = (tiled.tile_ptr, tiled.cl, (pieces.to(dev), folds.to(dev), slots))
+        tiled.spmm_work = memo
+    return memo[2]
 
 
 def spmv(sr: Semiring, tiled, x: torch.Tensor, *,
@@ -269,23 +337,26 @@ def spmm(sr: Semiring, tiled, X: torch.Tensor, *,
         raise RuntimeError("the GCN SpMM kernel has no backward: run the "
                            "forward under torch.no_grad() or "
                            "torch.inference_mode()")
-    cols, *rest = _cuda_operands(tiled, X, tile_mask)
+    cols, tile_ptr, row_vertex, cl, mask = _cuda_operands(tiled, X, tile_mask)
+    pieces, folds, slots = _spmm_work_on_device(tiled)
     B = X.shape[1]
     Y = torch.empty_like(X)
+    partial = X.new_empty(slots * tiled.C * B) if folds.shape[0] else None
+    work = (pieces.data_ptr(), pieces.shape[0], folds.data_ptr(),
+            folds.shape[0], 0 if partial is None else partial.data_ptr(),
+            X.data_ptr(), Y.data_ptr(), tiled.C, tiled.L, B)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
         if deg is not None:
-            SPMM_GCN.launch(cols, deg.data_ptr(), *rest, X.data_ptr(),
-                            Y.data_ptr(), tiled.n_chunks, tiled.C, tiled.L,
-                            B, _lanes(tiled, B, staged=2), stream)
+            dinv = torch.empty(tiled.n, dtype=torch.float32, device=X.device)
+            SPMM_GCN.launch(cols, deg.data_ptr(), dinv.data_ptr(), tiled.n,
+                            tile_ptr, row_vertex, cl, mask, *work, stream)
         elif weights is None:
-            SPMM.launch(sr.code, cols, *rest, X.data_ptr(), Y.data_ptr(),
-                        tiled.n_chunks, tiled.C, tiled.L, B, _lanes(tiled, B),
+            SPMM.launch(sr.code, cols, tile_ptr, row_vertex, cl, mask, *work,
                         stream)
         else:
-            SPMM_WTS.launch(cols, weights.data_ptr(), *rest, X.data_ptr(),
-                            Y.data_ptr(), tiled.n_chunks, tiled.C, tiled.L,
-                            B, _lanes(tiled, B, staged=2), stream)
+            SPMM_WTS.launch(cols, weights.data_ptr(), tile_ptr, row_vertex, cl,
+                            mask, *work, stream)
     return Y
 
 
@@ -386,19 +457,77 @@ def embedding_bag(table: torch.Tensor, bags: torch.Tensor,
         return embedding_bag_ref(table, bags, mode)
     if table.device.type != "cuda":
         raise ValueError(f"no embedding bag for device {table.device}")
-    if torch.is_grad_enabled() and table.requires_grad:
+    return embedding_bag_grouped([table], bags.unsqueeze(1), mode)[:, 0]
+
+
+def _table_args(tables: Sequence[torch.Tensor], dev: torch.device):
+    """Check the tables in one pass: float32 [V_t, d] of one d on ``dev``,
+    contiguous on CUDA. Returns their data pointers and row counts."""
+    d = tables[0].shape[-1]
+    ptrs, rows = [], []
+    for t in tables:
+        if t.dtype != torch.float32:
+            raise TypeError(f"embedding_bag takes float32 tables, got {t.dtype}")
+        shape = t.shape
+        if len(shape) != 2 or shape[1] != d or t.device != dev:
+            raise ValueError(f"every table must be [V, {d}] on {dev}, got "
+                             f"{tuple(shape)} on {t.device}")
+        if dev.type == "cuda" and not t.is_contiguous():
+            raise ValueError("the tables must be contiguous")
+        ptrs.append(t.data_ptr())
+        rows.append(shape[0])
+    return ptrs, rows
+
+
+def embedding_bag_grouped(tables: Sequence[torch.Tensor], bags: torch.Tensor,
+                          mode: str = "sum", *,
+                          out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """All T tables' embedding bags in one launch: tables T x float32
+    [V_t, d] (one d), bags int32 [B, T, K] (-1 pads; field t reads table
+    t) -> [B, T, d], each ``out[:, t]`` equal bit for bit to
+    ``embedding_bag(tables[t], bags[:, t], mode)``. ``bags`` may be any
+    strided view, read in place; ``out`` (float32 [B, T, d], contiguous
+    along d, any strides for B and T) receives the result, for example the
+    [B, 1 + T, d] slice that DLRM's interaction stacks. A CPU input runs
+    the plain version (``kernels.ref.embedding_bag_grouped_ref``); on CUDA
+    at most ``MAX_TABLES`` tables, contiguous and, with no backward, not
+    requiring grad while grad mode is on. The tables are checked at every
+    call."""
+    check_choice("embedding_bag mode", mode, BAG_MODES)
+    T = len(tables)
+    if T == 0:
+        raise ValueError("embedding_bag_grouped needs at least one table")
+    if bags.dtype != torch.int32:
+        raise TypeError(f"embedding_bag takes int32 bags, got {bags.dtype}")
+    if bags.ndim != 3 or bags.shape[1] != T:
+        raise ValueError(f"expected bags [B, {T}, K] for {T} tables, got "
+                         f"{tuple(bags.shape)}")
+    dev, d = bags.device, tables[0].shape[-1]
+    B, K = bags.shape[0], bags.shape[2]
+    if out is not None and (out.dtype != torch.float32
+                            or tuple(out.shape) != (B, T, d)
+                            or out.device != dev or out.stride(2) != 1):
+        raise ValueError(f"out must be float32[{B}, {T}, {d}] on {dev}, "
+                         f"contiguous along d")
+    ptrs, rows = _table_args(tables, dev)
+    if dev.type == "cpu":
+        return embedding_bag_grouped_ref(tables, bags, mode, out)
+    if dev.type != "cuda":
+        raise ValueError(f"no embedding bag for device {dev}")
+    if T > MAX_TABLES:
+        raise ValueError(f"one launch takes at most {MAX_TABLES} tables, got {T}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tables):
         raise RuntimeError("the embedding-bag kernel has no backward: run the "
                            "forward under torch.no_grad() or "
                            "torch.inference_mode()")
-    if not table.is_contiguous():
-        raise ValueError("the table must be contiguous")
-    (V, d), (B, K) = table.shape, bags.shape
-    out = torch.empty((B, d), dtype=table.dtype, device=table.device)
+    if out is None:
+        out = torch.empty((B, T, d), dtype=torch.float32, device=dev)
     if B == 0 or d == 0:
         return out
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        EMBEDDING_BAG.launch(table.data_ptr(), bags.data_ptr(), bags.stride(0),
-                             bags.stride(1), out.data_ptr(), B, K, d, V,
-                             int(mode == "mean"), stream)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        EMBEDDING_BAG_GROUPED.launch(
+            (_P * T)(*ptrs), (_L * T)(*rows), T, bags.data_ptr(),
+            *bags.stride(), out.data_ptr(), out.stride(0), out.stride(1), B, K,
+            d, int(mode == "mean"), stream)
     return out

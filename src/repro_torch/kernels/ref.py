@@ -5,8 +5,12 @@
 (``kernels/csrc/embedding_bag.cu``) computes, in plain tensor operations.
 It is the CPU path of the wrapper ``kernels.ops.embedding_bag`` and the
 reference the kernel is checked against on the card.
+``embedding_bag_grouped_ref`` is the same over several tables at once, the
+plain version of the grouped entry (``kernels.ops.embedding_bag_grouped``).
 """
 from __future__ import annotations
+
+from typing import Optional, Sequence
 
 import torch
 
@@ -41,4 +45,21 @@ def embedding_bag_ref(table: torch.Tensor, bags: torch.Tensor,
         out = out + torch.where(pad[:, k, None], 0.0, row)
     if mode == "mean":
         out = out / (~pad).sum(dim=1, keepdim=True).clamp_min(1)
+    return out
+
+
+def embedding_bag_grouped_ref(tables: Sequence[torch.Tensor], bags: torch.Tensor,
+                              mode: str = "sum",
+                              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """T tables float[V_t, d], bags int[B, T, K] (-1 pads) -> [B, T, d]:
+    ``embedding_bag_ref`` of table t over field t, written into ``out[:,
+    t]`` (allocated when not given) one table at a time."""
+    if bags.ndim != 3 or bags.shape[1] != len(tables):
+        raise ValueError(f"expected bags [B, {len(tables)}, K] for "
+                         f"{len(tables)} tables, got {tuple(bags.shape)}")
+    if out is None:
+        out = tables[0].new_empty((bags.shape[0], len(tables),
+                                   tables[0].shape[1]))
+    for t, table in enumerate(tables):
+        out[:, t] = embedding_bag_ref(table, bags[:, t], mode)
     return out

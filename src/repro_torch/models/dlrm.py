@@ -2,14 +2,18 @@
 package's ``repro/models/dlrm.py``: embedding bags, a bottom MLP over the
 dense features, the dot interaction and a top MLP.
 
-The sparse lookup is the hot path. ``_lookup`` sends it by the table's
-device: a CUDA table to the hand-written embedding-bag kernel
-(``kernels.ops.embedding_bag``, ``kernels/csrc/embedding_bag.cu``), a CPU
-table to its plain version (``kernels.ref.embedding_bag_ref``). There is no
-``use_kernel`` switch: ``repro``'s ``use_kernel=True`` (the Pallas kernel)
-is the card here, ``use_kernel=False`` (its jnp oracle) is
-``device="cpu"``. Both sum a bag in slot order, so on the card the kernel
-and the plain version give the same bits.
+The sparse lookup is the hot path. ``_lookup_all`` sends all of a
+forward's fields at once to ``kernels.ops.embedding_bag_grouped``: CUDA
+tables to one launch of the hand-written embedding-bag kernel
+(``kernels/csrc/embedding_bag.cu``), CPU tables to its plain version
+(``kernels.ref.embedding_bag_grouped_ref``, one ``embedding_bag_ref`` a
+table). There is no ``use_kernel`` switch:
+``repro``'s ``use_kernel=True`` (the Pallas kernel) is the card here,
+``use_kernel=False`` (its jnp oracle) is ``device="cpu"``. Both sum a bag
+in slot order, so on the card the kernel and the plain version give the
+same bits. ``dlrm_forward`` has the bags written straight into the
+[B, 1 + n_sparse, d] tensor the interaction multiplies, beside the bottom
+MLP's output, so no stack copies them again.
 
 The MLPs and the interaction are plain float32 products, as ``repro``
 leaves them to XLA outside any kernel: ``torch.matmul`` and ``torch.bmm``,
@@ -30,7 +34,6 @@ from torch import nn
 
 from ..core.formats import resolve_device
 from ..kernels import ops
-from ..kernels.ref import embedding_bag_ref
 from .gnn import _placed, mlp_apply, mlp_init
 
 # MLPerf Criteo-1TB per-table cardinalities (public benchmark config)
@@ -93,12 +96,12 @@ def dlrm_init(cfg: DLRMConfig, *, generator: Optional[torch.Generator] = None,
                             dtype=cfg.dtype)}
 
 
-def _lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """idx int32[B, K] (-1 pads) -> [B, d], summed in slot order: the
-    kernel for a CUDA table, the plain version otherwise."""
-    if table.device.type == "cuda":
-        return ops.embedding_bag(table, idx, mode="sum")
-    return embedding_bag_ref(table, idx, mode="sum")
+def _lookup_all(tables: Sequence[torch.Tensor], sparse: torch.Tensor,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """sparse int32[B, n_sparse, K] (-1 pads) -> [B, n_sparse, d] (into
+    ``out`` when given), each bag summed in slot order: one kernel launch
+    for CUDA tables, the plain version for CPU tables."""
+    return ops.embedding_bag_grouped(tables, sparse, "sum", out=out)
 
 
 def _check_placement(params: dict, batch: dict, dev: torch.device,
@@ -120,19 +123,25 @@ def bottom(params: dict, dense: torch.Tensor, cfg: DLRMConfig) -> torch.Tensor:
 
 
 def lookups(params: dict, sparse: torch.Tensor) -> list:
-    """One embedding bag a field: sparse int32[B, n_sparse, multi_hot]."""
-    return [_lookup(t, sparse[:, i]) for i, t in enumerate(params["tables"])]
+    """One embedding bag a field: sparse int32[B, n_sparse, multi_hot] ->
+    a list of n_sparse [B, d] (views of one [B, n_sparse, d] tensor)."""
+    return list(_lookup_all(params["tables"], sparse).unbind(1))
 
 
 def interact(dense: torch.Tensor, embs: Sequence[torch.Tensor]) -> torch.Tensor:
     """The dot interaction: the pairwise dot products of the bottom output
     and the field embeddings (the upper triangle, in ``jnp.triu_indices``'
     order), beside the bottom output -> [B, d + f(f-1)/2]."""
-    Z = torch.stack([dense, *embs], dim=1)                      # [B, f, d]
+    return _interact(torch.stack([dense, *embs], dim=1))
+
+
+def _interact(Z: torch.Tensor) -> torch.Tensor:
+    """``interact`` of Z [B, f, d], the bottom output at Z[:, 0] and the
+    field embeddings after it."""
     ZZt = torch.bmm(Z, Z.transpose(1, 2))                       # [B, f, f]
     f = Z.shape[1]
     iu, ju = torch.triu_indices(f, f, offset=1, device=Z.device)
-    return torch.cat([dense, ZZt[:, iu, ju]], dim=-1)
+    return torch.cat([Z[:, 0], ZZt[:, iu, ju]], dim=-1)
 
 
 def top(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -148,7 +157,11 @@ def dlrm_forward(params: dict, batch: dict, cfg: DLRMConfig, *,
     dev = resolve_device(device)
     _check_placement(params, batch, dev, ("dense", "sparse"))
     dense = bottom(params, batch["dense"], cfg)                 # [B, d]
-    return top(params, interact(dense, lookups(params, batch["sparse"])))
+    tables = params["tables"]
+    Z = dense.new_empty((dense.shape[0], 1 + len(tables), dense.shape[1]))
+    Z[:, 0] = dense
+    _lookup_all(tables, batch["sparse"], Z[:, 1:])
+    return top(params, _interact(Z))
 
 
 def dlrm_loss(params: dict, batch: dict, cfg: DLRMConfig, *,

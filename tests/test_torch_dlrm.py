@@ -107,7 +107,8 @@ def test_wrapper_on_cpu_runs_the_plain_version_on_strided_bags():
                                pref.embedding_bag_ref(table, view.contiguous(),
                                                       mode))
     assert ops.launch_counts() == before
-    assert ops.launch_counts()["embedding_bag"] == ops.EMBEDDING_BAG.launches
+    assert (ops.launch_counts()["embedding_bag_grouped"]
+            == ops.EMBEDDING_BAG_GROUPED.launches)
 
 
 @pytest.mark.parametrize("bad", ["mode", "float64", "int64", "device", "1d"])
@@ -123,6 +124,86 @@ def test_wrapper_guards(bad):
     }[bad]
     with pytest.raises(err, match=match):
         ops.embedding_bag(*args)
+
+
+@pytest.mark.parametrize("pads", PADS)
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("d,K", [(16, 1), (16, 3), (130, 3), (128, 8)])
+def test_embedding_bag_grouped_matches_per_table_and_jnp(d, K, mode, pads):
+    """The grouped wrapper on the CPU (the plain loop): field t of a
+    strided [B, T, K] id view through table t, bit-equal to the per-table
+    ``embedding_bag_ref`` and to ``repro``'s lookup of each field."""
+    rng = np.random.default_rng([d, K, len(mode), len(pads), 6])
+    vocabs = [30, 3, 200, 11]
+    tables = [rng.standard_normal((v, d)).astype(np.float32) for v in vocabs]
+    B = 13
+    ids = np.stack([_bags(v, B, K, pads, rng) for v in vocabs], 1)
+    bags = torch.from_numpy(np.repeat(ids, 2, axis=0))[::2]  # strided along B
+    assert not bags.is_contiguous()
+    pt = [torch.from_numpy(t) for t in tables]
+    before = ops.launch_counts()
+    got = ops.embedding_bag_grouped(pt, bags, mode)
+    assert ops.launch_counts() == before
+    assert got.shape == (B, len(vocabs), d) and got.dtype == torch.float32
+    for t, table in enumerate(tables):
+        assert torch.equal(got[:, t], pref.embedding_bag_ref(
+            pt[t], bags[:, t].contiguous(), mode))
+        want = np.asarray(jref.embedding_bag_ref(
+            jnp.asarray(table), jnp.asarray(ids[:, t]), mode=mode))
+        assert np.array_equal(got[:, t].numpy(), want)
+
+
+def test_embedding_bag_grouped_writes_into_out():
+    """``out`` may be the [B, 1 + T, d] slice the interaction stacks: the
+    bags land there, the bottom output's row is left as it was."""
+    rng = np.random.default_rng(7)
+    tables = [torch.from_numpy(rng.standard_normal((v, 8)).astype(np.float32))
+              for v in (5, 9, 4)]
+    bags = torch.from_numpy(rng.integers(-1, 4, size=(6, 3, 2)).astype(np.int32))
+    Z = torch.full((6, 4, 8), 3.0)
+    got = ops.embedding_bag_grouped(tables, bags, "sum", out=Z[:, 1:])
+    assert got.data_ptr() == Z[:, 1:].data_ptr()
+    assert torch.equal(Z[:, 0], torch.full((6, 8), 3.0))
+    assert torch.equal(Z[:, 1:], ops.embedding_bag_grouped(tables, bags))
+
+
+@pytest.mark.parametrize("bad", ["mode", "none", "int64", "fields", "width",
+                                 "float64", "device", "out"])
+def test_embedding_bag_grouped_guards(bad):
+    tables = [torch.zeros(10, 4), torch.zeros(7, 4)]
+    bags = torch.zeros(3, 2, 1, dtype=torch.int32)
+    err, match, args, kw = {
+        "mode": (ValueError, "mode", (tables, bags, "max"), {}),
+        "none": (ValueError, "at least one table", ([], bags), {}),
+        "int64": (TypeError, "int32 bags", (tables, bags.long()), {}),
+        "fields": (ValueError, "expected bags", (tables[:1], bags), {}),
+        "width": (ValueError, "every table", ([tables[0], torch.zeros(7, 5)],
+                                              bags), {}),
+        "float64": (TypeError, "float32 tables",
+                    ([tables[0], tables[1].double()], bags), {}),
+        "device": (ValueError, "every table",
+                   ([tables[0], tables[1].to("meta")], bags), {}),
+        "out": (ValueError, "out must be", (tables, bags),
+                {"out": torch.zeros(3, 2, 5)}),
+    }[bad]
+    with pytest.raises(err, match=match):
+        ops.embedding_bag_grouped(*args, **kw)
+
+
+def test_lookups_are_views_of_one_grouped_result():
+    """``lookups`` keeps its list of [B, d] results: the fields of one
+    [B, n_sparse, d] tensor, each equal to the per-table plain bag."""
+    cfg = pcfgs.reduced_config()
+    params = pdlrm.dlrm_init(cfg, generator=torch.Generator().manual_seed(8),
+                             device="cpu")
+    arrays = ppipe.CriteoPipeline(cfg.vocabs, 16, cfg.multi_hot,
+                                  seed=8).get_batch(0)
+    sparse = torch.from_numpy(arrays["sparse"])
+    embs = pdlrm.lookups(params, sparse)
+    assert len(embs) == cfg.n_sparse
+    for i, (e, table) in enumerate(zip(embs, params["tables"])):
+        assert e.shape == (16, cfg.embed_dim)
+        assert torch.equal(e, pref.embedding_bag_ref(table, sparse[:, i]))
 
 
 @pytest.mark.parametrize("final_act", [False, True])

@@ -163,3 +163,14 @@ def test_dlrm_entry_points_without_card_raise(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert.dlrm_batch_from_arrays(arrays)
     assert repro_torch.dlrm_forward(params, batch, cfg, device="cpu").shape == (8,)
+
+
+def test_profile_spmm_without_card_raises(monkeypatch):
+    """The SpMM diagnostic measures the card: it raises before it builds a
+    graph when there is none."""
+    from repro_torch import profile_spmm
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(profile_spmm, "kronecker",
+                        lambda *a, **k: pytest.fail("built a graph"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profile_spmm.main(["--scale", "5"])

@@ -333,11 +333,11 @@ def test_embedding_bag_kernel_equals_plain(cuda, V, d, B, K, mode, pads):
     if pads == "empty":
         ids[:] = -1
     bags = torch.from_numpy(ids).to(dev)[:, 1]
-    before = ops.EMBEDDING_BAG.launches
+    before = ops.EMBEDDING_BAG_GROUPED.launches
     got = ops.embedding_bag(table, bags, mode)
     want = embedding_bag_ref(table, bags, mode)
     torch.cuda.synchronize()
-    assert ops.EMBEDDING_BAG.launches == before + 1
+    assert ops.EMBEDDING_BAG_GROUPED.launches == before + 1
     assert got.is_cuda and got.shape == (B, d) and torch.equal(got, want)
 
 
@@ -361,11 +361,12 @@ def test_embedding_bag_kernel_ids_past_the_table(cuda):
 def test_embedding_bag_kernel_refusals(cuda):
     """No backward: a table that requires grad is refused in grad mode and
     runs under no_grad. A float64 table, int64 bags, and bags on the CPU
-    beside a card table are refused; nothing launches."""
+    beside a card table, and more tables than one launch takes are
+    refused; nothing launches."""
     dev, _ = cuda
     table = torch.randn(50, 16, device=dev, requires_grad=True)
     bags = torch.randint(-1, 50, (4, 2), dtype=torch.int32, device=dev)
-    before = ops.EMBEDDING_BAG.launches
+    before = ops.EMBEDDING_BAG_GROUPED.launches
     with pytest.raises(RuntimeError, match="no backward"):
         ops.embedding_bag(table, bags)
     with pytest.raises(TypeError, match="float32 table"):
@@ -374,17 +375,22 @@ def test_embedding_bag_kernel_refusals(cuda):
         ops.embedding_bag(table.detach(), bags.long())
     with pytest.raises(ValueError, match="bags on cpu"):
         ops.embedding_bag(table.detach(), bags.cpu())
-    assert ops.EMBEDDING_BAG.launches == before
+    many = ops.MAX_TABLES + 1
+    with pytest.raises(ValueError, match="at most"):
+        ops.embedding_bag_grouped([table.detach()] * many,
+                                  bags[:, None].expand(4, many, 2))
+    assert ops.EMBEDDING_BAG_GROUPED.launches == before
     with torch.no_grad():
         y = ops.embedding_bag(table, bags)
-    assert ops.EMBEDDING_BAG.launches == before + 1 and not y.requires_grad
+    assert ops.EMBEDDING_BAG_GROUPED.launches == before + 1
+    assert not y.requires_grad
 
 
 @pytest.mark.parametrize("multi_hot", [1, 3])
 def test_dlrm_forward_card_equals_cpu(cuda, multi_hot):
     """``dlrm_forward`` at the MLPerf widths, every table cut to 1,000
-    rows, on the card against the CPU: atol = rtol = 1e-4; 26 launches of
-    kernel 7 a forward."""
+    rows, on the card against the CPU: atol = rtol = 1e-4; one launch of
+    kernel 7 a forward, all 26 tables in it."""
     import dataclasses
 
     from repro_torch.configs.dlrm_mlperf import capped_config
@@ -392,6 +398,7 @@ def test_dlrm_forward_card_equals_cpu(cuda, multi_hot):
     from repro_torch.models.dlrm import dlrm_forward, dlrm_init
     dev, _ = cuda
     cfg = dataclasses.replace(capped_config(1000), multi_hot=multi_hot)
+    grouped = ops.EMBEDDING_BAG_GROUPED.launches
     params = dlrm_init(cfg, generator=torch.Generator().manual_seed(3),
                        device="cpu")
     arrays = CriteoPipeline(cfg.vocabs, 64, multi_hot, seed=3).get_batch(0)
@@ -405,8 +412,139 @@ def test_dlrm_forward_card_equals_cpu(cuda, multi_hot):
         p = {"tables": [t.to(d) for t in params["tables"]],
              **{k: [{n: v.to(d) for n, v in layer.items()} for layer in params[k]]
                 for k in ("bot", "top")}}
-        before = ops.EMBEDDING_BAG.launches
         with torch.inference_mode():
             out[str(d)] = dlrm_forward(p, batch, cfg, device=d).cpu()
-    assert ops.EMBEDDING_BAG.launches == before + cfg.n_sparse
+    assert ops.EMBEDDING_BAG_GROUPED.launches == grouped + 1
     torch.testing.assert_close(out[str(dev)], out["cpu"], rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def cuda_hub(cuda):
+    """An Erdos-Renyi graph of 2^14 vertices with a hub joined to all of
+    them: the hub's chunk has 128 tiles at L=128, cut into 64 pieces of
+    the SpMM (and folded); weighted for the min-plus mode."""
+    from repro_torch.core.formats import build_csr
+    dev, _ = cuda
+    n = 2 ** 14
+    er = erdos_renyi(n, 8.0, seed=7)
+    src = np.repeat(np.arange(n), np.diff(er.indptr))
+    edges = np.concatenate([np.stack([src, er.indices], 1),
+                            np.stack([np.zeros(n - 1, np.int64),
+                                      np.arange(1, n)], 1)])
+    csr = with_random_weights(build_csr(edges, n), low=1.0 / 256.0, high=1.0,
+                              seed=7)
+    tiled = build_slimsell(csr, C=8, L=128).to_torch(dev)
+    assert int(tiled.tile_ptr[1] - tiled.tile_ptr[0]) >= 100
+    return dev, tiled
+
+
+HUB_MODES = SEMIRINGS + ["minplus", "gcn"]
+HUB_MASKS = MASKS + ["whole_chunks"]
+
+
+@pytest.mark.parametrize("width", [1, 5, 16, 33, 64, 97, 160])
+@pytest.mark.parametrize("mask_kind", HUB_MASKS)
+@pytest.mark.parametrize("mode", HUB_MODES)
+def test_spmm_hub_chunk_equals_plain(cuda_hub, mode, mask_kind, width):
+    """The three SpMM modes where one chunk is split into many pieces and
+    folded: exact for the implicit (4 semirings) and stored-weight modes,
+    within the GCN tolerance (rtol = atol = 1e-5) for the GCN weight; the
+    masks drop part of the hub's chunk or whole chunks."""
+    dev, tiled = cuda_hub
+    rng = np.random.default_rng([HUB_MODES.index(mode),
+                                 HUB_MASKS.index(mask_kind), width, 8])
+    if mask_kind == "whole_chunks":
+        keep = torch.from_numpy(rng.random(tiled.n_chunks) < 0.6).to(dev)
+        mask = keep[tiled.row_block.long()]
+    else:
+        mask = _mask(mask_kind, tiled, rng, dev)
+    shape = (tiled.n, width)
+    if mode == "minplus":
+        X = rng.uniform(0.0, 8.0, shape).astype(np.float32)
+        X[rng.random(shape) >= 0.5] = np.inf
+        X = torch.from_numpy(X).to(dev)
+        kernel, kw = ops.SPMM_WTS, dict(weights=tiled.wts)
+        sr = psr.MINPLUS
+    elif mode == "gcn":
+        X = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+        kernel, kw = ops.SPMM_GCN, dict(deg=tiled.deg.float())
+        sr = psr.REAL
+    else:
+        sr = psr.get(mode)
+        X = _operand(sr, shape, rng, dev)
+        kernel, kw = ops.SPMM, {}
+    before = kernel.launches
+    got = ops.spmm(sr, tiled, X, tile_mask=mask, **kw)
+    want = spmm_plain(sr, tiled, X, mask, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    if mode == "gcn":
+        assert not torch.isnan(got).any()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert got.is_cuda and torch.equal(got, want)
+
+
+def test_gcn_requests_bit_equal(cuda_hub):
+    """Three GCN forwards of one batch on the card: the same bits (the
+    SpMM folds its pieces in a fixed order, with no atomics)."""
+    import dataclasses
+
+    from repro_torch.configs.gcn_cora import make_config
+    from repro_torch.models.gnn import gcn_forward, gcn_init
+    dev, tiled = cuda_hub
+    cfg = dataclasses.replace(make_config(), d_in=64, aggregation="slimsell")
+    params = gcn_init(cfg, generator=torch.Generator().manual_seed(8),
+                      device=dev)
+    batch = {"node_feat": torch.randn(tiled.n, cfg.d_in, device=dev),
+             "deg": tiled.deg, "tiled": tiled,
+             "edge_index": torch.zeros(2, 0, dtype=torch.int32, device=dev)}
+    with torch.inference_mode():
+        ys = [gcn_forward(params, batch, cfg, device=dev) for _ in range(3)]
+    assert torch.isfinite(ys[0]).all()
+    assert all(torch.equal(y, ys[0]) for y in ys[1:])
+
+
+@pytest.mark.parametrize("out_kind", ["new", "stacked"])
+@pytest.mark.parametrize("pads", ["none", "random", "empty"])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("d", [16, 128, 130, 256])
+def test_embedding_bag_grouped_equals_per_table(cuda, d, mode, pads, out_kind):
+    """The grouped kernel against ``embedding_bag`` table by table, bit for
+    bit (one table is the same launch with T = 1): tables of different row
+    counts; ids a strided [B, T, K] view; the output new or the [B, 1 + T,
+    d] slice DLRM stacks; an id past V in one table only makes that
+    table's bag NaN."""
+    from repro_torch.kernels.ref import embedding_bag_grouped_ref
+    dev, _ = cuda
+    rng = np.random.default_rng([d, len(mode), len(pads), len(out_kind)])
+    vocabs = [50, 3, 1000, 7, 400]
+    tables = [torch.from_numpy(rng.standard_normal((v, d)).astype(
+        np.float32)).to(dev) for v in vocabs]
+    B, T, K = 37, len(vocabs), 3
+    ids = np.stack([rng.integers(0 if pads == "none" else -1, v, size=(B, K))
+                    for v in vocabs], 1).astype(np.int32)
+    if pads == "empty":
+        ids[:] = -1
+    ids[4, 2, 1] = vocabs[2]  # past table 2's rows
+    wide = torch.from_numpy(np.concatenate([ids, ids], 2)).to(dev)
+    bags = wide[:, :, ::2]  # strided along K
+    out = None
+    if out_kind == "stacked":
+        Z = torch.full((B, 1 + T, d), 7.0, device=dev)
+        out = Z[:, 1:]
+    before = ops.EMBEDDING_BAG_GROUPED.launches
+    got = ops.embedding_bag_grouped(tables, bags, mode, out=out)
+    assert ops.EMBEDDING_BAG_GROUPED.launches == before + 1
+    if out is not None:
+        assert got.data_ptr() == out.data_ptr()
+        assert torch.equal(Z[:, 0], torch.full((B, d), 7.0, device=dev))
+    for t, table in enumerate(tables):
+        want = ops.embedding_bag(table, bags[:, t], mode)
+        nan = torch.isnan(want).any(dim=1)
+        assert torch.equal(torch.isnan(got[:, t]).any(dim=1), nan)
+        assert torch.equal(got[:, t][~nan], want[~nan])
+        assert nan.any().item() == (t == 2)
+    ref = embedding_bag_grouped_ref(tables, bags, mode)
+    ok = ~torch.isnan(ref)
+    assert torch.equal(got[ok], ref[ok]) and torch.equal(torch.isnan(got), ~ok)

@@ -1,0 +1,236 @@
+"""The SpMM's work list (SlimChunk pieces) and its split-then-fold order.
+
+The SpMM kernel (``kernels/csrc/slimsell_spmm.cu``) cuts each chunk's
+tiles below its length ``cl`` into pieces of at most P tiles
+(``kernels.ops.spmm_work``), one block each, and folds the partial rows of
+a chunk of several pieces in piece order. On the CPU:
+
+* the work list covers every tile below ``cl`` of every chunk exactly
+  once, in order, in pieces of at most P tiles, one empty piece for a chunk
+  with none, and numbers the partial slots of the split chunks as the
+  folds say;
+* a plain emulation of split-then-fold (``spmm_plain`` over the tiles of
+  each round of pieces, the rounds added in piece order) equals
+  ``spmm_plain`` and ``repro``'s jnp ``slimsell_spmm``: exactly for
+  tropical, boolean, sel-max, real (integer-valued operands) and min-plus,
+  within rtol = atol = 1e-5 for the GCN weight (float32 sums in another
+  order). The graphs are a star (one hub chunk of many tiles), a small
+  Kronecker graph and a ring of cliques, at C=8 with L=128, 16 and 1 and at
+  sigma=1, with masks that drop part of a split chunk.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import formats as jf
+from repro.core import semiring as jsr
+from repro.core import spmv as jspmv
+from repro.graphs import generators as jg
+from repro.kernels import ref as jref
+from repro_torch import convert
+from repro_torch.core import semiring as psr
+from repro_torch.core.spmv import spmm_plain
+from repro_torch.kernels import ops
+
+GRAPHS = {
+    "star": lambda: jg.star(2 ** 10),
+    "kron": lambda: jg.with_random_weights(jg.kronecker(8, 8, seed=1),
+                                           low=1.0 / 256.0, high=1.0, seed=2),
+    "cliques": lambda: jg.ring_of_cliques(12, 10),
+}
+# name -> (C, L, sigma): sigma None is n, the main path's sort
+LAYOUTS = {"C8L128": (8, 128, None), "C8L16": (8, 16, None),
+           "C8L1": (8, 1, None), "sigma1": (8, 16, 1)}
+# "kernel" is the kernel's own piece size, ops.piece_tiles(L); "eighth"
+# cuts the longest chunk into about eight pieces
+PER_PIECE = ["kernel", "eighth"]
+SEMIRINGS = ["tropical", "real", "boolean", "selmax", "minplus", "gcn"]
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def layouts():
+    """{(graph, layout): (csr, repro's layout, the port's, carried)}."""
+    out = {}
+    for g, make in GRAPHS.items():
+        csr = make()
+        if csr.weights is None:
+            csr = jg.with_random_weights(csr, low=1.0 / 256.0, high=1.0, seed=3)
+        for name, (C, L, sigma) in LAYOUTS.items():
+            host = jf.build_slimsell(csr, C=C, L=L, sigma=sigma)
+            pt = convert.tiled_from_arrays(
+                {k: getattr(host, k) for k in convert.LAYOUT_ARRAYS},
+                {k: getattr(host, k) for k in convert.LAYOUT_META},
+                device="cpu")
+            out[(g, name)] = (csr, host.to_jax(), pt)
+    return out
+
+
+def _per_piece(per_piece, pt):
+    if per_piece == "kernel":
+        return ops.piece_tiles(pt.L)
+    if per_piece == "eighth":
+        return max(1, -(-int((-(-pt.cl.long() // pt.L)).max()) // 8))
+    return per_piece
+
+
+def _ranks(pieces):
+    """Each piece's rank within its chunk."""
+    chunk = pieces[:, 0].long()
+    first = torch.searchsorted(chunk, chunk, right=False)
+    return torch.arange(chunk.numel()) - first
+
+
+@pytest.mark.parametrize("per_piece", PER_PIECE + [1, 3])
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("graph", sorted(GRAPHS))
+def test_work_list_covers_tiles_below_cl(layouts, graph, layout, per_piece):
+    _, _, pt = layouts[(graph, layout)]
+    P = _per_piece(per_piece, pt)
+    pieces, folds, slots = ops.spmm_work(pt.tile_ptr, pt.cl, pt.L, P)
+    assert pieces.dtype == folds.dtype == torch.int32
+    assert pieces.shape[1] == folds.shape[1] == 4
+    tp, cl = pt.tile_ptr.long().tolist(), pt.cl.long().tolist()
+    by_chunk = {}
+    for c, t0, t1, s in pieces.tolist():
+        by_chunk.setdefault(c, []).append((t0, t1, s))
+    assert list(by_chunk) == list(range(pt.n_chunks))  # chunk order, all
+    split_slots, next_slot = [], 0
+    for c, ps in by_chunk.items():
+        live = -(-cl[c] // pt.L)
+        tiles = [t for t0, t1, _ in ps for t in range(t0, t1)]
+        # every tile below cl once, in order, none past it
+        assert tiles == list(range(tp[c], tp[c] + live))
+        assert all(t1 - t0 <= P for t0, t1, _ in ps)
+        assert all(t1 - t0 >= 1 for t0, t1, _ in ps) or (live == 0
+                                                         and len(ps) == 1)
+        if len(ps) == 1:
+            assert ps[0][2] == -1
+        else:
+            assert [s for _, _, s in ps] == list(
+                range(next_slot, next_slot + len(ps)))
+            split_slots.append([c, next_slot, len(ps), 0])
+            next_slot += len(ps)
+    assert folds.tolist() == split_slots and slots == next_slot
+
+
+def test_work_list_splits_the_hub(layouts):
+    """The star's hub chunk (1023 slots) at L=1 is 1023 tiles: four pieces
+    at the kernel's P = 256; at L=128 its 8 tiles are four pieces of 2."""
+    for layout, n_pieces in (("C8L1", 4), ("C8L128", 4), ("C8L16", 4)):
+        _, _, pt = layouts[("star", layout)]
+        pieces, folds, slots = ops.spmm_work(pt.tile_ptr, pt.cl, pt.L,
+                                             ops.piece_tiles(pt.L))
+        assert folds.tolist() == [[0, 0, n_pieces, 0]] and slots == n_pieces
+        assert (pieces[:, 1] <= pieces[:, 2]).all()
+
+
+def _operand(name, shape, rng):
+    if name == "boolean":
+        return rng.integers(0, 2, size=shape).astype(np.int32)
+    if name == "gcn":
+        return rng.standard_normal(shape).astype(np.float32)
+    if name == "minplus":
+        x = rng.uniform(0.0, 8.0, shape).astype(np.float32)
+        x[rng.random(shape) >= 0.6] = np.inf
+        return x
+    x = rng.integers(0, 4, size=shape).astype(np.float32)
+    if name == "tropical":
+        x[rng.random(shape) < 0.4] = np.inf
+    if name == "selmax":
+        x *= rng.integers(1, 300, size=shape)
+    return x
+
+
+def _split_mask(pt, pieces, rng):
+    """Half the tiles, always dropping part (not all) of each split chunk."""
+    mask = rng.random(pt.n_tiles) < 0.5
+    for c, t0, t1, s in pieces.tolist():
+        if s >= 0 and t1 > t0:
+            mask[t0] = False
+            mask[t1 - 1] = True
+    return mask
+
+
+def split_then_fold(sr, pt, X, mask, per_piece, weights=None, deg=None):
+    """``spmm_plain`` over the tiles of each round of pieces (the j-th
+    piece of every chunk), the rounds added in piece order: what the
+    kernel's pieces and fold compute."""
+    pieces, _, _ = ops.spmm_work(pt.tile_ptr, pt.cl, pt.L, per_piece)
+    ranks = _ranks(pieces)
+    Y = None
+    for j in range(int(ranks.max()) + 1):
+        keep = torch.zeros(pt.n_tiles, dtype=torch.bool)
+        for _, t0, t1, _ in pieces[ranks == j].tolist():
+            keep[t0:t1] = True
+        if mask is not None:
+            keep &= mask
+        Yj = spmm_plain(sr, pt, X, keep, weights, deg)
+        Y = Yj if Y is None else sr.reduce(torch.stack([Y, Yj]), 0)
+    return Y
+
+
+def _jnp(name, csr, jt, X, mask):
+    jm = None if mask is None else jnp.asarray(mask.numpy())
+    if name == "gcn":
+        return np.asarray(jspmv.slimsell_spmm(
+            jsr.REAL, jt, jnp.asarray(X), tile_mask=jm, backend="jnp",
+            edge_weight=jref.gcn_edge_weight(jnp.asarray(
+                csr.deg.astype(np.float32)))))
+    if name == "minplus":
+        return np.asarray(jspmv.slimsell_spmm(
+            jsr.MINPLUS, jt, jnp.asarray(X), weights=jt.wts, tile_mask=jm,
+            backend="jnp"))
+    return np.asarray(jspmv.slimsell_spmm(jsr.get(name), jt, jnp.asarray(X),
+                                          tile_mask=jm, backend="jnp"))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("per_piece", PER_PIECE)
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("graph", sorted(GRAPHS))
+def test_split_then_fold_equals_plain_and_jnp(layouts, graph, layout,
+                                              per_piece, masked):
+    csr, jt, pt = layouts[(graph, layout)]
+    P = _per_piece(per_piece, pt)
+    pieces, _, _ = ops.spmm_work(pt.tile_ptr, pt.cl, pt.L, P)
+    rng = np.random.default_rng([len(graph), len(layout), P, masked])
+    mask = torch.from_numpy(_split_mask(pt, pieces, rng)) if masked else None
+    for name in SEMIRINGS:
+        X = _operand(name, (pt.n, 5), rng)
+        Xt = torch.from_numpy(X)
+        sr = {"minplus": psr.MINPLUS, "gcn": psr.REAL}.get(name) \
+            or psr.get(name)
+        kw = {"minplus": dict(weights=pt.wts),
+              "gcn": dict(deg=pt.deg.float())}.get(name, {})
+        got = split_then_fold(sr, pt, Xt, mask, P, **kw)
+        plain = spmm_plain(sr, pt, Xt, mask, **kw)
+        want = _jnp(name, csr, jt, X, mask)
+        if name == "gcn":
+            assert not torch.isnan(got).any()
+            torch.testing.assert_close(got, plain, **TOL)
+            np.testing.assert_allclose(got.numpy(), want, **TOL)
+        else:
+            assert torch.equal(got, plain), name
+            assert np.array_equal(got.numpy(), want), name
+
+
+def test_work_list_kept_per_layout(layouts):
+    """The wrapper builds a layout's work list once and keeps it on the
+    layout; a copy with the same ``tile_ptr`` and ``cl`` shares it, a
+    layout with another ``tile_ptr`` gets its own."""
+    import dataclasses
+    _, _, pt = layouts[("star", "C8L16")]
+    first = ops._spmm_work_on_device(pt)
+    assert ops._spmm_work_on_device(pt) is first
+    assert pt.spmm_work[2] is first
+    assert ops._spmm_work_on_device(dataclasses.replace(pt)) is first
+    want = ops.spmm_work(pt.tile_ptr, pt.cl, pt.L, ops.piece_tiles(pt.L))
+    assert torch.equal(first[0], want[0]) and torch.equal(first[1], want[1])
+    assert first[2] == want[2]
+    other = dataclasses.replace(pt, tile_ptr=pt.tile_ptr.clone())
+    again = ops._spmm_work_on_device(other)
+    assert again is not first and other.spmm_work[2] is again
+    assert pt.spmm_work[2] is first
+    assert torch.equal(again[0], first[0]) and again[2] == first[2]
