@@ -18,7 +18,12 @@ exit and no result line):
    graph of 2^14 vertices and a vertex joined to all, whose chunk of 128
    tiles the SpMM cuts into 64 pieces and folds): the implicit SpMM in 4
    semirings and the stored-weight SpMM exactly, the GCN SpMM within
-   1e-5, at B=1/5/16/33/64/97/160 x the five masks of 7a;
+   1e-5, at B=1/5/16/33/64/97/160 x the five masks of 7a; and both SpMV
+   entries on the same graph at C=8, L=128 and C=3, L=1, whose hub chunk
+   they cut into pieces of their own: the implicit SpMV in 4 semirings and
+   the stored-weight SpMV (the layout's weights and padding weights
+   poisoned to -1000) exactly, x the five masks and one keeping a single
+   tile of the hub;
 4. (a) the kernel path against the plain path at scale 14: single- and
    multi-source BFS in push, pull and auto, and single-source hostloop
    auto: distances, parents, iterations, work and direction logs equal;
@@ -32,9 +37,10 @@ exit and no result line):
    SpMV and SpMM (4 semirings x 4 masks), pull and pull_mm at a real pull
    state (the BFS state just before an iteration that pulls, 4
    semirings); then each kernel timed beside its plain version, a
-   library call and its bound, and the SpMM's time over parts of the
-   layout (``profile_spmm.chunk_split``: the heaviest chunk alone, the
-   rest, no tile);
+   library call and its bound, and the SpMM's and SpMV's times over parts
+   of the layout (``profile_spmm.chunk_split``: the heaviest chunk alone,
+   the rest, no tile; for the SpMV also the chunks of at least and of
+   fewer than 10 tiles), ``adj @ x`` timed in the same call;
 7. SlimSell-B, the bit-packed boolean path: (a) at scale 14 both packed
    kernels against their plain versions, exactly (5 masks x the SpMV and
    the SpMM at B=1/5/33/64/97/160 x 2 frontier densities; 97 and 160 fill
@@ -67,7 +73,9 @@ exit and no result line):
    printed); (c) the kernel at the real state of the sweep with the most
    tiles, with that sweep's mask and with every tile kept, against its
    plain version, timed beside it, the implicit-value SpMV on the same
-   frontier, a library call and its bound;
+   frontier, a library call and its bound; then over parts of the layout
+   as in phase 6, and at every sweep of the phase-8b root (each state
+   rebuilt, each result against the plain version), with their sum;
 9. batched multi-source SSSP through the stored-weight (min-plus) SpMM
    kernel: (a) at scale 14 the kernel against its plain version, exactly
    (the five masks of 7a x B=1/5/33/64/97/160 x frontiers sparse and
@@ -445,7 +453,8 @@ def main() -> int:
     from repro_torch.kernels.ref import (embedding_bag_grouped_ref,
                                          embedding_bag_ref)
     from repro_torch.models import dlrm
-    from repro_torch.profile_spmm import chunk_split, time_ms
+    from repro_torch.profile_spmm import (chunk_split, sssp_sweeps,
+                                          sweep_times, time_ms)
 
     def weighted_kronecker(scale):
         return with_random_weights(kronecker(scale, EDGE_FACTOR, seed=1),
@@ -512,9 +521,9 @@ def main() -> int:
     hub_edges = np.concatenate([
         np.stack([er_src, er.indices], 1),
         np.stack([np.zeros(hub_n - 1, np.int64), np.arange(1, hub_n)], 1)])
-    hub = build_slimsell(with_random_weights(
-        build_csr(hub_edges, hub_n), low=WEIGHT_LOW, high=WEIGHT_HIGH, seed=7),
-        C=8, L=128).to_torch(dev)
+    hub_csr = with_random_weights(build_csr(hub_edges, hub_n), low=WEIGHT_LOW,
+                                  high=WEIGHT_HIGH, seed=7)
+    hub = build_slimsell(hub_csr, C=8, L=128).to_torch(dev)
     hub_pieces = int(ops.spmm_work(hub.tile_ptr, hub.cl, hub.L,
                                    ops.piece_tiles(hub.L))[1][0, 2])
     hub_masks = masks(hub, g3, dev)
@@ -552,6 +561,44 @@ def main() -> int:
         f"pieces; B=1/5/16/33/64/97/160 x 5 masks): the implicit SpMM in 4 "
         f"semirings and the stored-weight SpMM exactly, the GCN SpMM within "
         f"1e-5")
+    # the two SpMV entries on the same graph, whose hub chunk they cut into
+    # pieces of their own, at C=8, L=128 and at C=3, L=1 (padding rows in
+    # the last chunk), with a mask that keeps one tile of the hub besides
+    n_cases, spmv_pieces = 0, {}
+    for hname, (C, L) in (("C8 L128", (8, 128)), ("C3 L1", (3, 1))):
+        ht = hub if (C, L) == (8, 128) else build_slimsell(
+            hub_csr, C=C, L=L).to_torch(dev)
+        hm = masks(ht, g3, dev)
+        hm["whole_chunks"] = torch.from_numpy(
+            g3.random(ht.n_chunks) < 0.6).to(dev)[ht.row_block.long()]
+        hm["one_hub_tile"] = torch.zeros(ht.n_tiles, dtype=torch.bool,
+                                         device=dev)
+        hm["one_hub_tile"][int(ht.tile_ptr[0] + ht.tile_ptr[1]) // 2] = True
+        folds = ops.spmv_work(ht.tile_ptr, ht.cl, ht.L,
+                              ops.spmv_piece_tiles(ht.L))[2]
+        spmv_pieces[hname] = int(folds[0, 2]) if len(folds) else 1
+        poisoned = torch.where(ht.cols < 0, -1000.0, ht.wts)
+        for mask_name, mask in hm.items():
+            what = f"hub graph {hname} SpMV mask={mask_name}"
+            for name in SEMIRINGS:
+                sr = semiring.get(name)
+                xh = frontier(sr, (ht.n,), g3, dev)
+                check_equal("slimsell_spmv", ops.spmv(sr, ht, xh, tile_mask=mask),
+                            spmv_plain(sr, ht, xh, mask), errs, f"{what} {name}")
+            xh = sssp_frontier((ht.n,), 0.5, g3, dev)
+            want = spmv_plain(semiring.MINPLUS, ht, xh, mask, ht.wts)
+            for w in (ht.wts, poisoned):
+                check_equal("slimsell_spmv_wts",
+                            ops.spmv(semiring.MINPLUS, ht, xh, tile_mask=mask,
+                                     weights=w), want, errs, what)
+            n_cases += len(SEMIRINGS) + 2
+        del ht, hm, poisoned
+    torch.cuda.synchronize()
+    log(f"[3] SpMV entries == plain on {n_cases} cases of the hub graph (the "
+        f"hub's chunk in {spmv_pieces} pieces of the SpMV; 6 masks, one "
+        f"keeping a single tile of the hub): the implicit SpMV in 4 semirings "
+        f"and the stored-weight SpMV (the layout's weights and padding "
+        f"weights poisoned to -1000) exactly")
     del hub, hub_masks, hub_deg, Xh
 
     # ---- 4a: the kernel path against the plain path at scale 14
@@ -604,6 +651,13 @@ def main() -> int:
         f"{t1 - t0:.1f} s, build_slimsell {t2 - t1:.1f} s, to device "
         f"{time.perf_counter() - t2:.1f} s")
     root = int(sample_roots(csr, 1)[0])
+    # the SpMV's work list is built once for a layout, at its first sweep;
+    # built here, so that the first timed BFS below does not carry it
+    t0 = time.perf_counter()
+    spmv_items = ops._spmv_work_on_device(tiled)[0]
+    torch.cuda.synchronize()
+    log(f"[4] the SpMV's work list: {spmv_items.shape[0]} items, built once "
+        f"for the layout in {(time.perf_counter() - t0) * 1e3:.1f} ms")
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     auto_dirs = lane_boolean = None
@@ -781,6 +835,12 @@ def main() -> int:
     table[-1]["chunk_split"] = split
     log(f"[6] slimsell_spmm B={B} over parts of the layout: {split_line(split)}"
         f" on {card}")
+    split = chunk_split(lambda m: ops.spmv(tropical, tiled, x, tile_mask=m),
+                        tiled)
+    table[-2]["chunk_split"] = split
+    log(f"[6] slimsell_spmv over parts of the layout: {split_line(split)}; "
+        f"adj @ x (real) in this call {table[-2]['library_ms']:.4f} ms on "
+        f"{card}")
     for kern, fn, plain_fn in (("slimsell_pull", ops.pull, pull_plain),
                                ("slimsell_pull_mm", ops.pull_mm, pull_mm_plain)):
         xt, nf, mask, fbits, k = states[kern]
@@ -1173,6 +1233,28 @@ def main() -> int:
         f"({moved / 1e9:.4f} GB) | sweep mask ({n_kept} tiles) kernel "
         f"{masked_ms:.4f} ms bound {masked_bound_ms:.4f} ms "
         f"({masked_moved / 1e9:.4f} GB) on {card}")
+    # the kernel over parts of the layout, and at every sweep of the phase-8b
+    # root (each state rebuilt): the sum is what a root's sweeps cost
+    split = chunk_split(lambda m: ops.spmv(minplus, tiled, x, tile_mask=m,
+                                           weights=w), tiled)
+    sweeps = sssp_sweeps(tiled, root)
+    for j, xs, ws, ms_ in sweeps:
+        check_equal("slimsell_spmv_wts",
+                    ops.spmv(minplus, tiled, xs, tile_mask=ms_, weights=ws),
+                    spmv_plain(minplus, tiled, xs, ms_, ws), errs,
+                    f"scale {SCALE} sweep {j} of root {root}")
+    sweep_ms = sweep_times(tiled, sweeps, 10)
+    table[-1].update(chunk_split=split, sweep_ms=sweep_ms,
+                     sweep_sum_ms=sum(sweep_ms))
+    log(f"[8c] slimsell_spmv_wts over parts of the layout: "
+        f"{split_line(split)} on {card}")
+    log(f"[8c] slimsell_spmv_wts at each of the {len(sweeps)} sweeps of root "
+        f"{root} (== plain at each): sum {sum(sweep_ms):.4f} ms, against "
+        f"{single['fused'][1] * 1e3:.1f} ms for the whole fused sssp of phase "
+        f"8b; tiles:ms "
+        + ", ".join(f"{int(ms_.sum())}:{t:.4f}"
+                    for (*_, ms_), t in zip(sweeps, sweep_ms)) + f" on {card}")
+    del sweeps
     torch.cuda.synchronize()
 
     # ---- 9: batched multi-source SSSP, the stored-weight (min-plus) SpMM

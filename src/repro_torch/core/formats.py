@@ -168,9 +168,12 @@ class SlimSellTiled:
     inc_ptr: Optional[np.ndarray] = None   # int64[n+1]
     wts: Optional[np.ndarray] = None       # float32[n_tiles, C, L]
     device: Optional[torch.device] = None
-    # the SpMM kernels' work list on the device, with the tile_ptr and cl it
-    # was built from (kernels.ops, at the layout's first SpMM launch)
+    # the SpMM and SpMV kernels' work lists on the device, each with the
+    # tile_ptr and cl it was built from (kernels.ops, at the layout's first
+    # launch of those kernels)
     spmm_work: Optional[tuple] = dataclasses.field(default=None, repr=False,
+                                                   compare=False)
+    spmv_work: Optional[tuple] = dataclasses.field(default=None, repr=False,
                                                    compare=False)
 
     def to_torch(self, device=None) -> "SlimSellTiled":

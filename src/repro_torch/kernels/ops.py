@@ -29,7 +29,11 @@ launch with T = 1. Their plain versions are ``kernels.ref``'s
 The SpMM kernels do not give one block a whole chunk: ``spmm_work`` cuts
 each chunk's tiles into pieces of at most ``piece_tiles(L)`` tiles, one
 block each, and the kernel folds the pieces of a split chunk in order.
-The list is built at a layout's first SpMM launch and kept on the layout.
+The SpMV kernels take ``spmv_work``: pieces of at most
+``spmv_piece_tiles(L)`` tiles, each with the lanes a row its length needs
+(``spmv_lanes``), sorted by that width so that a warp takes several short
+rows. Each list is built at a layout's first launch of its kernels and
+kept on the layout (``tiled.spmm_work``, ``tiled.spmv_work``).
 
 The kernels take the SlimWork mask as the bool ``tile_mask`` itself and
 write straight into vertex space through ``row_vertex``, so neither the
@@ -91,9 +95,10 @@ class Kernel:
         self.launches += 1
 
 
-SPMV = Kernel("slimsell_spmv", [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
+SPMV = Kernel("slimsell_spmv",
+              [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P])
 SPMV_WTS = Kernel("slimsell_spmv_wts",
-                  [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+                  [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P],
                   source="slimsell_spmv")
 SPMM = Kernel("slimsell_spmm",
               [_I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I,
@@ -272,18 +277,91 @@ def spmm_work(tile_ptr: torch.Tensor, cl: torch.Tensor, L: int,
     return pieces, folds, int(split.sum())
 
 
-def _spmm_work_on_device(tiled):
-    """``spmm_work`` of a device layout, built at its first SpMM launch and
-    kept on the layout (``tiled.spmm_work``) beside the ``tile_ptr`` and
-    ``cl`` it was built from; built anew if either has been replaced."""
-    memo = tiled.spmm_work
+def _work_on_device(tiled, field: str, make):
+    """A kernel's work list of a device layout, built by ``make()`` at the
+    first launch and kept on the layout (``tiled.<field>``) beside the
+    ``tile_ptr`` and ``cl`` it was built from; built anew if either has
+    been replaced."""
+    memo = getattr(tiled, field)
     if memo is None or memo[0] is not tiled.tile_ptr or memo[1] is not tiled.cl:
+        memo = (tiled.tile_ptr, tiled.cl, make())
+        setattr(tiled, field, memo)
+    return memo[2]
+
+
+def _spmm_work_on_device(tiled):
+    """``spmm_work`` of a device layout, on the device."""
+    def make():
         pieces, folds, slots = spmm_work(tiled.tile_ptr, tiled.cl, tiled.L,
                                          piece_tiles(tiled.L))
         dev = tiled.tile_ptr.device
-        memo = (tiled.tile_ptr, tiled.cl, (pieces.to(dev), folds.to(dev), slots))
-        tiled.spmm_work = memo
-    return memo[2]
+        return pieces.to(dev), folds.to(dev), slots
+    return _work_on_device(tiled, "spmm_work", make)
+
+
+# The most slots of one row that a warp of the SpMV walks in one piece: a
+# lane takes SPMV_GROUP slots a step (two 16-byte loads of cols; kGroup in
+# csrc/slimsell_spmv.cu, which walks every slot whatever width a row was
+# given, so another value here costs only speed), a row at most 32 lanes,
+# so a piece of 1024 slots is at most 4 steps of a warp; at scale 20 the
+# heaviest chunk's 310 tiles become 39 pieces.
+SPMV_PIECE_SLOTS = 1024
+SPMV_GROUP = 8
+# lanes a row, one width class each (csrc/slimsell_spmv.cu)
+SPMV_LANES = (1, 2, 4, 8, 16, 32)
+
+
+def spmv_piece_tiles(L: int) -> int:
+    """Tiles of one SpMV piece at tile width L."""
+    return max(1, SPMV_PIECE_SLOTS // L)
+
+
+def spmv_lanes(n_slots: torch.Tensor) -> torch.Tensor:
+    """The lanes a row of ``n_slots`` slots gets: the least power of two
+    whose ``SPMV_GROUP`` slots a lane cover it, from 1 to 32."""
+    groups = -(-n_slots.long() // SPMV_GROUP)
+    lanes = torch.ones_like(groups)
+    for w in SPMV_LANES[1:]:
+        lanes = torch.where(groups > w // 2, w, lanes)
+    return lanes
+
+
+def spmv_work(tile_ptr: torch.Tensor, cl: torch.Tensor, L: int,
+              per_piece: int):
+    """The SpMV's work list, on the CPU: ``(items, class_items, folds,
+    slots)``.
+
+    The pieces are ``spmm_work``'s at ``per_piece`` tiles. ``items`` int32
+    [P, 4]: (chunk, first tile, row slots, partial slot) of each piece,
+    the row slots being the slots of its rows below the chunk's length
+    ``cl`` (0 for the empty piece of a chunk with none), sorted stably by
+    the lanes a row they get (``spmv_lanes``); ``class_items`` the number
+    of items of each width of ``SPMV_LANES``. ``folds`` and ``slots`` are
+    ``spmm_work``'s: the kernel folds a split chunk's partial rows in
+    piece order."""
+    pieces, folds, slots = spmm_work(tile_ptr, cl, L, per_piece)
+    tp = tile_ptr.detach().cpu().long()
+    chunk, first, end = (pieces[:, j].long() for j in range(3))
+    row_slots = torch.minimum(cl.detach().cpu().long()[chunk]
+                              - (first - tp[chunk]) * L, (end - first) * L)
+    lanes = spmv_lanes(row_slots)
+    order = torch.argsort(lanes, stable=True)
+    items = torch.stack([chunk, first, row_slots, pieces[:, 3].long()],
+                        1)[order].to(torch.int32)
+    class_items = [int((lanes == w).sum()) for w in SPMV_LANES]
+    return items, class_items, folds, slots
+
+
+def _spmv_work_on_device(tiled):
+    """``spmv_work`` of a device layout: the items and folds on the device,
+    the class counts as the C array the entry points read."""
+    def make():
+        items, class_items, folds, slots = spmv_work(
+            tiled.tile_ptr, tiled.cl, tiled.L, spmv_piece_tiles(tiled.L))
+        dev = tiled.tile_ptr.device
+        return (items.to(dev), (_I * len(class_items))(*class_items),
+                folds.to(dev), slots)
+    return _work_on_device(tiled, "spmv_work", make)
 
 
 def spmv(sr: Semiring, tiled, x: torch.Tensor, *,
@@ -299,17 +377,19 @@ def spmv(sr: Semiring, tiled, x: torch.Tensor, *,
         _check_weights(sr, tiled, x, weights)
     if x.device.type == "cpu":
         return spmv_plain(sr, tiled, x, tile_mask, weights)
-    cols, *rest = _cuda_operands(tiled, x, tile_mask)
+    cols, _, row_vertex, _, mask = _cuda_operands(tiled, x, tile_mask)
+    items, classes, folds, slots = _spmv_work_on_device(tiled)
     y = torch.empty_like(x)
+    partial = x.new_empty(slots * tiled.C) if folds.shape[0] else None
+    work = (row_vertex, mask, items.data_ptr(), classes, folds.data_ptr(),
+            folds.shape[0], 0 if partial is None else partial.data_ptr(),
+            x.data_ptr(), y.data_ptr(), tiled.C, tiled.L)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if weights is None:
-            SPMV.launch(sr.code, cols, *rest, x.data_ptr(), y.data_ptr(),
-                        tiled.n_chunks, tiled.C, tiled.L, stream)
+            SPMV.launch(sr.code, cols, *work, stream)
         else:
-            SPMV_WTS.launch(cols, weights.data_ptr(), *rest, x.data_ptr(),
-                            y.data_ptr(), tiled.n_chunks, tiled.C, tiled.L,
-                            stream)
+            SPMV_WTS.launch(cols, weights.data_ptr(), *work, stream)
     return y
 
 

@@ -1,18 +1,23 @@
-"""Where the SlimSell SpMM spends its time across chunks, on the card.
+"""Where the SlimSell SpMM and SpMV spend their time across chunks, on the card.
 
     PYTHONPATH=src python -m repro_torch.profile_spmm --scale 20
 
 Builds ``kronecker(scale, 16, seed=1)`` with the Graph500 SSSP weights
 (uniform on [2^-8, 1], seed 2) and its SlimSell layout (C=8, L=128,
-sigma=n), and times each SpMM entry through ``kernels.ops.spmm`` with
-every tile kept and then over parts of the layout, chosen by the SlimWork
-tile mask: the chunk with the most tiles alone, every other chunk, the
-chunks of at least ``--heavy`` tiles alone, the rest, and no tile at all
-(the launch and the write of Y). The entries: the implicit SpMM (2,
-tropical, B=64), the stored-weight min-plus SpMM (2w, B=64) and the GCN
-SpMM (2g, real, B=16). If one block's walk over the longest chunk holds
-the sweep, the heaviest chunk alone takes most of the time of all of it.
-The last line is all of it as JSON.
+sigma=n), and times each sweep entry through ``kernels.ops`` with every
+tile kept and then over parts of the layout, chosen by the SlimWork tile
+mask: the chunk with the most tiles alone, every other chunk, the chunks
+of at least ``--heavy`` tiles alone, the rest, and no tile at all (the
+launch and the write of the output). The SpMM entries: the implicit SpMM
+(2, tropical, B=64), the stored-weight min-plus SpMM (2w, B=64) and the
+GCN SpMM (2g, real, B=16). The SpMV entries: the implicit SpMV (1) under
+tropical and under real, and the stored-weight min-plus SpMV (1w); beside
+them ``adj @ x`` (sparse CSR times x, real) and 1w over the real sweep
+masks of one single-source SSSP (from Graph500's first search key, the
+default delta): each sweep's state rebuilt, its frontier, weight view and
+mask timed, and the sum over the sweeps. If one block's walk over the
+longest chunk holds a sweep, the heaviest chunk alone takes most of the
+time of all of it. The last line is all of it as JSON.
 
 It measures the device, so it needs a CUDA card and raises without one.
 """
@@ -26,8 +31,11 @@ import numpy as np
 import torch
 
 from .configs.sssp_graph500 import WEIGHT_HIGH, WEIGHT_LOW
-from .core import semiring
+from .core import direction as dm
+from .core import engine, semiring
 from .core.formats import build_slimsell
+from .core.sssp import default_delta, sssp, sssp_spec
+from .graph500 import sample_roots
 from .graphs.generators import kronecker, with_random_weights
 from .kernels import ops
 
@@ -103,6 +111,75 @@ def entries(tiled, device, rng) -> dict:
     }
 
 
+def spmv_entries(tiled, device, rng) -> dict:
+    """The three SpMV entries at the main paths' operands, as callables of
+    a tile mask: {name: (batch width, fn)}."""
+    n = tiled.n
+    x = rng.integers(0, 4, size=n).astype(np.float32)
+    x[rng.random(n) < 0.5] = np.inf
+    xr = rng.integers(0, 4, size=n).astype(np.float32)
+    xw = rng.uniform(0.0, 8.0, n).astype(np.float32)
+    xw[rng.random(n) >= 0.7] = np.inf
+    out = {}
+    for name, sr, xs, w in (
+            ("slimsell_spmv", semiring.TROPICAL, x, None),
+            ("slimsell_spmv real", semiring.REAL, xr, None),
+            ("slimsell_spmv_wts", semiring.MINPLUS, xw, tiled.wts)):
+        xt = torch.from_numpy(xs).to(device)
+
+        def fn(m, sr=sr, xt=xt, w=w):
+            return ops.spmv(sr, tiled, xt, tile_mask=m, weights=w)
+        out[name] = (1, fn)
+    return out
+
+
+def library_spmv(csr, x: torch.Tensor):
+    """``adj @ x`` (sparse CSR times x, real) as a callable."""
+    adj = torch.sparse_csr_tensor(
+        torch.from_numpy(csr.indptr),
+        torch.from_numpy(csr.indices.astype(np.int64)), torch.ones(csr.nnz),
+        size=(csr.n, csr.n)).to(x.device)
+    return lambda: adj @ x
+
+
+def length_histogram(tiled, edges=(0, 4, 8, 16, 32, 64, 128, 1024)) -> dict:
+    """Chunks and slots below ``cl`` by chunk length: {"<= e": [chunks,
+    slots]} for each edge e, then "> last"."""
+    cl = tiled.cl.long()
+    out, lo = {}, -1
+    for e in (*edges, None):
+        sel = (cl > lo) if e is None else (cl > lo) & (cl <= e)
+        key = f"> {lo}" if e is None else f"<= {e}"
+        out[key] = [int(sel.sum()), int((cl[sel] * tiled.C).sum())]
+        lo = e
+    return out
+
+
+def sssp_sweeps(tiled, root: int) -> list:
+    """The sweeps of ``sssp(tiled, root)`` (default delta, fused) as
+    ``(k, x, weights, tile_mask)``: each state rebuilt by running the
+    engine for k - 1 sweeps, the way the sweep saw it. Checks each mask's
+    tile count against the run's work log."""
+    delta = default_delta(tiled)
+    run = sssp(tiled, root, delta=delta, log_work=True, device=tiled.device)
+    spec = sssp_spec(tiled, delta)
+    out = []
+    for k in range(1, run.sweeps + 1):
+        st = engine.run_fused(spec, tiled, root, max_iters=k - 1).state
+        mask = dm.push_tile_mask(tiled, spec.source_bits(st, k))
+        if int(mask.sum()) != int(run.work_log[k - 1]):
+            raise AssertionError(f"sweep {k}: the rebuilt state is not the run's")
+        out.append((k, spec.frontier(st, k), spec.weights(st), mask))
+    return out
+
+
+def sweep_times(tiled, sweeps, reps: int) -> list:
+    """ms of the stored-weight SpMV at each sweep's own state and mask."""
+    return [time_ms(lambda: ops.spmv(semiring.MINPLUS, tiled, x, tile_mask=m,
+                                     weights=w), reps)
+            for _, x, w, m in sweeps]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20)
@@ -122,13 +199,33 @@ def main(argv=None) -> int:
     tiled = build_slimsell(csr, C=8, L=128, sigma=csr.n).to_torch(dev)
     result = {"card": card, "scale": args.scale, "n": tiled.n,
               "tiles": tiled.n_tiles, "chunks": tiled.n_chunks, "entries": {}}
-    for name, (width, fn) in entries(tiled, dev, np.random.default_rng(0)).items():
+    rng = np.random.default_rng(0)
+    todo = {**spmv_entries(tiled, dev, rng), **entries(tiled, dev, rng)}
+    for name, (width, fn) in todo.items():
         split = chunk_split(fn, tiled, heavy=args.heavy, reps=args.reps)
         result["entries"][name] = {"batch": width, **split}
         print(f"{name} B={width}: " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in split.items() if k != "layout")
             + f" on {card}", flush=True)
-    print(f"layout: {result['entries']['slimsell_spmm']['layout']}")
+    hist = length_histogram(tiled)
+    result["chunk lengths"] = hist
+    print(f"layout: {split['layout']}; chunks, slots by cl: {hist}")
+    xr = torch.from_numpy(rng.integers(0, 4, size=tiled.n).astype(
+        np.float32)).to(dev)
+    lib_ms = time_ms(library_spmv(csr, xr), args.reps)
+    root = int(sample_roots(csr, 1)[0])
+    sweeps = sssp_sweeps(tiled, root)
+    times = sweep_times(tiled, sweeps, args.reps)
+    result["adj @ x"] = lib_ms
+    result["sssp sweeps"] = {
+        "root": root, "tiles": [int(m.sum()) for *_, m in sweeps],
+        "ms": times, "sum_ms": sum(times)}
+    print(f"adj @ x (real): {lib_ms:.4f} ms on {card}")
+    print(f"slimsell_spmv_wts over the {len(sweeps)} sweeps of sssp from "
+          f"root {root}: sum {sum(times):.4f} ms, per sweep "
+          + ", ".join(f"{int(m.sum())}:{t:.4f}"
+                      for (*_, m), t in zip(sweeps, times))
+          + f" on {card}", flush=True)
     print(json.dumps(result))
     return 0
 

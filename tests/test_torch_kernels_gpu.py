@@ -25,6 +25,9 @@ pytestmark = pytest.mark.gpu
 SEMIRINGS = ["tropical", "real", "boolean", "selmax"]
 MASKS = ["none_given", "all_kept", "none_kept", "random"]
 NF_KINDS = ["random", "all", "none"]
+# layouts of the SpMV's (and SpMM's) cases: "<graph> C<rows> L<width>"
+SWEEP_LAYOUTS = ["kron C8 L128", "kron C3 L1", "hub C1 L128", "hub C3 L128",
+                 "hub C8 L1", "hub C8 L128", "hub C32 L128"]
 
 
 @pytest.fixture(scope="module")
@@ -41,6 +44,11 @@ def _mask(kind, tiled, rng, dev):
         return None
     if kind in ("all_kept", "none_kept"):
         return torch.full((T,), kind == "all_kept", dtype=torch.bool, device=dev)
+    if kind == "one_hub_tile":  # the middle tile of the first chunk alone
+        ptr = tiled.tile_ptr.tolist()
+        mask = torch.zeros(T, dtype=torch.bool, device=dev)
+        mask[(ptr[0] + ptr[1]) // 2] = True
+        return mask
     keep_chunk = torch.from_numpy(rng.random(tiled.n_chunks) < 0.6).to(dev)
     return torch.from_numpy(rng.random(T) < 0.5).to(dev) \
         & keep_chunk[tiled.row_block.long()]
@@ -58,13 +66,17 @@ def _operand(sr, shape, rng, dev):
     return torch.from_numpy(x).to(dev)
 
 
+@pytest.mark.parametrize("layout", SWEEP_LAYOUTS)
 @pytest.mark.parametrize("width", [None, 1, 5, 64])
-@pytest.mark.parametrize("mask_kind", MASKS)
+@pytest.mark.parametrize("mask_kind", MASKS + ["one_hub_tile"])
 @pytest.mark.parametrize("name", SEMIRINGS)
-def test_kernel_equals_plain(cuda, name, mask_kind, width):
-    dev, tiled = cuda
-    rng = np.random.default_rng([SEMIRINGS.index(name), MASKS.index(mask_kind),
-                                 width or 0])
+def test_kernel_equals_plain(sweep_layouts, name, mask_kind, width, layout):
+    """The SpMV (width None) and the SpMM against their plain versions,
+    exactly, on every layout of ``sweep_layouts``; a second call gives the
+    same bits."""
+    dev, tiled = sweep_layouts(layout)
+    rng = np.random.default_rng([SEMIRINGS.index(name), len(mask_kind),
+                                 width or 0, SWEEP_LAYOUTS.index(layout)])
     sr = psr.get(name)
     mask = _mask(mask_kind, tiled, rng, dev)
     x = _operand(sr, (tiled.n,) if width is None else (tiled.n, width), rng, dev)
@@ -72,11 +84,13 @@ def test_kernel_equals_plain(cuda, name, mask_kind, width):
     before = kernel.launches
     if width is None:
         got, want = ops.spmv(sr, tiled, x, tile_mask=mask), spmv_plain(sr, tiled, x, mask)
+        again = ops.spmv(sr, tiled, x, tile_mask=mask)
     else:
         got, want = ops.spmm(sr, tiled, x, tile_mask=mask), spmm_plain(sr, tiled, x, mask)
+        again = ops.spmm(sr, tiled, x, tile_mask=mask)
     torch.cuda.synchronize()
-    assert kernel.launches == before + 1
-    assert got.is_cuda and torch.equal(got, want)
+    assert kernel.launches == before + 2
+    assert got.is_cuda and torch.equal(got, want) and torch.equal(again, got)
 
 
 @pytest.mark.parametrize("nf_kind", NF_KINDS)
@@ -157,17 +171,24 @@ def cuda_weighted(cuda):
     return dev, build_slimsell(csr, C=8, L=128).to_torch(dev)
 
 
+@pytest.mark.parametrize("layout", SWEEP_LAYOUTS)
 @pytest.mark.parametrize("x_kind", ["all_inf", "sparse", "dense"])
-@pytest.mark.parametrize("mask_kind", MASKS)
-@pytest.mark.parametrize("view", ["full", "light", "heavy"])
-def test_weighted_kernel_equals_plain(cuda_weighted, view, mask_kind, x_kind):
-    """The stored-weight (min-plus) SpMV over the full ``wts`` and its
-    light / heavy views at the default delta, exactly."""
-    dev, tiled = cuda_weighted
-    rng = np.random.default_rng([len(view), MASKS.index(mask_kind),
-                                 len(x_kind), 3])
+@pytest.mark.parametrize("mask_kind", MASKS + ["one_hub_tile"])
+@pytest.mark.parametrize("view", ["full", "light", "heavy", "poisoned"])
+def test_weighted_kernel_equals_plain(sweep_layouts, view, mask_kind, x_kind,
+                                      layout):
+    """The stored-weight (min-plus) SpMV over the full ``wts``, its light /
+    heavy views at the default delta, and the full ``wts`` with every
+    padding slot's weight poisoned to -1000 (which must change nothing),
+    exactly, on every layout of ``sweep_layouts``; a second call gives the
+    same bits."""
+    dev, tiled = sweep_layouts(layout)
+    rng = np.random.default_rng([len(view), len(mask_kind), len(x_kind),
+                                 SWEEP_LAYOUTS.index(layout), 3])
     views = psssp.weight_views(tiled.wts, psssp.default_delta(tiled))
-    w = {"full": tiled.wts, "light": views[0], "heavy": views[1]}[view]
+    w = {"full": tiled.wts, "light": views[0], "heavy": views[1],
+         "poisoned": torch.where(tiled.cols < 0, -1000.0, tiled.wts)}[view]
+    w_plain = tiled.wts if view == "poisoned" else w
     mask = _mask(mask_kind, tiled, rng, dev)
     x = rng.uniform(0.0, 8.0, tiled.n).astype(np.float32)
     x[rng.random(tiled.n) >= {"all_inf": 0.0, "sparse": 0.02,
@@ -175,10 +196,11 @@ def test_weighted_kernel_equals_plain(cuda_weighted, view, mask_kind, x_kind):
     x = torch.from_numpy(x).to(dev)
     before = ops.SPMV_WTS.launches
     got = ops.spmv(psr.MINPLUS, tiled, x, tile_mask=mask, weights=w)
-    want = spmv_plain(psr.MINPLUS, tiled, x, mask, w)
+    again = ops.spmv(psr.MINPLUS, tiled, x, tile_mask=mask, weights=w)
+    want = spmv_plain(psr.MINPLUS, tiled, x, mask, w_plain)
     torch.cuda.synchronize()
-    assert ops.SPMV_WTS.launches == before + 1
-    assert got.is_cuda and torch.equal(got, want)
+    assert ops.SPMV_WTS.launches == before + 2
+    assert got.is_cuda and torch.equal(got, want) and torch.equal(again, got)
 
 
 @pytest.mark.parametrize("x_kind", ["all_inf", "sparse", "dense"])
@@ -418,24 +440,51 @@ def test_dlrm_forward_card_equals_cpu(cuda, multi_hot):
     torch.testing.assert_close(out[str(dev)], out["cpu"], rtol=1e-4, atol=1e-4)
 
 
-@pytest.fixture(scope="module")
-def cuda_hub(cuda):
+def _hub_csr():
     """An Erdos-Renyi graph of 2^14 vertices with a hub joined to all of
-    them: the hub's chunk has 128 tiles at L=128, cut into 64 pieces of
-    the SpMM (and folded); weighted for the min-plus mode."""
+    them, weighted for the min-plus mode."""
     from repro_torch.core.formats import build_csr
-    dev, _ = cuda
     n = 2 ** 14
     er = erdos_renyi(n, 8.0, seed=7)
     src = np.repeat(np.arange(n), np.diff(er.indptr))
     edges = np.concatenate([np.stack([src, er.indices], 1),
                             np.stack([np.zeros(n - 1, np.int64),
                                       np.arange(1, n)], 1)])
-    csr = with_random_weights(build_csr(edges, n), low=1.0 / 256.0, high=1.0,
-                              seed=7)
-    tiled = build_slimsell(csr, C=8, L=128).to_torch(dev)
+    return with_random_weights(build_csr(edges, n), low=1.0 / 256.0, high=1.0,
+                               seed=7)
+
+
+@pytest.fixture(scope="module")
+def cuda_hub(cuda):
+    """The hub graph at C=8, L=128: the hub's chunk has 128 tiles, cut
+    into 64 pieces of the SpMM (and folded)."""
+    dev, _ = cuda
+    tiled = build_slimsell(_hub_csr(), C=8, L=128).to_torch(dev)
     assert int(tiled.tile_ptr[1] - tiled.tile_ptr[0]) >= 100
     return dev, tiled
+
+
+@pytest.fixture(scope="module")
+def sweep_layouts(cuda_weighted):
+    """The SpMV's layouts by name, each built at its first use: the
+    weighted scale-12 Kronecker graph (isolated vertices: chunks of length
+    cl = 0) and the hub graph (its hub's chunk, 16,383 slots a row, cut into
+    16 pieces of the SpMV), at C = 1, 3, 8 and 32 and L = 1 and 128; n =
+    4096 and 16,384 at C = 3 leave padding rows (row_vertex -1) in the last
+    chunk."""
+    dev, kron = cuda_weighted
+    csrs = {"kron": lambda: with_random_weights(
+        kronecker(12, 16, seed=1), low=1.0 / 256.0, high=1.0, seed=2),
+        "hub": _hub_csr}
+    built = {"kron C8 L128": kron}
+
+    def get(name):
+        if name not in built:
+            graph, c, width = name.split()
+            built[name] = build_slimsell(csrs[graph](), C=int(c[1:]),
+                                         L=int(width[1:])).to_torch(dev)
+        return dev, built[name]
+    return get
 
 
 HUB_MODES = SEMIRINGS + ["minplus", "gcn"]

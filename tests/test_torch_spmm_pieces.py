@@ -1,21 +1,28 @@
-"""The SpMM's work list (SlimChunk pieces) and its split-then-fold order.
+"""The SpMM's and SpMV's work lists (SlimChunk pieces) and their
+split-then-fold order.
 
 The SpMM kernel (``kernels/csrc/slimsell_spmm.cu``) cuts each chunk's
 tiles below its length ``cl`` into pieces of at most P tiles
 (``kernels.ops.spmm_work``), one block each, and folds the partial rows of
-a chunk of several pieces in piece order. On the CPU:
+a chunk of several pieces in piece order. The SpMV kernel
+(``kernels/csrc/slimsell_spmv.cu``) takes the same pieces at its own P
+(``kernels.ops.spmv_work``), each item carrying its rows' slots below
+``cl``, sorted by the lanes a row gets. On the CPU, for both ops (the
+``op`` axis):
 
 * the work list covers every tile below ``cl`` of every chunk exactly
   once, in order, in pieces of at most P tiles, one empty piece for a chunk
   with none, and numbers the partial slots of the split chunks as the
-  folds say;
-* a plain emulation of split-then-fold (``spmm_plain`` over the tiles of
-  each round of pieces, the rounds added in piece order) equals
-  ``spmm_plain`` and ``repro``'s jnp ``slimsell_spmm``: exactly for
-  tropical, boolean, sel-max, real (integer-valued operands) and min-plus,
-  within rtol = atol = 1e-5 for the GCN weight (float32 sums in another
-  order). The graphs are a star (one hub chunk of many tiles), a small
-  Kronecker graph and a ring of cliques, at C=8 with L=128, 16 and 1 and at
+  folds say; the SpMV's items are sorted by width class, each with the
+  least lanes that cover its rows;
+* a plain emulation of split-then-fold (``spmm_plain`` / ``spmv_plain``
+  over the tiles of each round of pieces, the rounds added in piece order)
+  equals ``spmm_plain`` / ``spmv_plain`` and ``repro``'s jnp
+  ``slimsell_spmm`` / ``slimsell_spmv``: exactly for tropical, boolean,
+  sel-max, real (integer-valued operands) and min-plus, within rtol = atol
+  = 1e-5 for the GCN weight (float32 sums in another order; SpMM only).
+  The graphs are a star (one hub chunk of many tiles), a small Kronecker
+  graph and a ring of cliques, at C=8 with L=128, 16 and 1, at C=3 and at
   sigma=1, with masks that drop part of a split chunk.
 """
 import jax.numpy as jnp
@@ -30,7 +37,7 @@ from repro.graphs import generators as jg
 from repro.kernels import ref as jref
 from repro_torch import convert
 from repro_torch.core import semiring as psr
-from repro_torch.core.spmv import spmm_plain
+from repro_torch.core.spmv import spmm_plain, spmv_plain
 from repro_torch.kernels import ops
 
 GRAPHS = {
@@ -41,10 +48,12 @@ GRAPHS = {
 }
 # name -> (C, L, sigma): sigma None is n, the main path's sort
 LAYOUTS = {"C8L128": (8, 128, None), "C8L16": (8, 16, None),
-           "C8L1": (8, 1, None), "sigma1": (8, 16, 1)}
-# "kernel" is the kernel's own piece size, ops.piece_tiles(L); "eighth"
-# cuts the longest chunk into about eight pieces
+           "C8L1": (8, 1, None), "C3L16": (3, 16, None), "sigma1": (8, 16, 1)}
+# "kernel" is the kernel's own piece size, ops.piece_tiles(L) for the SpMM
+# and ops.spmv_piece_tiles(L) for the SpMV; "eighth" cuts the longest chunk
+# into about eight pieces
 PER_PIECE = ["kernel", "eighth"]
+OPS = ["spmm", "spmv"]
 SEMIRINGS = ["tropical", "real", "boolean", "selmax", "minplus", "gcn"]
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -59,20 +68,37 @@ def layouts():
             csr = jg.with_random_weights(csr, low=1.0 / 256.0, high=1.0, seed=3)
         for name, (C, L, sigma) in LAYOUTS.items():
             host = jf.build_slimsell(csr, C=C, L=L, sigma=sigma)
-            pt = convert.tiled_from_arrays(
-                {k: getattr(host, k) for k in convert.LAYOUT_ARRAYS},
-                {k: getattr(host, k) for k in convert.LAYOUT_META},
-                device="cpu")
-            out[(g, name)] = (csr, host.to_jax(), pt)
+            out[(g, name)] = (csr, host.to_jax(), _port_layout(host))
     return out
 
 
-def _per_piece(per_piece, pt):
+def _port_layout(host):
+    """``repro``'s host layout carried into the port, on the CPU."""
+    return convert.tiled_from_arrays(
+        {k: getattr(host, k) for k in convert.LAYOUT_ARRAYS},
+        {k: getattr(host, k) for k in convert.LAYOUT_META}, device="cpu")
+
+
+def _per_piece(per_piece, pt, op="spmm"):
     if per_piece == "kernel":
-        return ops.piece_tiles(pt.L)
+        return ops.piece_tiles(pt.L) if op == "spmm" \
+            else ops.spmv_piece_tiles(pt.L)
     if per_piece == "eighth":
         return max(1, -(-int((-(-pt.cl.long() // pt.L)).max()) // 8))
     return per_piece
+
+
+def _work(op, pt, P):
+    """``(pieces, folds, slots)`` of the op's work list, the pieces as
+    (chunk, first tile, end tile, partial slot) in chunk order: the SpMV's
+    items turned back into pieces, end = first + ceil(row slots / L)."""
+    if op == "spmm":
+        return ops.spmm_work(pt.tile_ptr, pt.cl, pt.L, P)
+    items, _, folds, slots = ops.spmv_work(pt.tile_ptr, pt.cl, pt.L, P)
+    chunk, first, length, slot = items.long().unbind(1)
+    pieces = torch.stack([chunk, first, first - (-length // pt.L), slot], 1)
+    order = torch.argsort(chunk * (pt.n_tiles + 1) + first)
+    return pieces[order].to(torch.int32), folds, slots
 
 
 def _ranks(pieces):
@@ -82,13 +108,15 @@ def _ranks(pieces):
     return torch.arange(chunk.numel()) - first
 
 
+@pytest.mark.parametrize("op", OPS)
 @pytest.mark.parametrize("per_piece", PER_PIECE + [1, 3])
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))
 @pytest.mark.parametrize("graph", sorted(GRAPHS))
-def test_work_list_covers_tiles_below_cl(layouts, graph, layout, per_piece):
+def test_work_list_covers_tiles_below_cl(layouts, graph, layout, per_piece,
+                                         op):
     _, _, pt = layouts[(graph, layout)]
-    P = _per_piece(per_piece, pt)
-    pieces, folds, slots = ops.spmm_work(pt.tile_ptr, pt.cl, pt.L, P)
+    P = _per_piece(per_piece, pt, op)
+    pieces, folds, slots = _work(op, pt, P)
     assert pieces.dtype == folds.dtype == torch.int32
     assert pieces.shape[1] == folds.shape[1] == 4
     tp, cl = pt.tile_ptr.long().tolist(), pt.cl.long().tolist()
@@ -115,15 +143,62 @@ def test_work_list_covers_tiles_below_cl(layouts, graph, layout, per_piece):
     assert folds.tolist() == split_slots and slots == next_slot
 
 
-def test_work_list_splits_the_hub(layouts):
-    """The star's hub chunk (1023 slots) at L=1 is 1023 tiles: four pieces
-    at the kernel's P = 256; at L=128 its 8 tiles are four pieces of 2."""
-    for layout, n_pieces in (("C8L1", 4), ("C8L128", 4), ("C8L16", 4)):
-        _, _, pt = layouts[("star", layout)]
-        pieces, folds, slots = ops.spmm_work(pt.tile_ptr, pt.cl, pt.L,
-                                             ops.piece_tiles(pt.L))
-        assert folds.tolist() == [[0, 0, n_pieces, 0]] and slots == n_pieces
+@pytest.mark.parametrize("op", OPS)
+def test_work_list_splits_the_hub(layouts, op):
+    """The star's hub chunk at the kernel's own piece size: for the SpMM
+    the 2^10-vertex star's hub (1023 slots) is 1023 tiles at L=1, four
+    pieces at P = 256, and at L=128 its 8 tiles are four pieces of 2; for
+    the SpMV (1024 slots a piece) the 2^12-vertex star's hub (4095 slots)
+    is four pieces at L=1, 16 and 128, each of the 32 lanes a row."""
+    if op == "spmm":
+        lay = {name: layouts[("star", name)][2]
+               for name in ("C8L1", "C8L128", "C8L16")}
+    else:
+        star = jg.star(2 ** 12)
+        lay = {f"C8L{L}": _port_layout(jf.build_slimsell(star, C=8, L=L))
+               for L in (1, 128, 16)}
+    for layout, pt in lay.items():
+        pieces, folds, slots = _work(op, pt, _per_piece("kernel", pt, op))
+        assert folds.tolist() == [[0, 0, 4, 0]] and slots == 4, layout
         assert (pieces[:, 1] <= pieces[:, 2]).all()
+        if op == "spmv":
+            items, class_items, _, _ = ops.spmv_work(
+                pt.tile_ptr, pt.cl, pt.L, ops.spmv_piece_tiles(pt.L))
+            hub = items[items[:, 0] == 0]
+            assert hub[:, 2].tolist() == [1024, 1024, 1024, 1023]
+            assert class_items[-1] == 4
+
+
+@pytest.mark.parametrize("per_piece", PER_PIECE + [1, 3])
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("graph", sorted(GRAPHS))
+def test_spmv_items_sorted_by_lanes(layouts, graph, layout, per_piece):
+    """Each SpMV item carries the slots of its rows below ``cl`` and gets
+    the least of 1, 2, ..., 32 lanes a row whose ``SPMV_GROUP`` (8) slots
+    a lane cover them (32 past 256 slots); the items are sorted by that
+    width, chunk order kept within a width, and ``class_items`` counts
+    each width."""
+    _, _, pt = layouts[(graph, layout)]
+    P = _per_piece(per_piece, pt, "spmv")
+    items, class_items, _, _ = ops.spmv_work(pt.tile_ptr, pt.cl, pt.L, P)
+    assert items.dtype == torch.int32 and items.shape[1] == 4
+    tp, cl = pt.tile_ptr.long(), pt.cl.long()
+    chunk, first, length, _ = items.long().unbind(1)
+    below = cl[chunk] - (first - tp[chunk]) * pt.L
+    assert torch.equal(length, torch.minimum(below, P * pt.L * torch.ones_like(
+        below)).clamp_min(0))
+    lanes = ops.spmv_lanes(length)
+    assert torch.equal(lanes, torch.sort(lanes, stable=True).values)
+    assert class_items == [int((lanes == w).sum()) for w in ops.SPMV_LANES]
+    assert sum(class_items) == items.shape[0]
+    for w in ops.SPMV_LANES:
+        rows = length[lanes == w]
+        if w < 32:
+            assert (rows <= ops.SPMV_GROUP * w).all()
+        if w > 1:
+            assert (rows > ops.SPMV_GROUP * w // 2).all()
+        key = chunk[lanes == w] * (pt.n_tiles + 1) + first[lanes == w]
+        assert (key[1:] > key[:-1]).all()  # chunk order within a width
 
 
 def _operand(name, shape, rng):
@@ -153,11 +228,13 @@ def _split_mask(pt, pieces, rng):
     return mask
 
 
-def split_then_fold(sr, pt, X, mask, per_piece, weights=None, deg=None):
-    """``spmm_plain`` over the tiles of each round of pieces (the j-th
-    piece of every chunk), the rounds added in piece order: what the
-    kernel's pieces and fold compute."""
-    pieces, _, _ = ops.spmm_work(pt.tile_ptr, pt.cl, pt.L, per_piece)
+def split_then_fold(sr, pt, X, mask, per_piece, weights=None, deg=None,
+                    op="spmm"):
+    """``spmm_plain`` (``spmv_plain`` for an X of one dimension) over the
+    tiles of each round of pieces (the j-th piece of every chunk), the
+    rounds added in piece order: what the kernel's pieces and fold
+    compute."""
+    pieces, _, _ = _work(op, pt, per_piece)
     ranks = _ranks(pieces)
     Y = None
     for j in range(int(ranks.max()) + 1):
@@ -166,46 +243,57 @@ def split_then_fold(sr, pt, X, mask, per_piece, weights=None, deg=None):
             keep[t0:t1] = True
         if mask is not None:
             keep &= mask
-        Yj = spmm_plain(sr, pt, X, keep, weights, deg)
+        if X.ndim == 1:
+            Yj = spmv_plain(sr, pt, X, keep, weights)
+        else:
+            Yj = spmm_plain(sr, pt, X, keep, weights, deg)
         Y = Yj if Y is None else sr.reduce(torch.stack([Y, Yj]), 0)
     return Y
 
 
 def _jnp(name, csr, jt, X, mask):
+    """``repro``'s jnp SpMM, or its SpMV for an X of one dimension."""
     jm = None if mask is None else jnp.asarray(mask.numpy())
+    sweep = jspmv.slimsell_spmv if X.ndim == 1 else jspmv.slimsell_spmm
     if name == "gcn":
-        return np.asarray(jspmv.slimsell_spmm(
+        return np.asarray(sweep(
             jsr.REAL, jt, jnp.asarray(X), tile_mask=jm, backend="jnp",
             edge_weight=jref.gcn_edge_weight(jnp.asarray(
                 csr.deg.astype(np.float32)))))
     if name == "minplus":
-        return np.asarray(jspmv.slimsell_spmm(
+        return np.asarray(sweep(
             jsr.MINPLUS, jt, jnp.asarray(X), weights=jt.wts, tile_mask=jm,
             backend="jnp"))
-    return np.asarray(jspmv.slimsell_spmm(jsr.get(name), jt, jnp.asarray(X),
-                                          tile_mask=jm, backend="jnp"))
+    return np.asarray(sweep(jsr.get(name), jt, jnp.asarray(X), tile_mask=jm,
+                            backend="jnp"))
 
 
+@pytest.mark.parametrize("op", OPS)
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("per_piece", PER_PIECE)
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))
 @pytest.mark.parametrize("graph", sorted(GRAPHS))
 def test_split_then_fold_equals_plain_and_jnp(layouts, graph, layout,
-                                              per_piece, masked):
+                                              per_piece, masked, op):
+    """Exact for every semiring but the GCN weight (SpMM only), which is
+    held within rtol = atol = 1e-5. The SpMV's frontier is one column."""
     csr, jt, pt = layouts[(graph, layout)]
-    P = _per_piece(per_piece, pt)
-    pieces, _, _ = ops.spmm_work(pt.tile_ptr, pt.cl, pt.L, P)
-    rng = np.random.default_rng([len(graph), len(layout), P, masked])
+    P = _per_piece(per_piece, pt, op)
+    pieces, _, _ = _work(op, pt, P)
+    rng = np.random.default_rng([len(graph), len(layout), P, masked, len(op)])
     mask = torch.from_numpy(_split_mask(pt, pieces, rng)) if masked else None
-    for name in SEMIRINGS:
-        X = _operand(name, (pt.n, 5), rng)
+    for name in SEMIRINGS if op == "spmm" else SEMIRINGS[:-1]:
+        X = _operand(name, (pt.n, 5) if op == "spmm" else (pt.n,), rng)
         Xt = torch.from_numpy(X)
         sr = {"minplus": psr.MINPLUS, "gcn": psr.REAL}.get(name) \
             or psr.get(name)
         kw = {"minplus": dict(weights=pt.wts),
               "gcn": dict(deg=pt.deg.float())}.get(name, {})
-        got = split_then_fold(sr, pt, Xt, mask, P, **kw)
-        plain = spmm_plain(sr, pt, Xt, mask, **kw)
+        got = split_then_fold(sr, pt, Xt, mask, P, op=op, **kw)
+        if op == "spmm":
+            plain = spmm_plain(sr, pt, Xt, mask, **kw)
+        else:
+            plain = spmv_plain(sr, pt, Xt, mask, **kw)
         want = _jnp(name, csr, jt, X, mask)
         if name == "gcn":
             assert not torch.isnan(got).any()
@@ -216,21 +304,40 @@ def test_split_then_fold_equals_plain_and_jnp(layouts, graph, layout,
             assert np.array_equal(got.numpy(), want), name
 
 
-def test_work_list_kept_per_layout(layouts):
+@pytest.mark.parametrize("op", OPS)
+def test_work_list_kept_per_layout(layouts, op):
     """The wrapper builds a layout's work list once and keeps it on the
     layout; a copy with the same ``tile_ptr`` and ``cl`` shares it, a
-    layout with another ``tile_ptr`` gets its own."""
+    layout with another ``tile_ptr`` gets its own. The SpMM's and the
+    SpMV's lists are kept apart: building one leaves the other as it was."""
     import dataclasses
     _, _, pt = layouts[("star", "C8L16")]
-    first = ops._spmm_work_on_device(pt)
-    assert ops._spmm_work_on_device(pt) is first
-    assert pt.spmm_work[2] is first
-    assert ops._spmm_work_on_device(dataclasses.replace(pt)) is first
-    want = ops.spmm_work(pt.tile_ptr, pt.cl, pt.L, ops.piece_tiles(pt.L))
-    assert torch.equal(first[0], want[0]) and torch.equal(first[1], want[1])
-    assert first[2] == want[2]
+    field, on_device, other_on_device = {
+        "spmm": ("spmm_work", ops._spmm_work_on_device,
+                 ops._spmv_work_on_device),
+        "spmv": ("spmv_work", ops._spmv_work_on_device,
+                 ops._spmm_work_on_device)}[op]
+    other_first = other_on_device(pt)
+    first = on_device(pt)
+    assert on_device(pt) is first
+    assert getattr(pt, field)[2] is first
+    assert on_device(dataclasses.replace(pt)) is first
+    assert other_on_device(pt) is other_first
+    if op == "spmm":
+        want = ops.spmm_work(pt.tile_ptr, pt.cl, pt.L, ops.piece_tiles(pt.L))
+        assert torch.equal(first[0], want[0]) and torch.equal(first[1], want[1])
+        assert first[2] == want[2]
+    else:
+        want = ops.spmv_work(pt.tile_ptr, pt.cl, pt.L,
+                             ops.spmv_piece_tiles(pt.L))
+        assert torch.equal(first[0], want[0]) and list(first[1]) == want[1]
+        assert torch.equal(first[2], want[2]) and first[3] == want[3]
     other = dataclasses.replace(pt, tile_ptr=pt.tile_ptr.clone())
-    again = ops._spmm_work_on_device(other)
-    assert again is not first and other.spmm_work[2] is again
-    assert pt.spmm_work[2] is first
-    assert torch.equal(again[0], first[0]) and again[2] == first[2]
+    again = on_device(other)
+    assert again is not first and getattr(other, field)[2] is again
+    assert getattr(pt, field)[2] is first
+    fold = {"spmm": 1, "spmv": 2}[op]
+    assert torch.equal(again[0], first[0])
+    assert torch.equal(again[fold], first[fold]) and again[-1] == first[-1]
+    if op == "spmv":
+        assert list(again[1]) == list(first[1])
