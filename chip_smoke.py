@@ -23,7 +23,14 @@ exit and no result line):
    they cut into pieces of their own: the implicit SpMV in 4 semirings and
    the stored-weight SpMV (the layout's weights and padding weights
    poisoned to -1000) exactly, x the five masks and one keeping a single
-   tile of the hub;
+   tile of the hub; then the batched pull (4) on the same graph at C=8,
+   L=128, whose hub chunk the SpMV's list cuts into 16 pieces, exactly: 4
+   semirings x B=1/5/33/64/97/160 x the five masks x not-final bits random
+   and all, and the hub's first hit only in the first, a middle or the
+   last piece of its chunk, or in a middle and the last with other values
+   (the pieces are folded by their first hit, not the semiring add); and
+   the packed SpMM (6) over the SpMV's items at C=8, L=128 and C=3, L=1,
+   B=1/5/33/64/97/160 x the five masks x 2 frontier densities, exactly;
 4. (a) the kernel path against the plain path at scale 14: single- and
    multi-source BFS in push, pull and auto, and single-source hostloop
    auto: distances, parents, iterations, work and direction logs equal;
@@ -40,7 +47,11 @@ exit and no result line):
    library call and its bound, and the SpMM's and SpMV's times over parts
    of the layout (``profile_spmm.chunk_split``: the heaviest chunk alone,
    the rest, no tile; for the SpMV also the chunks of at least and of
-   fewer than 10 tiles), ``adj @ x`` timed in the same call;
+   fewer than 10 tiles), ``adj @ x`` timed in the same call; the batched
+   pull beside the push SpMM of its iteration, over the same parts each
+   within its state's mask and with no pending (row, column) (its floor,
+   ``profile_spmm.pull_mm_split``), with the slots its first hits need and
+   at most those its pieces read past the hits;
 7. SlimSell-B, the bit-packed boolean path: (a) at scale 14 both packed
    kernels against their plain versions, exactly (5 masks x the SpMV and
    the SpMM at B=1/5/33/64/97/160 x 2 frontier densities; 97 and 160 fill
@@ -56,8 +67,9 @@ exit and no result line):
    turns with lane-boolean push; (c) each packed kernel at the
    real state of the iteration with the most tiles, with that iteration's
    mask and with every tile kept, against its plain version and timed
-   beside it, the lane kernel, a library call and its bound; (d) the
-   paper's storage accounting at scale 20;
+   beside it, the lane kernel, a library call and its bound, and the
+   packed SpMM over the parts of the layout as in phase 6, beside the SpMV
+   (1) of phase 6; (d) the paper's storage accounting at scale 20;
 8. weighted SSSP (delta-stepping) through the stored-weight (min-plus)
    kernel: (a) at scale 14 the kernel against its plain version, exactly
    (the full ``wts`` and its light and heavy views at the default delta x
@@ -265,15 +277,6 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.where(same, 0.0, diff).max()) if a.numel() else 0.0
 
 
-def tile_slots(tiled) -> torch.Tensor:
-    """int64[T]: the slots of one row of each tile before its chunk's
-    length cl, the ones a sweep reads in each row when it keeps the tile."""
-    ptr = tiled.tile_ptr.long()
-    rb = tiled.row_block.long()
-    rank = torch.arange(tiled.n_tiles, device=ptr.device) - ptr[rb]
-    return (tiled.cl.long()[rb] - rank * tiled.L).clamp(0, tiled.L)
-
-
 def sssp_frontier(shape, finite, rng, device) -> torch.Tensor:
     """Float32 distances on a ``finite`` share of the vertices (of each
     column for an [n, B] shape), +inf on the rest."""
@@ -380,41 +383,6 @@ def split_line(split: dict) -> str:
                      if k != "layout") + f" | {split['layout']}"
 
 
-def pull_work(tiled, ranks, nf, mask):
-    """What the first-hit pull needs at this state, worked out from the
-    plain version's hit ranks (int32[n, B], -1 for no hit): a pending
-    (v, b) reads the kept slots of v's chunk through its hit tile, or all
-    of them without a hit, and a row's cols are read once for all its
-    columns. Returns a dict: cols slots read, operations, the slots all
-    kept tiles of the pending rows hold, and for the chunk with the most
-    tiles, the tiles it has and the tiles its block must load."""
-    C = tiled.C
-    ptr = tiled.tile_ptr.long()
-    slots_t = tile_slots(tiled)
-    if mask is not None:
-        slots_t = slots_t * mask
-    cum = torch.cat([slots_t.new_zeros(1), slots_t.cumsum(0)])
-    rv = tiled.row_vertex.long().reshape(-1)
-    chunk_of = torch.empty(tiled.n, dtype=torch.long, device=rv.device)
-    rows = torch.arange(rv.numel(), device=rv.device)
-    chunk_of[rv[rv >= 0]] = (rows // C)[rv >= 0]
-    start = ptr[chunk_of][:, None]                                  # [n, 1]
-    kept = (cum[ptr[1:]] - cum[ptr[:-1]])[chunk_of][:, None]
-    through = cum[start + ranks.long().clamp_min(0) + 1] - cum[start]
-    slots = torch.where(ranks >= 0, through, kept) * nf              # [n, B]
-    # a block loads tiles until none of its rows is pending
-    n_tiles = ptr[1:] - ptr[:-1]
-    need = (torch.where(ranks >= 0, ranks.long() + 1,
-                        n_tiles[chunk_of][:, None]) * nf).amax(dim=1)
-    loaded = torch.zeros_like(n_tiles).scatter_reduce_(0, chunk_of, need, "amax")
-    longest = int(n_tiles.argmax())
-    return {"slots_read": int(slots.amax(dim=1).sum()),
-            "operations": 2 * int(slots.sum()),
-            "slots_kept": int((kept * nf.any(dim=1, keepdim=True)).sum()),
-            "longest_chunk_tiles": int(n_tiles[longest]),
-            "longest_chunk_tiles_loaded": int(loaded[longest])}
-
-
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -453,8 +421,9 @@ def main() -> int:
     from repro_torch.kernels.ref import (embedding_bag_grouped_ref,
                                          embedding_bag_ref)
     from repro_torch.models import dlrm
-    from repro_torch.profile_spmm import (chunk_split, sssp_sweeps,
-                                          sweep_times, time_ms)
+    from repro_torch.profile_spmm import (chunk_split, pull_mm_split,
+                                          pull_work, sssp_sweeps, sweep_times,
+                                          tile_slots, time_ms)
 
     def weighted_kronecker(scale):
         return with_random_weights(kronecker(scale, EDGE_FACTOR, seed=1),
@@ -599,6 +568,80 @@ def main() -> int:
         f"keeping a single tile of the hub): the implicit SpMV in 4 semirings "
         f"and the stored-weight SpMV (the layout's weights and padding "
         f"weights poisoned to -1000) exactly")
+    # the batched pull and the packed SpMM on the same graph, over the
+    # SpMV's pieces: the pull's first hit across pieces (its plain version
+    # once at B=160, each narrower batch its first columns: the pull is
+    # column by column), with the hub's first hit only in its first, a
+    # middle or its last piece, or in a middle one and the last with other
+    # values; the packed SpMM at C=8, L=128 and C=3, L=1
+    n_cases = 0
+    hub_items = ops.spmv_work(hub.tile_ptr, hub.cl, hub.L,
+                              ops.spmv_piece_tiles(hub.L))[0].tolist()
+    hub_rv = hub.row_vertex.cpu().numpy()
+    hub_chunk, hub_row = map(int, np.argwhere(hub_rv == 0)[0])
+    hub_pieces_pull = sorted(tuple(it) for it in hub_items if it[0] == hub_chunk)
+    hub_cols = hub.cols.cpu().numpy()
+
+    def hub_leaves(piece):
+        _, t0, n_slots, _ = hub_pieces_pull[piece]
+        c = hub_cols[t0:t0 - (-n_slots // hub.L), hub_row].reshape(-1)
+        return torch.from_numpy(c[c >= 0])
+    last = len(hub_pieces_pull) - 1
+    hit_pieces = {"first": [0], "middle": [last // 2], "last": [last],
+                  "middle_and_last": [last // 2, last]}
+    for name in SEMIRINGS:
+        sr = semiring.get(name)
+        cases = [(f"mask={m} nf={kind}", mask,
+                  frontier(sr, (hub.n, 160), g3, dev),
+                  not_final(kind, (hub.n, 160), g3, dev))
+                 for m, mask in hub_masks.items() for kind in ("random", "all")]
+        for where, pieces in hit_pieces.items():
+            Xh = torch.full((hub.n, 160), sr.zero, dtype=sr.dtype)
+            for k, piece in enumerate(pieces):
+                u = hub_leaves(piece)
+                Xh[u] = torch.from_numpy(g3.integers(
+                    1, 4, size=(u.numel(), 160)) * 10 ** k).to(sr.dtype)
+            cases.append((f"hub's hit in the {where} piece(s)", None,
+                          Xh.to(dev), not_final("all", (hub.n, 160), g3, dev)))
+        for what, mask, Xh, nf in cases:
+            want = pull_mm_plain(sr, hub, Xh, nf, mask)
+            for width in (1, 5, 33, 64, 97, 160):
+                check_equal("slimsell_pull_mm",
+                            ops.pull_mm(sr, hub, Xh[:, :width].contiguous(),
+                                        nf[:, :width].contiguous(),
+                                        tile_mask=mask),
+                            want[:, :width], errs,
+                            f"hub graph {name} B={width} {what}")
+                n_cases += 1
+    torch.cuda.synchronize()
+    log(f"[3] slimsell_pull_mm == plain on {n_cases} cases of the hub graph "
+        f"(the hub's chunk in {len(hub_pieces_pull)} pieces of the SpMV's "
+        f"list; 4 semirings x B=1/5/33/64/97/160 x the 5 masks x nf random "
+        f"and all, and the hub's first hit only in the first, a middle or "
+        f"the last piece, or in a middle and the last with other values)")
+    n_cases = 0
+    for hname, (C, L) in (("C8 L128", (8, 128)), ("C3 L1", (3, 1))):
+        ht = hub if (C, L) == (8, 128) else build_slimsell(
+            hub_csr, C=C, L=L).to_torch(dev)
+        hm = masks(ht, g3, dev)
+        hm["whole_chunks"] = torch.from_numpy(
+            g3.random(ht.n_chunks) < 0.6).to(dev)[ht.row_block.long()]
+        for mask_name, mask in hm.items():
+            for width in (1, 5, 33, 64, 97, 160):
+                for density in (0.02, 0.5):
+                    xw = packing.pack_bits(torch.from_numpy(
+                        g3.random((ht.n, width)) < density).to(dev), axis=1)
+                    check_equal("slimsell_spmm_packed",
+                                ops.spmm_packed(ht, xw, tile_mask=mask),
+                                spmm_packed_plain(ht, xw, mask), errs,
+                                f"hub graph {hname} B={width} "
+                                f"density={density} mask={mask_name}")
+                    n_cases += 1
+        del ht, hm
+    torch.cuda.synchronize()
+    log(f"[3] slimsell_spmm_packed == plain on {n_cases} cases of the hub "
+        f"graph (C=8 L=128 and C=3 L=1, the hub's chunk in {spmv_pieces} "
+        f"pieces; B=1/5/33/64/97/160 x 5 masks x 2 densities)")
     del hub, hub_masks, hub_deg, Xh
 
     # ---- 4a: the kernel path against the plain path at scale 14
@@ -853,7 +896,8 @@ def main() -> int:
         nf2 = nf.reshape(tiled.n, width)
         _, ranks = pull_first_hits(tropical, tiled, xt.reshape(tiled.n, width),
                                    nf2, mask)
-        work = pull_work(tiled, ranks, nf2, mask)
+        work = pull_work(tiled, ranks, nf2, mask,
+                         None if width == 1 else ops.spmv_piece_tiles(tiled.L))
         # cols read through the hits, x in, nf in, y out, layout indices
         moved = 4 * work["slots_read"] + 4 * xt.numel() + nf.numel() \
             + 4 * xt.numel() + index_bytes
@@ -877,6 +921,16 @@ def main() -> int:
             f"({moved / 1e9:.4f} GB) | push sweep of this iteration "
             f"{push_ms:.4f} ms over {int(push_mask.sum())} tiles | pending "
             f"rows {pending}, tiles kept {int(mask.sum())}, {work} on {card}")
+        if kern == "slimsell_pull_mm":
+            # the parts of the layout, each within the state's mask, and
+            # the floor: no pending (row, column), reading nf and writing Y
+            split = pull_mm_split(tiled, xt, nf, mask, parts=SPLIT_PARTS)
+            table[-1]["chunk_split"] = split
+            log(f"[6] {kern} B={width} over parts of the layout (each within "
+                f"the state's mask): {split_line(split)}; slots read past "
+                f"the first hits (pieces of {ops.spmv_piece_tiles(tiled.L)} "
+                f"tiles side by side) at most {work['slots_past_hits']} of "
+                f"{work['slots_read']} on {card}")
     torch.cuda.synchronize()
 
     # ---- 7: SlimSell-B, the bit-packed boolean path
@@ -1070,6 +1124,13 @@ def main() -> int:
             f"GB) | iteration mask ({n_kept} tiles) kernel {masked_ms:.4f} ms "
             f"bound {masked_bound_ms:.4f} ms ({masked_moved / 1e9:.4f} GB) on "
             f"{card}")
+        if width is not None:
+            split = chunk_split(lambda m: fn(tiled, xw, tile_mask=m), tiled)
+            table[-1]["chunk_split"] = split
+            spmv_ms = next(r["ms"] for r in table if r["name"] == "slimsell_spmv")
+            log(f"[7c] {kern} B={width} over parts of the layout: "
+                f"{split_line(split)}; slimsell_spmv (1) with every tile kept "
+                f"in this run (phase 6) {spmv_ms:.4f} ms on {card}")
     torch.cuda.synchronize()
 
     # (d) the paper's storage accounting at scale 20

@@ -26,14 +26,18 @@ forward's tables in one launch. ``embedding_bag`` is one table, the same
 launch with T = 1. Their plain versions are ``kernels.ref``'s
 ``embedding_bag_ref`` and ``embedding_bag_grouped_ref``.
 
-The SpMM kernels do not give one block a whole chunk: ``spmm_work`` cuts
-each chunk's tiles into pieces of at most ``piece_tiles(L)`` tiles, one
-block each, and the kernel folds the pieces of a split chunk in order.
-The SpMV kernels take ``spmv_work``: pieces of at most
-``spmv_piece_tiles(L)`` tiles, each with the lanes a row its length needs
-(``spmv_lanes``), sorted by that width so that a warp takes several short
-rows. Each list is built at a layout's first launch of its kernels and
-kept on the layout (``tiled.spmm_work``, ``tiled.spmv_work``).
+No sweep kernel gives one block a whole chunk. The SpMM kernels take
+``spmm_work``: each chunk's tiles cut into pieces of at most
+``piece_tiles(L)`` tiles, one block each; the kernel folds the pieces of
+a split chunk in order. The SpMV kernels, the packed SpMM and the batched
+pull take ``spmv_work``: pieces of at most ``spmv_piece_tiles(L)`` tiles,
+each with the lanes a row its length needs (``spmv_lanes``), sorted by
+that width so that a warp takes several short rows (the pull ignores the
+widths). The pull folds a split chunk by taking, for
+each (row, column), the first piece's hit in piece order, not the
+semiring add of the pieces. Each list is built at a layout's first launch
+of its kernels and kept on the layout (``tiled.spmm_work``,
+``tiled.spmv_work``).
 
 The kernels take the SlimWork mask as the bool ``tile_mask`` itself and
 write straight into vertex space through ``row_vertex``, so neither the
@@ -112,11 +116,12 @@ SPMM_GCN = Kernel("slimsell_spmm_gcn",
 PULL = Kernel("slimsell_pull",
               [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
 PULL_MM = Kernel("slimsell_pull_mm",
-                 [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+                 [_I, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I,
+                  _P])
 SPMV_PACKED = Kernel("slimsell_spmv_packed",
                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
 SPMM_PACKED = Kernel("slimsell_spmm_packed",
-                     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+                     [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P])
 EMBEDDING_BAG_GROUPED = Kernel("embedding_bag_grouped",
                                [_P, _P, _I, _P, _L, _L, _L, _P, _L, _L, _I, _I,
                                 _I, _I, _P], source="embedding_bag")
@@ -207,16 +212,6 @@ def _check_rows(x: torch.Tensor, row_mask: torch.Tensor) -> None:
                          f"{row_mask.device}")
     if x.device.type == "cuda" and not row_mask.is_contiguous():
         raise ValueError("row_mask must be contiguous")
-
-
-def _lanes(tiled, B: int) -> int:
-    """The batch-column tile of one block of the batched pull kernel: whole
-    warps, at most 1024 threads, and one C x L tile of cols must fit the
-    kernel's 48 KB of shared memory."""
-    if tiled.C * tiled.L * 4 > 48 * 1024:
-        raise ValueError(f"a C x L = {tiled.C} x {tiled.L} tile does not fit "
-                         "the pull kernel's 48 KB of shared memory")
-    return min(-(-B // 32) * 32, 128, (1024 // tiled.C) // 32 * 32)
 
 
 def _cuda_operands(tiled, x: torch.Tensor, tile_mask: Optional[torch.Tensor]):
@@ -467,15 +462,18 @@ def pull_mm(sr: Semiring, tiled, X: torch.Tensor, row_mask: torch.Tensor, *,
     _check_rows(X, row_mask)
     if X.device.type == "cpu":
         return pull_mm_plain(sr, tiled, X, row_mask, tile_mask)
-    ptrs = _cuda_operands(tiled, X, tile_mask)
+    cols, _, row_vertex, _, mask = _cuda_operands(tiled, X, tile_mask)
+    items, _, folds, slots = _spmv_work_on_device(tiled)
     B = X.shape[1]
-    lanes = _lanes(tiled, B)
     Y = torch.empty_like(X)
+    partial = X.new_empty(slots * tiled.C * B) if folds.shape[0] else None
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
-        PULL_MM.launch(sr.code, *ptrs, row_mask.data_ptr(), X.data_ptr(),
-                       Y.data_ptr(), tiled.n_chunks, tiled.C, tiled.L, B,
-                       lanes, stream)
+        PULL_MM.launch(sr.code, cols, row_vertex, mask, row_mask.data_ptr(),
+                       items.data_ptr(), items.shape[0], folds.data_ptr(),
+                       folds.shape[0],
+                       0 if partial is None else partial.data_ptr(),
+                       X.data_ptr(), Y.data_ptr(), tiled.C, tiled.L, B, stream)
     return Y
 
 
@@ -503,13 +501,19 @@ def spmm_packed(tiled, X_words: torch.Tensor, *,
     _check(BOOLEAN_PACKED, tiled, X_words, 2, tile_mask)
     if X_words.device.type == "cpu":
         return spmm_packed_plain(tiled, X_words, tile_mask)
-    ptrs = _cuda_operands(tiled, X_words, tile_mask)
+    cols, _, row_vertex, _, mask = _cuda_operands(tiled, X_words, tile_mask)
+    items, classes, folds, slots = _spmv_work_on_device(tiled)
+    Wb = X_words.shape[1]
     Y = torch.empty_like(X_words)
+    partial = X_words.new_empty(slots * tiled.C * Wb) if folds.shape[0] \
+        else None
     with torch.cuda.device(X_words.device):
         stream = torch.cuda.current_stream(X_words.device).cuda_stream
-        SPMM_PACKED.launch(*ptrs, X_words.data_ptr(), Y.data_ptr(),
-                           tiled.n_chunks, tiled.C, tiled.L, X_words.shape[1],
-                           stream)
+        SPMM_PACKED.launch(cols, row_vertex, mask, items.data_ptr(), classes,
+                           folds.data_ptr(), folds.shape[0],
+                           0 if partial is None else partial.data_ptr(),
+                           X_words.data_ptr(), Y.data_ptr(), tiled.C, tiled.L,
+                           Wb, stream)
     return Y
 
 

@@ -17,7 +17,19 @@ masks of one single-source SSSP (from Graph500's first search key, the
 default delta): each sweep's state rebuilt, its frontier, weight view and
 mask timed, and the sum over the sweeps. If one block's walk over the
 longest chunk holds a sweep, the heaviest chunk alone takes most of the
-time of all of it. The last line is all of it as JSON.
+time of all of it.
+
+Two entries run at real states of Graph500's 64-root batch (its search
+keys): the batched pull (4, ``slimsell_pull_mm``, tropical, B=64) at the
+state just before the first iteration in which most of the auto batch's
+columns pull, every part also restricted to that state's own SlimWork
+mask, with one more part that has no pending (row, column) (the floor:
+reading the not-final bits and writing Y), the slots the first hits need
+(``pull_work``) and the push SpMM of the same iteration; and the packed
+SpMM (6, ``slimsell_spmm_packed``, B=64) at the packed batch's iteration
+with the most tiles, every tile kept. ``--only`` picks the groups to run
+(``spmv``, ``spmm``, ``pull_mm``, ``spmm_packed``). The last line is all
+of it as JSON.
 
 It measures the device, so it needs a CUDA card and raises without one.
 """
@@ -34,12 +46,17 @@ from .configs.sssp_graph500 import WEIGHT_HIGH, WEIGHT_LOW
 from .core import direction as dm
 from .core import engine, semiring
 from .core.formats import build_slimsell
+from .core.multi_bfs import (multi_bfs_spec, multi_source_bfs,
+                             packed_multi_bfs_spec)
+from .core.options import EngineConfig
+from .core.spmv import pull_first_hits
 from .core.sssp import default_delta, sssp, sssp_spec
 from .graph500 import sample_roots
 from .graphs.generators import kronecker, with_random_weights
 from .kernels import ops
 
 EDGE_FACTOR = 16  # Graph500's
+GROUPS = ("spmv", "spmm", "pull_mm", "spmm_packed")
 
 
 def time_ms(fn, reps: int) -> float:
@@ -180,12 +197,150 @@ def sweep_times(tiled, sweeps, reps: int) -> list:
             for _, x, w, m in sweeps]
 
 
+def tile_slots(tiled) -> torch.Tensor:
+    """int64[T]: the slots of one row of each tile before its chunk's
+    length cl, the ones a sweep reads in each row when it keeps the tile."""
+    ptr = tiled.tile_ptr.long()
+    rb = tiled.row_block.long()
+    rank = torch.arange(tiled.n_tiles, device=ptr.device) - ptr[rb]
+    return (tiled.cl.long()[rb] - rank * tiled.L).clamp(0, tiled.L)
+
+
+def pull_work(tiled, ranks, nf, mask, per_piece=None):
+    """What the first-hit pull needs at this state, worked out from the
+    plain version's hit ranks (int32[n, B], -1 for no hit): a pending
+    (v, b) reads the kept slots of v's chunk through its hit tile, or all
+    of them without a hit, and a row's cols are read once for all its
+    columns. Returns a dict: cols slots read, operations, the 32-byte
+    sectors of X the pending columns gather (eight float columns a
+    sector, fetched at a slot while any of them is pending), the slots all
+    kept tiles of the pending rows hold, and for the chunk with the most
+    tiles, the tiles it has and the tiles its block must load. With
+    ``per_piece`` (the chunks cut into pieces of that many tiles that run
+    side by side) also ``slots_past_hits``: the kept slots of the pieces
+    after the one that holds a row's last first hit, which a piece reads
+    without knowing of the earlier hits. A row leaves such a piece once its
+    columns hit there as well, so it reads at most these."""
+    C = tiled.C
+    ptr = tiled.tile_ptr.long()
+    slots_t = tile_slots(tiled)
+    if mask is not None:
+        slots_t = slots_t * mask
+    cum = torch.cat([slots_t.new_zeros(1), slots_t.cumsum(0)])
+    rv = tiled.row_vertex.long().reshape(-1)
+    chunk_of = torch.empty(tiled.n, dtype=torch.long, device=rv.device)
+    rows = torch.arange(rv.numel(), device=rv.device)
+    chunk_of[rv[rv >= 0]] = (rows // C)[rv >= 0]
+    start = ptr[chunk_of][:, None]                                  # [n, 1]
+    kept = (cum[ptr[1:]] - cum[ptr[:-1]])[chunk_of][:, None]
+    through = cum[start + ranks.long().clamp_min(0) + 1] - cum[start]
+    slots = torch.where(ranks >= 0, through, kept) * nf              # [n, B]
+    # a block loads tiles until none of its rows is pending
+    n_tiles = ptr[1:] - ptr[:-1]
+    need = (torch.where(ranks >= 0, ranks.long() + 1,
+                        n_tiles[chunk_of][:, None]) * nf).amax(dim=1)
+    loaded = torch.zeros_like(n_tiles).scatter_reduce_(0, chunk_of, need, "amax")
+    longest = int(n_tiles.argmax())
+    per_sector = slots.new_zeros(slots.shape[0], -(-slots.shape[1] // 8) * 8)
+    per_sector[:, :slots.shape[1]] = slots
+    out = {"slots_read": int(slots.amax(dim=1).sum()),
+           "operations": 2 * int(slots.sum()),
+           "x_sectors": int(per_sector.reshape(slots.shape[0], -1, 8)
+                            .amax(dim=2).sum()),
+           "slots_kept": int((kept * nf.any(dim=1, keepdim=True)).sum()),
+           "longest_chunk_tiles": int(n_tiles[longest]),
+           "longest_chunk_tiles_loaded": int(loaded[longest])}
+    if per_piece is not None:
+        # a row whose pending columns all hit: its last needed tile rank,
+        # rounded up to the end of its piece
+        all_hit = ((ranks >= 0) | ~nf).all(dim=1) & nf.any(dim=1)
+        last = torch.where(nf, ranks.long(), -1).amax(dim=1)
+        end = torch.minimum((last // per_piece + 1) * per_piece,
+                            n_tiles[chunk_of])
+        to_end = cum[ptr[chunk_of] + end] - cum[ptr[chunk_of]]
+        out["slots_past_hits"] = int(((kept[:, 0] - to_end) * all_hit).sum())
+    return out
+
+
+def pull_mm_state(tiled, roots: np.ndarray) -> dict:
+    """The batched pull's state as ``chip_smoke.py`` phase 6 builds it:
+    the tropical ``multi_bfs_spec`` state of ``roots`` just before the
+    first iteration k in which most of the auto batch's columns pull (the
+    first with any, if none has most): its frontier X, not-final bits nf,
+    SlimWork mask (the chunks with a not-final row) and frontier bits."""
+    B = roots.size
+    auto = multi_source_bfs(tiled, roots, "tropical", log_work=True,
+                            config=EngineConfig(direction="auto"),
+                            device=tiled.device)
+    plog = auto.pull_cols_log[0]
+    if not (plog > 0).any():
+        raise AssertionError("the auto batch never pulls")
+    k = 1 + int(np.argmax(plog > B // 2)) if (plog > B // 2).any() \
+        else 1 + int(np.argmax(plog > 0))
+    spec = multi_bfs_spec("tropical")
+    st = engine.run_fused(spec, tiled, torch.from_numpy(roots),
+                          max_iters=k - 1, direction="pull").state
+    nf = spec.not_final(st)
+    return {"k": k, "X": spec.frontier(st, k), "nf": nf,
+            "mask": engine._pull_tile_mask(tiled, nf.any(dim=-1)),
+            "fbits": spec.source_bits(st, k)}
+
+
+def packed_state(tiled, roots: np.ndarray) -> dict:
+    """The packed batch's state (``chip_smoke.py`` phase 7c): the packed
+    word planes X of ``roots`` at the iteration k with the most tiles."""
+    pk = multi_source_bfs(tiled, roots, "boolean", packed=True,
+                          log_work=True, device=tiled.device)
+    wl = pk.work_log[0][:int(pk.iterations[0])]
+    k = 1 + int(np.argmax(wl))
+    spec = packed_multi_bfs_spec(roots.size)
+    st = engine.run_fused(spec, tiled, torch.from_numpy(roots),
+                          max_iters=k - 1).state
+    return {"k": k, "X": spec.frontier(st, k), "tiles": int(wl[k - 1])}
+
+
+def pull_mm_split(tiled, X, nf, mask, *, heavy: int = 10, reps: int = 10,
+                  parts=None) -> dict:
+    """Kernel 4 (tropical) at a pull state, X [n, B], nf bool[n, B] and
+    the state's mask: ``chunk_split`` with each part also restricted to
+    the mask, and "no pending" (nf all false: reading nf and writing Y)."""
+    tropical = semiring.TROPICAL
+    split = chunk_split(lambda m: ops.pull_mm(tropical, tiled, X, nf,
+                                              tile_mask=m & mask),
+                        tiled, heavy=heavy, reps=reps, parts=parts)
+    none = torch.zeros_like(nf)
+    split["no pending"] = time_ms(lambda: ops.pull_mm(
+        tropical, tiled, X, none, tile_mask=mask), reps)
+    return split
+
+
+def pull_mm_profile(tiled, state: dict, *, heavy: int, reps: int) -> dict:
+    """Kernel 4 at ``state`` (``pull_mm_state``): ``pull_mm_split``, the
+    slots the first hits need (and at most those its pieces, of
+    ``ops.spmv_piece_tiles`` tiles, read past them) and the push SpMM of
+    the same iteration over its push mask."""
+    tropical = semiring.TROPICAL
+    X, nf, mask = state["X"], state["nf"], state["mask"]
+    split = pull_mm_split(tiled, X, nf, mask, heavy=heavy, reps=reps)
+    _, ranks = pull_first_hits(tropical, tiled, X, nf, mask)
+    work = pull_work(tiled, ranks, nf, mask, ops.spmv_piece_tiles(tiled.L))
+    push_mask = dm.push_tile_mask(tiled, state["fbits"])
+    push_ms = time_ms(lambda: ops.spmm(tropical, tiled, X,
+                                       tile_mask=push_mask), reps)
+    return {"iteration": state["k"], "batch": X.shape[1], **split,
+            "work": work, "pending_rows": int(nf.any(dim=1).sum()),
+            "tiles_kept": int(mask.sum()), "push_spmm_ms": push_ms,
+            "push_tiles": int(push_mask.sum())}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20)
     ap.add_argument("--heavy", type=int, default=10,
                     help="tiles that make a chunk heavy")
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--only", nargs="+", choices=GROUPS, default=list(GROUPS),
+                    help="the groups of entries to time")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_spmm measures the card: no CUDA device")
@@ -200,32 +355,52 @@ def main(argv=None) -> int:
     result = {"card": card, "scale": args.scale, "n": tiled.n,
               "tiles": tiled.n_tiles, "chunks": tiled.n_chunks, "entries": {}}
     rng = np.random.default_rng(0)
-    todo = {**spmv_entries(tiled, dev, rng), **entries(tiled, dev, rng)}
+    todo = {**(spmv_entries(tiled, dev, rng) if "spmv" in args.only else {}),
+            **(entries(tiled, dev, rng) if "spmm" in args.only else {})}
+    roots = sample_roots(csr, 64)
+    if "spmm_packed" in args.only:
+        pk = packed_state(tiled, roots)
+        todo["slimsell_spmm_packed"] = (64, lambda m: ops.spmm_packed(
+            tiled, pk["X"], tile_mask=m))
+        result["packed iteration"] = {"k": pk["k"], "tiles": pk["tiles"]}
     for name, (width, fn) in todo.items():
         split = chunk_split(fn, tiled, heavy=args.heavy, reps=args.reps)
         result["entries"][name] = {"batch": width, **split}
         print(f"{name} B={width}: " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in split.items() if k != "layout")
             + f" on {card}", flush=True)
+    if "pull_mm" in args.only:
+        prof = pull_mm_profile(tiled, pull_mm_state(tiled, roots),
+                               heavy=args.heavy, reps=args.reps)
+        result["entries"]["slimsell_pull_mm"] = prof
+        print("slimsell_pull_mm B=64 at iteration "
+              f"{prof['iteration']} (each part within the state's mask): "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in prof.items()
+                          if isinstance(v, float))
+              + f" | pending rows {prof['pending_rows']}, tiles kept "
+              f"{prof['tiles_kept']}, push tiles {prof['push_tiles']}, "
+              f"{prof['work']} on {card}", flush=True)
     hist = length_histogram(tiled)
     result["chunk lengths"] = hist
-    print(f"layout: {split['layout']}; chunks, slots by cl: {hist}")
-    xr = torch.from_numpy(rng.integers(0, 4, size=tiled.n).astype(
-        np.float32)).to(dev)
-    lib_ms = time_ms(library_spmv(csr, xr), args.reps)
-    root = int(sample_roots(csr, 1)[0])
-    sweeps = sssp_sweeps(tiled, root)
-    times = sweep_times(tiled, sweeps, args.reps)
-    result["adj @ x"] = lib_ms
-    result["sssp sweeps"] = {
-        "root": root, "tiles": [int(m.sum()) for *_, m in sweeps],
-        "ms": times, "sum_ms": sum(times)}
-    print(f"adj @ x (real): {lib_ms:.4f} ms on {card}")
-    print(f"slimsell_spmv_wts over the {len(sweeps)} sweeps of sssp from "
-          f"root {root}: sum {sum(times):.4f} ms, per sweep "
-          + ", ".join(f"{int(m.sum())}:{t:.4f}"
-                      for (*_, m), t in zip(sweeps, times))
-          + f" on {card}", flush=True)
+    print(f"layout: {chunk_masks(tiled, args.heavy)[1]}; chunks, slots by "
+          f"cl: {hist}")
+    if "spmv" in args.only:
+        xr = torch.from_numpy(rng.integers(0, 4, size=tiled.n).astype(
+            np.float32)).to(dev)
+        lib_ms = time_ms(library_spmv(csr, xr), args.reps)
+        root = int(sample_roots(csr, 1)[0])
+        sweeps = sssp_sweeps(tiled, root)
+        times = sweep_times(tiled, sweeps, args.reps)
+        result["adj @ x"] = lib_ms
+        result["sssp sweeps"] = {
+            "root": root, "tiles": [int(m.sum()) for *_, m in sweeps],
+            "ms": times, "sum_ms": sum(times)}
+        print(f"adj @ x (real): {lib_ms:.4f} ms on {card}")
+        print(f"slimsell_spmv_wts over the {len(sweeps)} sweeps of sssp from "
+              f"root {root}: sum {sum(times):.4f} ms, per sweep "
+              + ", ".join(f"{int(m.sum())}:{t:.4f}"
+                          for (*_, m), t in zip(sweeps, times))
+              + f" on {card}", flush=True)
     print(json.dumps(result))
     return 0
 

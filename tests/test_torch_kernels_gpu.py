@@ -597,3 +597,119 @@ def test_embedding_bag_grouped_equals_per_table(cuda, d, mode, pads, out_kind):
     ref = embedding_bag_grouped_ref(tables, bags, mode)
     ok = ~torch.isnan(ref)
     assert torch.equal(got[ok], ref[ok]) and torch.equal(torch.isnan(got), ~ok)
+
+
+PIECE_WIDTHS = (1, 5, 33, 64, 97, 160)
+
+
+def _pull_cases(sr, tiled, rng, dev, nf_kind="random"):
+    """An operand and not-final bits 160 columns wide: the pull is column
+    by column, so the plain result at 160 holds every narrower batch's in
+    its first columns."""
+    X = _operand(sr, (tiled.n, 160), rng, dev)
+    if nf_kind == "random":
+        nf = torch.from_numpy(rng.random((tiled.n, 160)) < 0.6).to(dev)
+    else:
+        nf = torch.full((tiled.n, 160), nf_kind == "all", dtype=torch.bool,
+                        device=dev)
+    return X, nf
+
+
+def _pull_widths_equal_plain(sr, tiled, X, nf, mask, what):
+    """The pull kernel at every width of ``PIECE_WIDTHS`` on the first
+    columns of X and nf, each equal to those of one plain call at 160."""
+    want = pull_mm_plain(sr, tiled, X, nf, mask)
+    before = ops.PULL_MM.launches
+    for width in PIECE_WIDTHS:
+        got = ops.pull_mm(sr, tiled, X[:, :width].contiguous(),
+                          nf[:, :width].contiguous(), tile_mask=mask)
+        assert got.is_cuda and torch.equal(got, want[:, :width]), \
+            (what, width)
+    torch.cuda.synchronize()
+    assert ops.PULL_MM.launches == before + len(PIECE_WIDTHS)
+
+
+@pytest.mark.parametrize("layout", SWEEP_LAYOUTS)
+@pytest.mark.parametrize("mask_kind", MASKS)
+def test_pull_mm_pieces_equal_plain(sweep_layouts, mask_kind, layout):
+    """The batched pull over the SpMV's pieces (the hub's chunk cut into
+    16 and folded by its first hit), in 4 semirings at B = 1, 5, 33, 64,
+    97 and 160, exactly, on every layout of ``sweep_layouts``."""
+    dev, tiled = sweep_layouts(layout)
+    rng = np.random.default_rng([MASKS.index(mask_kind),
+                                 SWEEP_LAYOUTS.index(layout), 9])
+    mask = _mask(mask_kind, tiled, rng, dev)
+    for name in SEMIRINGS:
+        sr = psr.get(name)
+        X, nf = _pull_cases(sr, tiled, rng, dev)
+        _pull_widths_equal_plain(sr, tiled, X, nf, mask, name)
+
+
+HUB_HITS = ["first", "middle", "last", "middle_and_last", "nf_all",
+            "nf_none"]
+
+
+@pytest.mark.parametrize("where", HUB_HITS)
+@pytest.mark.parametrize("layout", ["hub C8 L128", "hub C8 L1"])
+def test_pull_mm_hub_first_hit_piece(sweep_layouts, layout, where):
+    """The hub's first hit only in the first, a middle or the last piece
+    of its chunk (the hub's neighbours outside that piece hold the
+    semiring zero), in a middle and the last piece with other values (a
+    fold that is not the first hit's gives another value), and random
+    operands with nf all true and all false: 4 semirings at B = 1, 5, 33,
+    64, 97 and 160, exactly."""
+    dev, tiled = sweep_layouts(layout)
+    rng = np.random.default_rng([HUB_HITS.index(where), len(layout), 10])
+    items, _, _, _ = ops.spmv_work(tiled.tile_ptr, tiled.cl, tiled.L,
+                                   ops.spmv_piece_tiles(tiled.L))
+    rv = tiled.row_vertex.cpu().numpy()
+    chunk, r = map(int, np.argwhere(rv == 0)[0])  # the hub's row
+    hub = sorted(tuple(it) for it in items.tolist() if it[0] == chunk)
+    assert len(hub) >= 3
+    cols = tiled.cols.cpu().numpy()
+
+    def leaves(piece):
+        _, t0, slots, _ = hub[piece]
+        c = cols[t0:t0 - (-slots // tiled.L), r].reshape(-1)
+        return c[c >= 0]
+    for name in SEMIRINGS:
+        sr = psr.get(name)
+        if where in ("nf_all", "nf_none"):
+            X, nf = _pull_cases(sr, tiled, rng, dev, where[3:])
+        else:
+            X = torch.full((tiled.n, 160), sr.zero, dtype=sr.dtype)
+            pieces = {"first": [0], "middle": [len(hub) // 2],
+                      "last": [len(hub) - 1],
+                      "middle_and_last": [len(hub) // 2, len(hub) - 1]}[where]
+            for k, piece in enumerate(pieces):
+                u = torch.from_numpy(leaves(piece))
+                vals = rng.integers(1, 4, size=(u.numel(), 160)) * (10 ** k)
+                X[u] = torch.from_numpy(vals).to(sr.dtype)
+            X = X.to(dev)
+            nf = torch.ones((tiled.n, 160), dtype=torch.bool, device=dev)
+        _pull_widths_equal_plain(sr, tiled, X, nf, None, (name, where))
+
+
+@pytest.mark.parametrize("layout", SWEEP_LAYOUTS)
+@pytest.mark.parametrize("width", [1, 5, 33, 64, 97, 160])
+@pytest.mark.parametrize("mask_kind", MASKS + ["one_hub_tile"])
+def test_spmm_packed_pieces_equal_plain(sweep_layouts, mask_kind, width,
+                                        layout):
+    """The packed SpMM over the SpMV's items (the hub's chunk cut into
+    pieces and ORed in piece order), at two frontier densities, exactly,
+    on every layout of ``sweep_layouts``; the padding bits stay zero."""
+    dev, tiled = sweep_layouts(layout)
+    rng = np.random.default_rng([len(mask_kind), width,
+                                 SWEEP_LAYOUTS.index(layout), 11])
+    mask = _mask(mask_kind, tiled, rng, dev)
+    for density in (0.02, 0.5):
+        bits = torch.from_numpy(rng.random((tiled.n, width)) < density).to(dev)
+        x = packing.pack_bits(bits, axis=1)
+        before = ops.SPMM_PACKED.launches
+        got = ops.spmm_packed(tiled, x, tile_mask=mask)
+        want = spmm_packed_plain(tiled, x, mask)
+        torch.cuda.synchronize()
+        assert ops.SPMM_PACKED.launches == before + 1
+        assert got.is_cuda and torch.equal(got, want), density
+        assert packing.check_tail_zero_host(got.cpu().numpy(), width)
+

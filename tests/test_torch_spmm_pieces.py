@@ -24,6 +24,13 @@ a chunk of several pieces in piece order. The SpMV kernel
   The graphs are a star (one hub chunk of many tiles), a small Kronecker
   graph and a ring of cliques, at C=8 with L=128, 16 and 1, at C=3 and at
   sigma=1, with masks that drop part of a split chunk.
+
+The packed SpMM (``kernels/csrc/slimsell_spmm_packed.cu``) takes the
+SpMV's items and ORs a split chunk's pieces in piece order: a numpy
+emulation of it, item by item, equals ``spmm_packed_plain`` and
+``repro``'s jnp ``slimsell_spmm`` under ``boolean_packed`` exactly, at
+B = 1, 33, 64 and 97 (the batched pull's pieces are held in
+``test_torch_pull_pieces.py``).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -31,13 +38,14 @@ import pytest
 import torch
 
 from repro.core import formats as jf
+from repro.core import packing as jpk
 from repro.core import semiring as jsr
 from repro.core import spmv as jspmv
 from repro.graphs import generators as jg
 from repro.kernels import ref as jref
 from repro_torch import convert
 from repro_torch.core import semiring as psr
-from repro_torch.core.spmv import spmm_plain, spmv_plain
+from repro_torch.core.spmv import spmm_packed_plain, spmm_plain, spmv_plain
 from repro_torch.kernels import ops
 
 GRAPHS = {
@@ -341,3 +349,87 @@ def test_work_list_kept_per_layout(layouts, op):
     assert torch.equal(again[fold], first[fold]) and again[-1] == first[-1]
     if op == "spmv":
         assert list(again[1]) == list(first[1])
+
+
+def packed_items_then_fold(pt, X_words, mask, per_piece):
+    """numpy emulation of the packed SpMM kernel over ``ops.spmv_work``'s
+    items at ``per_piece`` tiles, in the list's (width-class) order: each
+    item ORs the X words of the slots of its kept tiles below its rows'
+    slot count, a chunk of one piece writes Y, a split chunk's pieces
+    write scratch that the fold ORs in piece order. Y starts poisoned and
+    every vertex's row must be written exactly once. X_words int32
+    [n, Wb] -> Y int32 [n, Wb]."""
+    items, _, folds, slots = ops.spmv_work(pt.tile_ptr, pt.cl, pt.L,
+                                           per_piece)
+    cols, rv = pt.cols.numpy(), pt.row_vertex.numpy()
+    X = X_words.view(np.uint32)
+    n, Wb = X.shape
+    poison = np.uint32(0xA5A5A5A5)
+    Y = np.full((n, Wb), poison, np.uint32)
+    partial = np.full((slots, pt.C, Wb), poison, np.uint32)
+    writes = np.zeros(n, int)
+
+    def write(chunk, val):
+        for r, v in enumerate(rv[chunk]):
+            if v >= 0:
+                Y[v] = val[r]
+                writes[v] += 1
+    for chunk, t, row_slots, slot in items.tolist():
+        val = np.zeros((pt.C, Wb), np.uint32)
+        for done in range(0, row_slots, pt.L):
+            if mask is None or mask[t]:
+                c = cols[t, :, :min(pt.L, row_slots - done)]
+                g = np.where((c >= 0)[..., None], X[np.where(c < 0, 0, c)], 0)
+                val |= np.bitwise_or.reduce(g.astype(np.uint32), axis=1)
+            t += 1
+        if slot >= 0:
+            partial[slot] = val
+        else:
+            write(chunk, val)
+    for chunk, s0, k, _ in folds.tolist():
+        write(chunk, np.bitwise_or.reduce(partial[s0:s0 + k], axis=0))
+    assert (writes == 1).all()
+    return Y.view(np.int32)
+
+
+def _keep_low_bits(words, width):
+    """Words [n, Wb] cut to the first ``width`` bits of each row."""
+    out = words[:, :-(-width // 32)].copy()
+    if width % 32:
+        out[:, -1] &= np.uint32((1 << (width % 32)) - 1)
+    return out
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("graph", sorted(GRAPHS))
+def test_packed_items_then_fold_equals_plain_and_jnp(layouts, graph, layout):
+    """The packed SpMM kernel's items and OR fold, emulated at both piece
+    sizes, with every tile kept and with a mask that drops part of each
+    split chunk, at B = 1, 33, 64 and 97: exactly ``spmm_packed_plain``
+    and ``repro``'s jnp packed SpMM, the padding bits above B zero. The
+    frontiers of the narrower batches are the first B roots of the 97,
+    and the jnp sweep runs once at B = 97 for each mask: its words cut to
+    the first B bits are its result at B, each bit column being swept on
+    its own (and each new shape costs the jnp sweep seconds of tracing)."""
+    _, jt, pt = layouts[(graph, layout)]
+    rng = np.random.default_rng([len(graph), len(layout), 5])
+    for per_piece in PER_PIECE:
+        P = _per_piece(per_piece, pt, "spmv")
+        pieces, _, _ = _work("spmv", pt, P)
+        for masked in (False, True):
+            mask = _split_mask(pt, pieces, rng) if masked else None
+            tm = None if mask is None else torch.from_numpy(mask)
+            X97 = jpk.pack_bits_np(rng.random((pt.n, 97)) < 0.1, axis=1)
+            want97 = np.asarray(jspmv.slimsell_spmm(
+                jsr.BOOLEAN_PACKED, jt, jnp.asarray(X97), backend="jnp",
+                tile_mask=jnp.asarray(np.ones(pt.n_tiles, bool)
+                                      if mask is None else mask)))
+            for width in (1, 33, 64, 97):
+                X = _keep_low_bits(X97, width).view(np.int32)
+                got = packed_items_then_fold(pt, X, mask, P)
+                plain = spmm_packed_plain(pt, torch.from_numpy(X), tm)
+                what = (width, per_piece, masked)
+                assert np.array_equal(got, plain.numpy()), what
+                assert np.array_equal(got.view(np.uint32),
+                                      _keep_low_bits(want97, width)), what
+                assert jpk.check_tail_zero_host(got.view(np.uint32), width)
