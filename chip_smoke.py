@@ -23,12 +23,16 @@ exit and no result line):
    they cut into pieces of their own: the implicit SpMV in 4 semirings and
    the stored-weight SpMV (the layout's weights and padding weights
    poisoned to -1000) exactly, x the five masks and one keeping a single
-   tile of the hub; then the batched pull (4) on the same graph at C=8,
-   L=128, whose hub chunk the SpMV's list cuts into 16 pieces, exactly: 4
-   semirings x B=1/5/33/64/97/160 x the five masks x not-final bits random
+   tile of the hub, and over the same pieces the packed SpMV (5) at both
+   layouts x 2 frontier densities and the single-source pull (3) at C=8,
+   L=128 in 4 semirings x not-final bits random and all, exactly; then
+   the batched pull (4) on the same graph at C=8, L=128, whose hub chunk
+   the SpMV's list cuts into 16 pieces, exactly: 4 semirings x
+   B=1/5/33/64/97/160 x the five masks x not-final bits random
    and all, and the hub's first hit only in the first, a middle or the
    last piece of its chunk, or in a middle and the last with other values
-   (the pieces are folded by their first hit, not the semiring add); and
+   (the pieces are folded by their first hit, not the semiring add), and
+   the single-source pull (3) on the first column of those hit cases; and
    the packed SpMM (6) over the SpMV's items at C=8, L=128 and C=3, L=1,
    B=1/5/33/64/97/160 x the five masks x 2 frontier densities, exactly;
 4. (a) the kernel path against the plain path at scale 14: single- and
@@ -47,11 +51,12 @@ exit and no result line):
    library call and its bound, and the SpMM's and SpMV's times over parts
    of the layout (``profile_spmm.chunk_split``: the heaviest chunk alone,
    the rest, no tile; for the SpMV also the chunks of at least and of
-   fewer than 10 tiles), ``adj @ x`` timed in the same call; the batched
-   pull beside the push SpMM of its iteration, over the same parts each
-   within its state's mask and with no pending (row, column) (its floor,
-   ``profile_spmm.pull_mm_split``), with the slots its first hits need and
-   at most those its pieces read past the hits;
+   fewer than 10 tiles), ``adj @ x`` timed in the same call; each pull
+   beside the push sweep of its iteration (the single-source pull also
+   beside the batched pull at B=1 on its state), over the same parts each
+   within its state's mask and with no pending row or (row, column) (its
+   floor, ``profile_spmm.pull_split``), with the slots its first hits need
+   and at most those its pieces read past the hits;
 7. SlimSell-B, the bit-packed boolean path: (a) at scale 14 both packed
    kernels against their plain versions, exactly (5 masks x the SpMV and
    the SpMM at B=1/5/33/64/97/160 x 2 frontier densities; 97 and 160 fill
@@ -67,9 +72,9 @@ exit and no result line):
    turns with lane-boolean push; (c) each packed kernel at the
    real state of the iteration with the most tiles, with that iteration's
    mask and with every tile kept, against its plain version and timed
-   beside it, the lane kernel, a library call and its bound, and the
-   packed SpMM over the parts of the layout as in phase 6, beside the SpMV
-   (1) of phase 6; (d) the paper's storage accounting at scale 20;
+   beside it, the lane kernel, a library call and its bound, and each
+   packed kernel over the parts of the layout as in phase 6, beside the
+   SpMV (1) of phase 6; (d) the paper's storage accounting at scale 20;
 8. weighted SSSP (delta-stepping) through the stored-weight (min-plus)
    kernel: (a) at scale 14 the kernel against its plain version, exactly
    (the full ``wts`` and its light and heavy views at the default delta x
@@ -421,8 +426,8 @@ def main() -> int:
     from repro_torch.kernels.ref import (embedding_bag_grouped_ref,
                                          embedding_bag_ref)
     from repro_torch.models import dlrm
-    from repro_torch.profile_spmm import (chunk_split, pull_mm_split,
-                                          pull_work, sssp_sweeps, sweep_times,
+    from repro_torch.profile_spmm import (chunk_split, pull_split, pull_work,
+                                          sssp_sweeps, sweep_times,
                                           tile_slots, time_ms)
 
     def weighted_kronecker(scale):
@@ -532,8 +537,12 @@ def main() -> int:
         f"1e-5")
     # the two SpMV entries on the same graph, whose hub chunk they cut into
     # pieces of their own, at C=8, L=128 and at C=3, L=1 (padding rows in
-    # the last chunk), with a mask that keeps one tile of the hub besides
+    # the last chunk), with a mask that keeps one tile of the hub besides;
+    # the packed SpMV (5) over the same pieces at both layouts, and the
+    # single-source pull (3) at C=8, L=128 (its plain version loops over
+    # each tile rank of the longest chunk, 16,383 at L=1: seconds a call)
     n_cases, spmv_pieces = 0, {}
+    n_single = {"slimsell_pull": 0, "slimsell_spmv_packed": 0}
     for hname, (C, L) in (("C8 L128", (8, 128)), ("C3 L1", (3, 1))):
         ht = hub if (C, L) == (8, 128) else build_slimsell(
             hub_csr, C=C, L=L).to_torch(dev)
@@ -561,13 +570,36 @@ def main() -> int:
                             ops.spmv(semiring.MINPLUS, ht, xh, tile_mask=mask,
                                      weights=w), want, errs, what)
             n_cases += len(SEMIRINGS) + 2
+            for density in (0.02, 0.5):
+                xw = packing.pack_bits(torch.from_numpy(
+                    g3.random(ht.n) < density).to(dev))
+                check_equal("slimsell_spmv_packed",
+                            ops.spmv_packed(ht, xw, tile_mask=mask),
+                            spmv_packed_plain(ht, xw, mask), errs,
+                            f"{what} density={density}")
+                n_single["slimsell_spmv_packed"] += 1
+            if L > 1:
+                for name in SEMIRINGS:
+                    sr = semiring.get(name)
+                    for kind in ("random", "all"):
+                        xh = frontier(sr, (ht.n,), g3, dev)
+                        nf = not_final(kind, (ht.n,), g3, dev)
+                        check_equal("slimsell_pull",
+                                    ops.pull(sr, ht, xh, nf, tile_mask=mask),
+                                    pull_plain(sr, ht, xh, nf, mask), errs,
+                                    f"{what} {name} nf={kind}")
+                        n_single["slimsell_pull"] += 1
         del ht, hm, poisoned
     torch.cuda.synchronize()
     log(f"[3] SpMV entries == plain on {n_cases} cases of the hub graph (the "
         f"hub's chunk in {spmv_pieces} pieces of the SpMV; 6 masks, one "
         f"keeping a single tile of the hub): the implicit SpMV in 4 semirings "
         f"and the stored-weight SpMV (the layout's weights and padding "
-        f"weights poisoned to -1000) exactly")
+        f"weights poisoned to -1000) exactly; on the same pieces "
+        f"slimsell_spmv_packed == plain on {n_single['slimsell_spmv_packed']}"
+        f" cases (both layouts, 2 densities) and slimsell_pull == plain on "
+        f"{n_single['slimsell_pull']} (C8 L128, 4 semirings x nf random and "
+        f"all)")
     # the batched pull and the packed SpMM on the same graph, over the
     # SpMV's pieces: the pull's first hit across pieces (its plain version
     # once at B=160, each narrower batch its first columns: the pull is
@@ -613,12 +645,22 @@ def main() -> int:
                             want[:, :width], errs,
                             f"hub graph {name} B={width} {what}")
                 n_cases += 1
+            if what.startswith("hub's hit"):
+                # the single-source pull on the first column: the plain
+                # pull is column by column
+                check_equal("slimsell_pull",
+                            ops.pull(sr, hub, Xh[:, 0].contiguous(),
+                                     nf[:, 0].contiguous()),
+                            want[:, 0], errs, f"hub graph {name} {what}")
+                n_single["slimsell_pull"] += 1
     torch.cuda.synchronize()
     log(f"[3] slimsell_pull_mm == plain on {n_cases} cases of the hub graph "
         f"(the hub's chunk in {len(hub_pieces_pull)} pieces of the SpMV's "
         f"list; 4 semirings x B=1/5/33/64/97/160 x the 5 masks x nf random "
         f"and all, and the hub's first hit only in the first, a middle or "
-        f"the last piece, or in a middle and the last with other values)")
+        f"the last piece, or in a middle and the last with other values); "
+        f"slimsell_pull == plain on those hits too, "
+        f"{n_single['slimsell_pull']} single-source hub cases in all")
     n_cases = 0
     for hname, (C, L) in (("C8 L128", (8, 128)), ("C3 L1", (3, 1))):
         ht = hub if (C, L) == (8, 128) else build_slimsell(
@@ -896,8 +938,7 @@ def main() -> int:
         nf2 = nf.reshape(tiled.n, width)
         _, ranks = pull_first_hits(tropical, tiled, xt.reshape(tiled.n, width),
                                    nf2, mask)
-        work = pull_work(tiled, ranks, nf2, mask,
-                         None if width == 1 else ops.spmv_piece_tiles(tiled.L))
+        work = pull_work(tiled, ranks, nf2, mask, ops.spmv_piece_tiles(tiled.L))
         # cols read through the hits, x in, nf in, y out, layout indices
         moved = 4 * work["slots_read"] + 4 * xt.numel() + nf.numel() \
             + 4 * xt.numel() + index_bytes
@@ -907,6 +948,10 @@ def main() -> int:
         push_mask = dm.push_tile_mask(tiled, fbits > 0)
         push_ms = time_ms(lambda: push_fn(tropical, tiled, xt,
                                           tile_mask=push_mask), 20)
+        # the single-source pull beside the batched pull at B=1 on its state
+        extra = {} if width > 1 else {"pull_mm_b1_ms": time_ms(
+            lambda: ops.pull_mm(tropical, tiled, xt[:, None].contiguous(),
+                                nf[:, None].contiguous(), tile_mask=mask), 20)}
         bound_ms = row(kern, ms, plain_ms, library_ms, moved,
                        work.pop("operations"), batch=width, iteration=k,
                        pending_rows=pending, tiles_kept=int(mask.sum()),
@@ -914,23 +959,25 @@ def main() -> int:
                        library_call=("torch.sparse.mm" if width > 1 else
                                      "sparse CSR @ x")
                        + " (real; full reduction, not the same function)",
-                       **work)
+                       **extra, **work)
         log(f"[6] {kern} B={width} at iteration {k}: kernel {ms:.4f} ms plain "
             f"{plain_ms:.3f} ms library (full reduction, not the same "
             f"function) {library_ms:.4f} ms bound {bound_ms:.4f} ms "
             f"({moved / 1e9:.4f} GB) | push sweep of this iteration "
-            f"{push_ms:.4f} ms over {int(push_mask.sum())} tiles | pending "
-            f"rows {pending}, tiles kept {int(mask.sum())}, {work} on {card}")
-        if kern == "slimsell_pull_mm":
-            # the parts of the layout, each within the state's mask, and
-            # the floor: no pending (row, column), reading nf and writing Y
-            split = pull_mm_split(tiled, xt, nf, mask, parts=SPLIT_PARTS)
-            table[-1]["chunk_split"] = split
-            log(f"[6] {kern} B={width} over parts of the layout (each within "
-                f"the state's mask): {split_line(split)}; slots read past "
-                f"the first hits (pieces of {ops.spmv_piece_tiles(tiled.L)} "
-                f"tiles side by side) at most {work['slots_past_hits']} of "
-                f"{work['slots_read']} on {card}")
+            f"{push_ms:.4f} ms over {int(push_mask.sum())} tiles"
+            + (f" | slimsell_pull_mm B=1 on this state "
+               f"{extra['pull_mm_b1_ms']:.4f} ms" if extra else "")
+            + f" | pending rows {pending}, tiles kept {int(mask.sum())}, "
+            f"{work} on {card}")
+        # the parts of the layout, each within the state's mask, and the
+        # floor: no pending row (or (row, column)), reading nf and writing y
+        split = pull_split(tiled, xt, nf, mask, parts=SPLIT_PARTS)
+        table[-1]["chunk_split"] = split
+        log(f"[6] {kern} B={width} over parts of the layout (each within "
+            f"the state's mask): {split_line(split)}; slots read past "
+            f"the first hits (pieces of {ops.spmv_piece_tiles(tiled.L)} "
+            f"tiles side by side) at most {work['slots_past_hits']} of "
+            f"{work['slots_read']} on {card}")
     torch.cuda.synchronize()
 
     # ---- 7: SlimSell-B, the bit-packed boolean path
@@ -1124,13 +1171,12 @@ def main() -> int:
             f"GB) | iteration mask ({n_kept} tiles) kernel {masked_ms:.4f} ms "
             f"bound {masked_bound_ms:.4f} ms ({masked_moved / 1e9:.4f} GB) on "
             f"{card}")
-        if width is not None:
-            split = chunk_split(lambda m: fn(tiled, xw, tile_mask=m), tiled)
-            table[-1]["chunk_split"] = split
-            spmv_ms = next(r["ms"] for r in table if r["name"] == "slimsell_spmv")
-            log(f"[7c] {kern} B={width} over parts of the layout: "
-                f"{split_line(split)}; slimsell_spmv (1) with every tile kept "
-                f"in this run (phase 6) {spmv_ms:.4f} ms on {card}")
+        split = chunk_split(lambda m: fn(tiled, xw, tile_mask=m), tiled)
+        table[-1]["chunk_split"] = split
+        spmv_ms = next(r["ms"] for r in table if r["name"] == "slimsell_spmv")
+        log(f"[7c] {kern} B={width or 1} over parts of the layout: "
+            f"{split_line(split)}; slimsell_spmv (1) with every tile kept "
+            f"in this run (phase 6) {spmv_ms:.4f} ms on {card}")
     torch.cuda.synchronize()
 
     # (d) the paper's storage accounting at scale 20

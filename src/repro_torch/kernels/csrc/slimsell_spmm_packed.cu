@@ -44,23 +44,20 @@
 //   is written once a row and word, zero included; a padding row
 //   (row_vertex -1) writes nothing. Words are ORs of X words, so X's zero
 //   tail bits stay zero in Y.
-#include <cstdint>
-
-#include <cuda_runtime.h>
+// The walk of a row of the list (the width classes, rows a warp, the
+// 8-slot groups, the SlimWork skip and the scalar tail below cl) is
+// row_walk.cuh's, shared with the SpMV (slimsell_spmv.cu), the
+// single-source pull (slimsell_pull.cu) and the packed SpMV
+// (slimsell_spmv_packed.cu).
+#include "row_walk.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kClasses = 6;  // lanes a row: 1, 2, 4, 8, 16, 32
-constexpr int kGroup = 8;    // slots a lane takes a step: 32 bytes of cols
-constexpr int kWarps = 8;    // independent warps a block
+using row_walk::Classes;
+using row_walk::kFull;
+using row_walk::kGroup;
+using row_walk::kWarps;
 constexpr int kMaxWords = 4; // word planes one block covers (128 roots)
-
-// where each width class starts in the item list and in the grid's warps
-struct Classes {
-  int item0[kClasses + 1];
-  int warp0[kClasses + 1];
-};
 
 // words w0 .. w0 + nw - 1 of one X row, ORed into acc; WORDS is the most a
 // block covers, VW the words of one vector load (VW divides nw)
@@ -97,51 +94,23 @@ __device__ __forceinline__ void sweep_rows(
     const bool* __restrict__ tile_mask, const unsigned* __restrict__ X,
     unsigned* __restrict__ Y, unsigned* __restrict__ partial, int C, int L,
     int Wb) {
-  constexpr int R = 32 / LANES;
-  const int lane = threadIdx.x & 31;
-  const int lg = lane % LANES;
-  const int i = warp * R + lane / LANES;  // the row within the class
-  const bool live = i < n_items * C;
+  const row_walk::Row row = row_walk::row_of<LANES>(items, n_items, warp, C);
   const int w0 = blockIdx.y * kMaxWords;
   const int nw = min(WORDS, Wb - w0);
   unsigned acc[WORDS];
 #pragma unroll
   for (int j = 0; j < WORDS; ++j) acc[j] = 0u;
-  int r = 0, slot = -1, v = -1;
-  if (live) {
-    const int4 it = items[i / C];  // (chunk, first tile, slots, slot)
-    r = i % C;
-    slot = it.w;
-    if (slot < 0) v = row_vertex[static_cast<size_t>(it.x) * C + r];
-    int t = it.y;
-    for (int done = 0; done < it.z; done += L, ++t) {
-      if (tile_mask != nullptr && !tile_mask[t]) continue;  // SlimWork skip
-      const int lim = min(L, it.z - done);                  // slots before cl
-      const size_t row = (static_cast<size_t>(t) * C + r) * L;
-      for (int s = kGroup * lg; s < lim; s += kGroup * LANES) {
-        int c[kGroup];
-        if (CVEC && s + kGroup <= lim) {
-#pragma unroll
-          for (int q = 0; q < kGroup / 4; ++q) {
-            const int4 v4 =
-                __ldcs(reinterpret_cast<const int4*>(cols + row + s) + q);
-            c[4 * q] = v4.x;
-            c[4 * q + 1] = v4.y;
-            c[4 * q + 2] = v4.z;
-            c[4 * q + 3] = v4.w;
-          }
-        } else {
+  int v = -1;
+  if (row.live) {
+    if (row.it.w < 0) v = row_vertex[static_cast<size_t>(row.it.x) * C + row.r];
+    row_walk::walk_row<CVEC, LANES>(
+        cols, tile_mask, row, C, L, [&](const int (&c)[kGroup], size_t, bool) {
 #pragma unroll
           for (int j = 0; j < kGroup; ++j)
-            c[j] = s + j < lim ? __ldcs(cols + row + s + j) : -1;
-        }
-#pragma unroll
-        for (int j = 0; j < kGroup; ++j)
-          if (c[j] >= 0)
-            or_words<WORDS, VW>(X + static_cast<size_t>(c[j]) * Wb + w0, nw,
-                                acc);
-      }
-    }
+            if (c[j] >= 0)
+              or_words<WORDS, VW>(X + static_cast<size_t>(c[j]) * Wb + w0, nw,
+                                  acc);
+        });
   }
   // the LANES lanes of a row, ORed
 #pragma unroll
@@ -149,10 +118,10 @@ __device__ __forceinline__ void sweep_rows(
 #pragma unroll
     for (int j = 0; j < WORDS; ++j)
       acc[j] |= __shfl_xor_sync(kFull, acc[j], off);
-  if (!live || lg != 0) return;
+  if (!row.live || row.lg != 0) return;
   unsigned* out = nullptr;
-  if (slot >= 0)
-    out = partial + (static_cast<size_t>(slot) * C + r) * Wb + w0;
+  if (row.it.w >= 0)
+    out = partial + (static_cast<size_t>(row.it.w) * C + row.r) * Wb + w0;
   else if (v >= 0)
     out = Y + static_cast<size_t>(v) * Wb + w0;
   if (out == nullptr) return;
@@ -171,37 +140,11 @@ __global__ void __launch_bounds__(32 * kWarps)
                        unsigned* __restrict__ Y,
                        unsigned* __restrict__ partial, int C, int L, int Wb,
                        Classes cls) {
-  const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (warp >= cls.warp0[kClasses]) return;  // the whole warp
-  // the class: warp0[k] <= warp < warp0[k + 1] (no indexing of cls by a
-  // runtime value, which would copy it to local memory)
-  int k = 0, item0 = 0, item1 = cls.item0[1], warp0 = 0;
-#pragma unroll
-  for (int j = 1; j < kClasses; ++j)
-    if (warp >= cls.warp0[j]) {
-      k = j;
-      item0 = cls.item0[j];
-      item1 = cls.item0[j + 1];
-      warp0 = cls.warp0[j];
-    }
-  const int4* it = items + item0;
-  const int n = item1 - item0;
-  const int w = warp - warp0;
-#define SPMM_PACKED_CLASS(K)                                              \
-  case K:                                                                 \
-    sweep_rows<WORDS, VW, CVEC, 1 << K>(cols, it, n, w, row_vertex,       \
-                                        tile_mask, X, Y, partial, C, L,   \
-                                        Wb);                              \
-    break;
-  switch (k) {
-    SPMM_PACKED_CLASS(0)
-    SPMM_PACKED_CLASS(1)
-    SPMM_PACKED_CLASS(2)
-    SPMM_PACKED_CLASS(3)
-    SPMM_PACKED_CLASS(4)
-    SPMM_PACKED_CLASS(5)
-  }
-#undef SPMM_PACKED_CLASS
+  row_walk::for_warp(cls, items, [&](auto lanes, const int4* it, int n,
+                                     int w) {
+    sweep_rows<WORDS, VW, CVEC, decltype(lanes)::value>(
+        cols, it, n, w, row_vertex, tile_mask, X, Y, partial, C, L, Wb);
+  });
 }
 
 // One thread per (split chunk, row, word): the partial rows of the chunk's
@@ -290,31 +233,18 @@ extern "C" int slimsell_spmm_packed(const void* cols, const void* row_vertex,
                                     int n_folds, void* partial, const void* X,
                                     void* Y, int C, int L, int Wb,
                                     void* stream) {
-  const int* counts = static_cast<const int*>(class_items);
-  if (counts == nullptr || C < 1 || C > 32 || L < 1 || Wb < 1 || n_folds < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
   Args a{static_cast<const int*>(cols), static_cast<const int4*>(items),
          static_cast<const int*>(row_vertex),
          static_cast<const bool*>(tile_mask), static_cast<const unsigned*>(X),
          static_cast<unsigned*>(Y), static_cast<unsigned*>(partial), C, L, Wb,
          {}, 0u, static_cast<cudaStream_t>(stream)};
-  long long item = 0, warp = 0;
-  for (int k = 0; k < kClasses; ++k) {
-    if (counts[k] < 0) return static_cast<int>(cudaErrorInvalidValue);
-    a.cls.item0[k] = static_cast<int>(item);
-    a.cls.warp0[k] = static_cast<int>(warp);
-    const int rows_a_warp = 32 >> k;
-    warp += (static_cast<long long>(counts[k]) * C + rows_a_warp - 1) /
-            rows_a_warp;
-    item += counts[k];
-  }
   // the kernels count rows (items x C, and so warps) in int
-  if (item * C > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  a.cls.item0[kClasses] = static_cast<int>(item);
-  a.cls.warp0[kClasses] = static_cast<int>(warp);
-  a.blocks = static_cast<unsigned>((warp + kWarps - 1) / kWarps);
-  if (warp > 0) {
-    if (L % 4 == 0 && aligned(cols, 16))
+  if (C < 1 || C > 32 || L < 1 || Wb < 1 || n_folds < 0 ||
+      !row_walk::make_classes(static_cast<const int*>(class_items), C, a.cls))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.blocks = row_walk::blocks(a.cls);
+  if (a.blocks > 0) {
+    if (L % 4 == 0 && row_walk::aligned16(cols))
       launch_words<true>(a);
     else
       launch_words<false>(a);

@@ -57,28 +57,25 @@
 //   contributes the semiring zero, and its weight is not read (a group
 //   with a pad loads the weights of its edges one by one). A padding row
 //   (row_vertex -1) writes nothing.
-#include <cstdint>
-
+// The walk of a row of the list (the width classes, rows a warp, the
+// 8-slot groups, the SlimWork skip and the scalar tail below cl) is
+// row_walk.cuh's, shared with the single-source pull (slimsell_pull.cu)
+// and the packed sweeps (slimsell_spmv_packed.cu, slimsell_spmm_packed.cu).
+#include "row_walk.cuh"
 #include "semiring.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kClasses = 6;  // lanes a row: 1, 2, 4, 8, 16, 32
-constexpr int kGroup = 8;    // slots a lane takes a step: 32 bytes of cols
-constexpr int kWarps = 8;    // independent warps a block
-
-// where each width class starts in the item list and in the grid's warps
-struct Classes {
-  int item0[kClasses + 1];
-  int warp0[kClasses + 1];
-};
+using row_walk::Classes;
+using row_walk::kFull;
+using row_walk::kGroup;
+using row_walk::kWarps;
 
 struct Args {
   const int* cols;
   const float* wts;
   const int4* items;
-  const int* class_items;  // host array: items of each class
+  Classes cls;
   const int4* folds;
   int n_folds;
   const int* row_vertex;
@@ -114,78 +111,51 @@ __device__ __forceinline__ void sweep_rows(
     typename Semiring<SR>::T* __restrict__ partial, int C, int L) {
   using S = Semiring<SR>;
   using T = typename S::T;
-  constexpr int R = 32 / LANES;
-  const int lane = threadIdx.x & 31;
-  const int lg = lane % LANES;
-  const int i = warp * R + lane / LANES;  // the row within the class
-  const bool live = i < n_items * C;
+  const row_walk::Row row = row_walk::row_of<LANES>(items, n_items, warp, C);
   T acc = S::zero();
-  int r = 0, slot = -1, v = -1;
-  if (live) {
-    const int4 it = items[i / C];  // (chunk, first tile, slots, slot)
-    r = i % C;
-    slot = it.w;
-    if (slot < 0) v = row_vertex[static_cast<size_t>(it.x) * C + r];
-    int t = it.y;
-    for (int done = 0; done < it.z; done += L, ++t) {
-      if (tile_mask != nullptr && !tile_mask[t]) continue;  // SlimWork skip
-      const int lim = min(L, it.z - done);                  // slots before cl
-      const size_t row = (static_cast<size_t>(t) * C + r) * L;
-      for (int s = kGroup * lg; s < lim; s += kGroup * LANES) {
-        int c[kGroup];
-        float w[kGroup] = {};
-        const bool whole = VEC && s + kGroup <= lim;
-        if (whole) {
+  int v = -1;
+  if (row.live) {
+    if (row.it.w < 0) v = row_vertex[static_cast<size_t>(row.it.x) * C + row.r];
+    row_walk::walk_row<VEC, LANES>(
+        cols, tile_mask, row, C, L,
+        [&](const int (&c)[kGroup], size_t at, bool whole) {
+          float w[kGroup] = {};
+          if constexpr (WTS) {
+            int all = 0;  // sign bit set if any slot of the group is padding
 #pragma unroll
-          for (int q = 0; q < kGroup / 4; ++q) {
-            const int4 v4 =
-                __ldcs(reinterpret_cast<const int4*>(cols + row + s) + q);
-            c[4 * q] = v4.x;
-            c[4 * q + 1] = v4.y;
-            c[4 * q + 2] = v4.z;
-            c[4 * q + 3] = v4.w;
+            for (int j = 0; j < kGroup; ++j) all |= c[j];
+            if (whole && all >= 0) {
+#pragma unroll
+              for (int q = 0; q < kGroup / 4; ++q) {
+                const float4 v4 =
+                    __ldcs(reinterpret_cast<const float4*>(wts + at) + q);
+                w[4 * q] = v4.x;
+                w[4 * q + 1] = v4.y;
+                w[4 * q + 2] = v4.z;
+                w[4 * q + 3] = v4.w;
+              }
+            } else {
+#pragma unroll
+              for (int j = 0; j < kGroup; ++j)
+                w[j] = c[j] >= 0 ? __ldcs(wts + at + j) : 0.0f;
+            }
           }
-        } else {
+          T got[kGroup];
 #pragma unroll
           for (int j = 0; j < kGroup; ++j)
-            c[j] = s + j < lim ? __ldcs(cols + row + s + j) : -1;
-        }
-        if constexpr (WTS) {
-          int all = 0;  // sign bit set if any slot of the group is padding
+            got[j] = c[j] >= 0 ? contribution<SR, WTS>(x, c[j], w[j])
+                               : S::zero();
 #pragma unroll
-          for (int j = 0; j < kGroup; ++j) all |= c[j];
-          if (whole && all >= 0) {
-#pragma unroll
-            for (int q = 0; q < kGroup / 4; ++q) {
-              const float4 v4 =
-                  __ldcs(reinterpret_cast<const float4*>(wts + row + s) + q);
-              w[4 * q] = v4.x;
-              w[4 * q + 1] = v4.y;
-              w[4 * q + 2] = v4.z;
-              w[4 * q + 3] = v4.w;
-            }
-          } else {
-#pragma unroll
-            for (int j = 0; j < kGroup; ++j)
-              w[j] = c[j] >= 0 ? __ldcs(wts + row + s + j) : 0.0f;
-          }
-        }
-        T got[kGroup];
-#pragma unroll
-        for (int j = 0; j < kGroup; ++j)
-          got[j] = c[j] >= 0 ? contribution<SR, WTS>(x, c[j], w[j]) : S::zero();
-#pragma unroll
-        for (int j = 0; j < kGroup; ++j) acc = S::add(acc, got[j]);
-      }
-    }
+          for (int j = 0; j < kGroup; ++j) acc = S::add(acc, got[j]);
+        });
   }
   // the LANES sums of a row, folded in a fixed tree
 #pragma unroll
   for (int off = LANES / 2; off > 0; off >>= 1)
     acc = S::add(acc, __shfl_xor_sync(kFull, acc, off));
-  if (!live || lg != 0) return;
-  if (slot >= 0)
-    partial[static_cast<size_t>(slot) * C + r] = acc;
+  if (!row.live || row.lg != 0) return;
+  if (row.it.w >= 0)
+    partial[static_cast<size_t>(row.it.w) * C + row.r] = acc;
   else if (v >= 0)
     y[v] = acc;
 }
@@ -200,36 +170,11 @@ __global__ void __launch_bounds__(32 * kWarps)
                 typename Semiring<SR>::T* __restrict__ y,
                 typename Semiring<SR>::T* __restrict__ partial, int C, int L,
                 Classes cls) {
-  const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (warp >= cls.warp0[kClasses]) return;  // the whole warp
-  // the class: warp0[k] <= warp < warp0[k + 1] (no indexing of cls by a
-  // runtime value, which would copy it to local memory)
-  int k = 0, item0 = 0, item1 = cls.item0[1], warp0 = 0;
-#pragma unroll
-  for (int j = 1; j < kClasses; ++j)
-    if (warp >= cls.warp0[j]) {
-      k = j;
-      item0 = cls.item0[j];
-      item1 = cls.item0[j + 1];
-      warp0 = cls.warp0[j];
-    }
-  const int4* it = items + item0;
-  const int n = item1 - item0;
-  const int w = warp - warp0;
-#define SPMV_CLASS(K)                                                     \
-  case K:                                                                 \
-    sweep_rows<SR, WTS, VEC, 1 << K>(cols, wts, it, n, w, row_vertex,     \
-                                     tile_mask, x, y, partial, C, L);     \
-    break;
-  switch (k) {
-    SPMV_CLASS(0)
-    SPMV_CLASS(1)
-    SPMV_CLASS(2)
-    SPMV_CLASS(3)
-    SPMV_CLASS(4)
-    SPMV_CLASS(5)
-  }
-#undef SPMV_CLASS
+  row_walk::for_warp(cls, items, [&](auto lanes, const int4* it, int n,
+                                     int w) {
+    sweep_rows<SR, WTS, VEC, decltype(lanes)::value>(
+        cols, wts, it, n, w, row_vertex, tile_mask, x, y, partial, C, L);
+  });
 }
 
 // One thread per (split chunk, row): the partial rows of the chunk's
@@ -254,41 +199,25 @@ __global__ void fold_kernel(const int4* __restrict__ folds, int total,
   y[v] = acc;
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
 // the sweep, then the fold of the split chunks
 template <int SR, bool WTS>
 cudaError_t launch(const Args& a) {
   using T = typename Semiring<SR>::T;
-  Classes cls;
-  long long item = 0, warp = 0;
-  for (int k = 0; k < kClasses; ++k) {
-    cls.item0[k] = static_cast<int>(item);
-    cls.warp0[k] = static_cast<int>(warp);
-    const int rows_a_warp = 32 >> k;
-    warp += (static_cast<long long>(a.class_items[k]) * a.C + rows_a_warp - 1) /
-            rows_a_warp;
-    item += a.class_items[k];
-  }
-  cls.item0[kClasses] = static_cast<int>(item);
-  cls.warp0[kClasses] = static_cast<int>(warp);
-  if (warp > 0) {
-    const unsigned blocks = static_cast<unsigned>((warp + kWarps - 1) / kWarps);
-    const bool vec = a.L % 4 == 0 && aligned16(a.cols) &&
-                     (!WTS || aligned16(a.wts));
+  if (a.cls.warp0[row_walk::kClasses] > 0) {
+    const unsigned blocks = row_walk::blocks(a.cls);
+    const bool vec = a.L % 4 == 0 && row_walk::aligned16(a.cols) &&
+                     (!WTS || row_walk::aligned16(a.wts));
     const auto* x = static_cast<const T*>(a.x);
     auto* y = static_cast<T*>(a.y);
     auto* partial = static_cast<T*>(a.partial);
     if (vec)
       spmv_kernel<SR, WTS, true><<<blocks, 32 * kWarps, 0, a.stream>>>(
           a.cols, a.wts, a.items, a.row_vertex, a.tile_mask, x, y, partial,
-          a.C, a.L, cls);
+          a.C, a.L, a.cls);
     else
       spmv_kernel<SR, WTS, false><<<blocks, 32 * kWarps, 0, a.stream>>>(
           a.cols, a.wts, a.items, a.row_vertex, a.tile_mask, x, y, partial,
-          a.C, a.L, cls);
+          a.C, a.L, a.cls);
   }
   if (a.n_folds > 0) {
     const int total = a.n_folds * a.C;
@@ -305,18 +234,14 @@ struct Implicit {
   template <int SR> void operator()() const { launch<SR, false>(a); }
 };
 
-// Refused before any launch, by both entries alike. The kernels count rows
-// (items x C, and so warps) and fold rows in int.
-bool bad_args(const int* class_items, int n_folds, int C, int L) {
-  if (class_items == nullptr || C < 1 || C > 32 || L < 1 || n_folds < 0)
+// Refused before any launch, by both entries alike; fills the classes. The
+// kernels count rows (items x C, and so warps) and fold rows in int.
+bool bad_args(const int* class_items, int n_folds, int C, int L,
+              Classes& cls) {
+  if (C < 1 || C > 32 || L < 1 || n_folds < 0 ||
+      !row_walk::make_classes(class_items, C, cls))
     return true;
-  long long items = 0;
-  for (int k = 0; k < kClasses; ++k) {
-    if (class_items[k] < 0) return true;
-    items += class_items[k];
-  }
-  return items * C > 0x7fffffffLL ||
-         static_cast<long long>(n_folds) * C > 0x7fffffffLL;
+  return static_cast<long long>(n_folds) * C > 0x7fffffffLL;
 }
 
 }  // namespace
@@ -337,11 +262,11 @@ extern "C" int slimsell_spmv(int sr_code, const void* cols,
                              const void* folds, int n_folds, void* partial,
                              const void* x, void* y, int C, int L,
                              void* stream) {
-  if (bad_args(static_cast<const int*>(class_items), n_folds, C, L))
+  Classes cls;
+  if (bad_args(static_cast<const int*>(class_items), n_folds, C, L, cls))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const int*>(cols), nullptr,
-               static_cast<const int4*>(items),
-               static_cast<const int*>(class_items),
+               static_cast<const int4*>(items), cls,
                static_cast<const int4*>(folds), n_folds,
                static_cast<const int*>(row_vertex),
                static_cast<const bool*>(tile_mask), x, y, partial, C, L,
@@ -357,11 +282,11 @@ extern "C" int slimsell_spmv_wts(const void* cols, const void* wts,
                                  const void* folds, int n_folds, void* partial,
                                  const void* x, void* y, int C, int L,
                                  void* stream) {
-  if (bad_args(static_cast<const int*>(class_items), n_folds, C, L))
+  Classes cls;
+  if (bad_args(static_cast<const int*>(class_items), n_folds, C, L, cls))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const int*>(cols), static_cast<const float*>(wts),
-               static_cast<const int4*>(items),
-               static_cast<const int*>(class_items),
+               static_cast<const int4*>(items), cls,
                static_cast<const int4*>(folds), n_folds,
                static_cast<const int*>(row_vertex),
                static_cast<const bool*>(tile_mask), x, y, partial, C, L,

@@ -29,14 +29,18 @@ launch with T = 1. Their plain versions are ``kernels.ref``'s
 No sweep kernel gives one block a whole chunk. The SpMM kernels take
 ``spmm_work``: each chunk's tiles cut into pieces of at most
 ``piece_tiles(L)`` tiles, one block each; the kernel folds the pieces of
-a split chunk in order. The SpMV kernels, the packed SpMM and the batched
-pull take ``spmv_work``: pieces of at most ``spmv_piece_tiles(L)`` tiles,
-each with the lanes a row its length needs (``spmv_lanes``), sorted by
-that width so that a warp takes several short rows (the pull ignores the
-widths). The pull folds a split chunk by taking, for
-each (row, column), the first piece's hit in piece order, not the
-semiring add of the pieces. Each list is built at a layout's first launch
-of its kernels and kept on the layout (``tiled.spmm_work``,
+a split chunk in order. Every other sweep kernel takes ``spmv_work``:
+pieces of at most ``spmv_piece_tiles(L)`` tiles, each with the lanes a
+row its length needs (``spmv_lanes``), sorted by that width so that a
+warp takes several short rows. The SpMV kernels and the packed SpMM fold
+a split chunk's pieces in piece order (the semiring add, or the OR);
+the packed SpMV needs no fold, its pieces ORing their rows' bits into the
+zeroed bitmap with atomics. The single-source pull walks its tiles a few
+at a time by the same widths and exits a row at its first hitting tile;
+the batched pull ignores the widths. Both pulls fold a split chunk by
+taking, for each row (and column), the first piece's hit in piece order,
+not the semiring add of the pieces. Each list is built at a layout's
+first launch of its kernels and kept on the layout (``tiled.spmm_work``,
 ``tiled.spmv_work``).
 
 The kernels take the SlimWork mask as the bool ``tile_mask`` itself and
@@ -114,12 +118,12 @@ SPMM_GCN = Kernel("slimsell_spmm_gcn",
                   [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P,
                    _I, _I, _I, _P], source="slimsell_spmm")
 PULL = Kernel("slimsell_pull",
-              [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
+              [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P])
 PULL_MM = Kernel("slimsell_pull_mm",
                  [_I, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I,
                   _P])
 SPMV_PACKED = Kernel("slimsell_spmv_packed",
-                     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
+                     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P])
 SPMM_PACKED = Kernel("slimsell_spmm_packed",
                      [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P])
 EMBEDDING_BAG_GROUPED = Kernel("embedding_bag_grouped",
@@ -444,12 +448,17 @@ def pull(sr: Semiring, tiled, x: torch.Tensor, row_mask: torch.Tensor, *,
     _check_rows(x, row_mask)
     if x.device.type == "cpu":
         return pull_plain(sr, tiled, x, row_mask, tile_mask)
-    ptrs = _cuda_operands(tiled, x, tile_mask)
+    cols, _, row_vertex, _, mask = _cuda_operands(tiled, x, tile_mask)
+    items, classes, folds, slots = _spmv_work_on_device(tiled)
     y = torch.empty_like(x)
+    partial = x.new_empty(slots * tiled.C) if folds.shape[0] else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        PULL.launch(sr.code, *ptrs, row_mask.data_ptr(), x.data_ptr(),
-                    y.data_ptr(), tiled.n_chunks, tiled.C, tiled.L, stream)
+        PULL.launch(sr.code, cols, row_vertex, mask, row_mask.data_ptr(),
+                    items.data_ptr(), classes, folds.data_ptr(),
+                    folds.shape[0],
+                    0 if partial is None else partial.data_ptr(),
+                    x.data_ptr(), y.data_ptr(), tiled.C, tiled.L, stream)
     return y
 
 
@@ -485,12 +494,14 @@ def spmv_packed(tiled, x_words: torch.Tensor, *,
            rows=packing.packed_words(tiled.n))
     if x_words.device.type == "cpu":
         return spmv_packed_plain(tiled, x_words, tile_mask)
-    ptrs = _cuda_operands(tiled, x_words, tile_mask)
+    cols, _, row_vertex, _, mask = _cuda_operands(tiled, x_words, tile_mask)
+    items, classes, _, _ = _spmv_work_on_device(tiled)
     y = torch.zeros_like(x_words)  # the kernel ORs the reached bits in
     with torch.cuda.device(x_words.device):
         stream = torch.cuda.current_stream(x_words.device).cuda_stream
-        SPMV_PACKED.launch(*ptrs, x_words.data_ptr(), y.data_ptr(),
-                           tiled.n_chunks, tiled.C, tiled.L, stream)
+        SPMV_PACKED.launch(cols, row_vertex, mask, items.data_ptr(), classes,
+                           x_words.data_ptr(), y.data_ptr(), tiled.C,
+                           tiled.L, stream)
     return y
 
 

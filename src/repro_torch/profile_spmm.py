@@ -27,9 +27,17 @@ mask, with one more part that has no pending (row, column) (the floor:
 reading the not-final bits and writing Y), the slots the first hits need
 (``pull_work``) and the push SpMM of the same iteration; and the packed
 SpMM (6, ``slimsell_spmm_packed``, B=64) at the packed batch's iteration
-with the most tiles, every tile kept. ``--only`` picks the groups to run
-(``spmv``, ``spmm``, ``pull_mm``, ``spmm_packed``). The last line is all
-of it as JSON.
+with the most tiles, every tile kept. Two more run at real states of
+single-source BFS from Graph500's first search key (``chip_smoke.py``'s
+phase-4b root): the single-source pull (3, ``slimsell_pull``, tropical)
+at the state just before the first iteration that the auto BFS runs as
+pull, split as kernel 4 is, beside ``pull_work``, the push SpMV of the
+same iteration over its push mask and kernel 4 at B=1 on the same state;
+and the packed SpMV (5, ``slimsell_spmv_packed``) at the packed BFS's
+iteration with the most tiles, every tile kept, beside kernel 1 (tropical,
+random x) in the same call. ``--only`` picks the groups to run
+(``spmv``, ``spmm``, ``pull``, ``pull_mm``, ``spmv_packed``,
+``spmm_packed``). The last line is all of it as JSON.
 
 It measures the device, so it needs a CUDA card and raises without one.
 """
@@ -45,6 +53,7 @@ import torch
 from .configs.sssp_graph500 import WEIGHT_HIGH, WEIGHT_LOW
 from .core import direction as dm
 from .core import engine, semiring
+from .core.bfs import bfs, bfs_spec, packed_bfs_spec
 from .core.formats import build_slimsell
 from .core.multi_bfs import (multi_bfs_spec, multi_source_bfs,
                              packed_multi_bfs_spec)
@@ -56,7 +65,8 @@ from .graphs.generators import kronecker, with_random_weights
 from .kernels import ops
 
 EDGE_FACTOR = 16  # Graph500's
-GROUPS = ("spmv", "spmm", "pull_mm", "spmm_packed")
+GROUPS = ("spmv", "spmm", "pull", "pull_mm", "spmv_packed",
+          "spmm_packed")
 
 
 def time_ms(fn, reps: int) -> float:
@@ -277,12 +287,32 @@ def pull_mm_state(tiled, roots: np.ndarray) -> dict:
         raise AssertionError("the auto batch never pulls")
     k = 1 + int(np.argmax(plog > B // 2)) if (plog > B // 2).any() \
         else 1 + int(np.argmax(plog > 0))
-    spec = multi_bfs_spec("tropical")
-    st = engine.run_fused(spec, tiled, torch.from_numpy(roots),
-                          max_iters=k - 1, direction="pull").state
+    return _pull_state(multi_bfs_spec("tropical"), tiled,
+                       torch.from_numpy(roots), k)
+
+
+def pull_state(tiled, root: int) -> dict:
+    """The single-source pull's state as ``chip_smoke.py`` phase 6 builds
+    it: the tropical ``bfs_spec`` state of ``root`` just before the first
+    iteration k that the auto BFS runs as pull, with the same fields as
+    ``pull_mm_state`` (x [n], nf bool[n])."""
+    auto = bfs(tiled, root, "tropical", log_work=True,
+               config=EngineConfig(direction="auto"), device=tiled.device)
+    if not (auto.directions == dm.PULL).any():
+        raise AssertionError("the auto BFS never pulls")
+    k = 1 + int(np.argmax(auto.directions == dm.PULL))
+    return _pull_state(bfs_spec("tropical"), tiled, root, k)
+
+
+def _pull_state(spec, tiled, arg, k: int) -> dict:
+    """``spec``'s state from ``arg`` (a root or the roots) just before
+    iteration k, run in the pull direction, and its SlimWork pull mask."""
+    st = engine.run_fused(spec, tiled, arg, max_iters=k - 1,
+                          direction="pull").state
     nf = spec.not_final(st)
+    rows = nf.any(dim=-1) if nf.ndim > 1 else nf
     return {"k": k, "X": spec.frontier(st, k), "nf": nf,
-            "mask": engine._pull_tile_mask(tiled, nf.any(dim=-1)),
+            "mask": engine._pull_tile_mask(tiled, rows),
             "fbits": spec.source_bits(st, k)}
 
 
@@ -299,38 +329,60 @@ def packed_state(tiled, roots: np.ndarray) -> dict:
     return {"k": k, "X": spec.frontier(st, k), "tiles": int(wl[k - 1])}
 
 
-def pull_mm_split(tiled, X, nf, mask, *, heavy: int = 10, reps: int = 10,
-                  parts=None) -> dict:
-    """Kernel 4 (tropical) at a pull state, X [n, B], nf bool[n, B] and
-    the state's mask: ``chunk_split`` with each part also restricted to
-    the mask, and "no pending" (nf all false: reading nf and writing Y)."""
+def packed_bfs_state(tiled, root: int) -> dict:
+    """The packed single-source BFS's state (``chip_smoke.py`` phase 7c):
+    the packed frontier bitmap x of ``root`` at the iteration k with the
+    most tiles."""
+    res = bfs(tiled, root, "boolean", packed=True, log_work=True,
+              device=tiled.device)
+    k = 1 + int(np.argmax(res.work_log))
+    st = engine.run_fused(packed_bfs_spec(tiled.n), tiled, root,
+                          max_iters=k - 1).state
+    return {"k": k, "X": packed_bfs_spec(tiled.n).frontier(st, k),
+            "tiles": int(res.work_log[k - 1])}
+
+
+def pull_split(tiled, X, nf, mask, *, heavy: int = 10, reps: int = 10,
+               parts=None) -> dict:
+    """The pull (tropical) at a pull state: kernel 3 for X [n], nf bool[n],
+    kernel 4 for X [n, B], nf bool[n, B], with the state's mask:
+    ``chunk_split`` with each part also restricted to the mask, and "no
+    pending" (nf all false: reading nf and writing y, the floor)."""
     tropical = semiring.TROPICAL
-    split = chunk_split(lambda m: ops.pull_mm(tropical, tiled, X, nf,
-                                              tile_mask=m & mask),
+    fn = ops.pull if X.ndim == 1 else ops.pull_mm
+    split = chunk_split(lambda m: fn(tropical, tiled, X, nf,
+                                     tile_mask=m & mask),
                         tiled, heavy=heavy, reps=reps, parts=parts)
     none = torch.zeros_like(nf)
-    split["no pending"] = time_ms(lambda: ops.pull_mm(
-        tropical, tiled, X, none, tile_mask=mask), reps)
+    split["no pending"] = time_ms(lambda: fn(tropical, tiled, X, none,
+                                             tile_mask=mask), reps)
     return split
 
 
-def pull_mm_profile(tiled, state: dict, *, heavy: int, reps: int) -> dict:
-    """Kernel 4 at ``state`` (``pull_mm_state``): ``pull_mm_split``, the
-    slots the first hits need (and at most those its pieces, of
-    ``ops.spmv_piece_tiles`` tiles, read past them) and the push SpMM of
-    the same iteration over its push mask."""
+def pull_profile(tiled, state: dict, *, heavy: int, reps: int) -> dict:
+    """Kernel 3 or 4 at ``state`` (``pull_state`` or ``pull_mm_state``):
+    ``pull_split``, the slots the first hits need (and at most those the
+    pieces, of ``ops.spmv_piece_tiles`` tiles, read past them) and the push
+    sweep of the same iteration over its push mask (the SpMV or the SpMM);
+    for kernel 3 also kernel 4 at B=1 on the same state."""
     tropical = semiring.TROPICAL
     X, nf, mask = state["X"], state["nf"], state["mask"]
-    split = pull_mm_split(tiled, X, nf, mask, heavy=heavy, reps=reps)
-    _, ranks = pull_first_hits(tropical, tiled, X, nf, mask)
-    work = pull_work(tiled, ranks, nf, mask, ops.spmv_piece_tiles(tiled.L))
+    split = pull_split(tiled, X, nf, mask, heavy=heavy, reps=reps)
+    X2, nf2 = (X[:, None], nf[:, None]) if X.ndim == 1 else (X, nf)
+    _, ranks = pull_first_hits(tropical, tiled, X2, nf2, mask)
+    work = pull_work(tiled, ranks, nf2, mask, ops.spmv_piece_tiles(tiled.L))
     push_mask = dm.push_tile_mask(tiled, state["fbits"])
-    push_ms = time_ms(lambda: ops.spmm(tropical, tiled, X,
-                                       tile_mask=push_mask), reps)
-    return {"iteration": state["k"], "batch": X.shape[1], **split,
-            "work": work, "pending_rows": int(nf.any(dim=1).sum()),
-            "tiles_kept": int(mask.sum()), "push_spmm_ms": push_ms,
-            "push_tiles": int(push_mask.sum())}
+    push = ops.spmv if X.ndim == 1 else ops.spmm
+    out = {"iteration": state["k"], "batch": X2.shape[1], **split,
+           "push_ms": time_ms(lambda: push(tropical, tiled, X,
+                                           tile_mask=push_mask), reps)}
+    if X.ndim == 1:
+        X2, nf2 = X2.contiguous(), nf2.contiguous()
+        out["pull_mm B=1 ms"] = time_ms(lambda: ops.pull_mm(
+            tropical, tiled, X2, nf2, tile_mask=mask), reps)
+    out.update(work=work, pending_rows=int(nf2.any(dim=1).sum()),
+               tiles_kept=int(mask.sum()), push_tiles=int(push_mask.sum()))
+    return out
 
 
 def main(argv=None) -> int:
@@ -358,6 +410,14 @@ def main(argv=None) -> int:
     todo = {**(spmv_entries(tiled, dev, rng) if "spmv" in args.only else {}),
             **(entries(tiled, dev, rng) if "spmm" in args.only else {})}
     roots = sample_roots(csr, 64)
+    root = int(sample_roots(csr, 1)[0])  # chip_smoke.py's phase-4b root
+    if "spmv_packed" in args.only:
+        pk1 = packed_bfs_state(tiled, root)
+        todo["slimsell_spmv_packed"] = (1, lambda m: ops.spmv_packed(
+            tiled, pk1["X"], tile_mask=m))
+        result["packed bfs iteration"] = {"k": pk1["k"], "tiles": pk1["tiles"]}
+        if "spmv" not in args.only:  # kernel 1 in the same call
+            todo["slimsell_spmv"] = spmv_entries(tiled, dev, rng)["slimsell_spmv"]
     if "spmm_packed" in args.only:
         pk = packed_state(tiled, roots)
         todo["slimsell_spmm_packed"] = (64, lambda m: ops.spmm_packed(
@@ -369,12 +429,15 @@ def main(argv=None) -> int:
         print(f"{name} B={width}: " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in split.items() if k != "layout")
             + f" on {card}", flush=True)
-    if "pull_mm" in args.only:
-        prof = pull_mm_profile(tiled, pull_mm_state(tiled, roots),
-                               heavy=args.heavy, reps=args.reps)
-        result["entries"]["slimsell_pull_mm"] = prof
-        print("slimsell_pull_mm B=64 at iteration "
-              f"{prof['iteration']} (each part within the state's mask): "
+    for group, name, make in (
+            ("pull", "slimsell_pull", lambda: pull_state(tiled, root)),
+            ("pull_mm", "slimsell_pull_mm", lambda: pull_mm_state(tiled, roots))):
+        if group not in args.only:
+            continue
+        prof = pull_profile(tiled, make(), heavy=args.heavy, reps=args.reps)
+        result["entries"][name] = prof
+        print(f"{name} B={prof['batch']} at iteration {prof['iteration']} "
+              "(each part within the state's mask): "
               + ", ".join(f"{k} {v:.4f} ms" for k, v in prof.items()
                           if isinstance(v, float))
               + f" | pending rows {prof['pending_rows']}, tiles kept "
@@ -388,7 +451,6 @@ def main(argv=None) -> int:
         xr = torch.from_numpy(rng.integers(0, 4, size=tiled.n).astype(
             np.float32)).to(dev)
         lib_ms = time_ms(library_spmv(csr, xr), args.reps)
-        root = int(sample_roots(csr, 1)[0])
         sweeps = sssp_sweeps(tiled, root)
         times = sweep_times(tiled, sweeps, args.reps)
         result["adj @ x"] = lib_ms

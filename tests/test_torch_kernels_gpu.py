@@ -713,3 +713,112 @@ def test_spmm_packed_pieces_equal_plain(sweep_layouts, mask_kind, width,
         assert got.is_cuda and torch.equal(got, want), density
         assert packing.check_tail_zero_host(got.cpu().numpy(), width)
 
+
+
+# the single-source pull's and the packed SpMV's layouts: the SpMV's, and
+# the hub graph at C=3, L=1 (its hub's chunk in 16 pieces of 1024 tiles,
+# a lane a tile, padding rows in the last chunk)
+SINGLE_LAYOUTS = SWEEP_LAYOUTS + ["hub C3 L1"]
+SINGLE_MASKS = HUB_MASKS + ["one_hub_tile"]
+
+
+def _any_mask(kind, tiled, rng, dev):
+    """``_mask``, and "whole_chunks": about 60% of the chunks, whole."""
+    if kind == "whole_chunks":
+        keep = torch.from_numpy(rng.random(tiled.n_chunks) < 0.6).to(dev)
+        return keep[tiled.row_block.long()]
+    return _mask(kind, tiled, rng, dev)
+
+
+def _pull_columns_equal_plain(sr, tiled, X, NF, mask, what):
+    """The single-source pull kernel on each column of X [n, K] and NF
+    bool[n, K], twice, against one plain call over all K columns: the
+    plain pull is column by column (``pull_plain`` is ``pull_mm_plain`` of
+    one column), and one call saves seconds a column on an L=1 layout,
+    whose plain version loops over each of the hub chunk's 16,383 tile
+    ranks. Equal, the same bits both times, one launch each."""
+    want = pull_mm_plain(sr, tiled, X, NF, mask)
+    before = ops.PULL.launches
+    for j in range(X.shape[1]):
+        x, nf = X[:, j].contiguous(), NF[:, j].contiguous()
+        got = ops.pull(sr, tiled, x, nf, tile_mask=mask)
+        again = ops.pull(sr, tiled, x, nf, tile_mask=mask)
+        assert got.is_cuda and torch.equal(got, want[:, j]), (what, j)
+        assert torch.equal(again, got), (what, j)
+    torch.cuda.synchronize()
+    assert ops.PULL.launches == before + 2 * X.shape[1]
+
+
+@pytest.mark.parametrize("mask_kind", SINGLE_MASKS)
+@pytest.mark.parametrize("layout", SINGLE_LAYOUTS)
+def test_pull_pieces_equal_plain(sweep_layouts, layout, mask_kind):
+    """The single-source pull over the SpMV's pieces (the hub's chunk cut
+    into 16 and folded by its first hit), in 4 semirings with nf random
+    and all true, exactly, on every layout, under the five masks of
+    ``chip_smoke.py`` 7a and one keeping a single tile of the hub."""
+    dev, tiled = sweep_layouts(layout)
+    rng = np.random.default_rng([SINGLE_LAYOUTS.index(layout),
+                                 SINGLE_MASKS.index(mask_kind), 12])
+    mask = _any_mask(mask_kind, tiled, rng, dev)
+    for name in SEMIRINGS:
+        sr = psr.get(name)
+        X = _operand(sr, (tiled.n, 2), rng, dev)
+        NF = torch.ones((tiled.n, 2), dtype=torch.bool, device=dev)
+        NF[:, 0] = torch.from_numpy(rng.random(tiled.n) < 0.6).to(dev)
+        _pull_columns_equal_plain(sr, tiled, X, NF, mask, name)
+
+
+@pytest.mark.parametrize("layout", ["hub C8 L128", "hub C3 L1"])
+def test_pull_hub_first_hit_piece(sweep_layouts, layout):
+    """The hub's first hit only in the first, a middle or the last piece
+    of its chunk (the hub's neighbours outside that piece hold the
+    semiring zero), or in a middle and the last piece with other values (a
+    fold that is not the first hit's gives another value), one column
+    each: the single-source pull in 4 semirings, exactly."""
+    dev, tiled = sweep_layouts(layout)
+    rng = np.random.default_rng([len(layout), 13])
+    items, _, _, _ = ops.spmv_work(tiled.tile_ptr, tiled.cl, tiled.L,
+                                   ops.spmv_piece_tiles(tiled.L))
+    rv = tiled.row_vertex.cpu().numpy()
+    chunk, r = map(int, np.argwhere(rv == 0)[0])  # the hub's row
+    hub = sorted(tuple(it) for it in items.tolist() if it[0] == chunk)
+    assert len(hub) >= 3
+    cols = tiled.cols.cpu().numpy()
+    mid, last = len(hub) // 2, len(hub) - 1
+    placements = ([0], [mid], [last], [mid, last])
+    for name in SEMIRINGS:
+        sr = psr.get(name)
+        X = torch.full((tiled.n, len(placements)), sr.zero, dtype=sr.dtype)
+        for j, pieces in enumerate(placements):
+            for k, piece in enumerate(pieces):
+                _, t0, slots, _ = hub[piece]
+                c = cols[t0:t0 - (-slots // tiled.L), r].reshape(-1)
+                u = torch.from_numpy(c[c >= 0])
+                X[u, j] = torch.from_numpy(rng.integers(1, 4, size=u.numel())
+                                           * 10 ** k).to(sr.dtype)
+        NF = torch.ones(X.shape, dtype=torch.bool, device=dev)
+        _pull_columns_equal_plain(sr, tiled, X.to(dev), NF, None, name)
+
+
+@pytest.mark.parametrize("mask_kind", SINGLE_MASKS)
+@pytest.mark.parametrize("layout", SINGLE_LAYOUTS)
+def test_spmv_packed_pieces_equal_plain(sweep_layouts, layout, mask_kind):
+    """The packed SpMV over the SpMV's items (each piece ORing its rows'
+    bits into the zeroed bitmap), at two frontier densities, exactly and
+    the same bits twice, on every layout; the tail bits stay zero."""
+    dev, tiled = sweep_layouts(layout)
+    rng = np.random.default_rng([SINGLE_LAYOUTS.index(layout),
+                                 SINGLE_MASKS.index(mask_kind), 14])
+    mask = _any_mask(mask_kind, tiled, rng, dev)
+    for density in (0.02, 0.5):
+        bits = torch.from_numpy(rng.random(tiled.n) < density).to(dev)
+        x = packing.pack_bits(bits)
+        before = ops.SPMV_PACKED.launches
+        got = ops.spmv_packed(tiled, x, tile_mask=mask)
+        again = ops.spmv_packed(tiled, x, tile_mask=mask)
+        want = spmv_packed_plain(tiled, x, mask)
+        torch.cuda.synchronize()
+        assert ops.SPMV_PACKED.launches == before + 2
+        assert got.is_cuda and torch.equal(got, want), density
+        assert torch.equal(again, got)
+        assert packing.check_tail_zero_host(got.cpu().numpy(), tiled.n)

@@ -29,8 +29,11 @@ The packed SpMM (``kernels/csrc/slimsell_spmm_packed.cu``) takes the
 SpMV's items and ORs a split chunk's pieces in piece order: a numpy
 emulation of it, item by item, equals ``spmm_packed_plain`` and
 ``repro``'s jnp ``slimsell_spmm`` under ``boolean_packed`` exactly, at
-B = 1, 33, 64 and 97 (the batched pull's pieces are held in
-``test_torch_pull_pieces.py``).
+B = 1, 33, 64 and 97; the packed SpMV (``slimsell_spmv_packed.cu``) takes
+the same items with no fold, each piece ORing its rows' bits into the
+zeroed bitmap: a numpy emulation of it, the items in a shuffled order,
+equals ``spmv_packed_plain`` and ``repro``'s jnp ``slimsell_spmv_packed``
+exactly (the pulls' pieces are held in ``test_torch_pull_pieces.py``).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -45,7 +48,8 @@ from repro.graphs import generators as jg
 from repro.kernels import ref as jref
 from repro_torch import convert
 from repro_torch.core import semiring as psr
-from repro_torch.core.spmv import spmm_packed_plain, spmm_plain, spmv_plain
+from repro_torch.core.spmv import (spmm_packed_plain, spmm_plain,
+                                   spmv_packed_plain, spmv_plain)
 from repro_torch.kernels import ops
 
 GRAPHS = {
@@ -433,3 +437,59 @@ def test_packed_items_then_fold_equals_plain_and_jnp(layouts, graph, layout):
                 assert np.array_equal(got.view(np.uint32),
                                       _keep_low_bits(want97, width)), what
                 assert jpk.check_tail_zero_host(got.view(np.uint32), width)
+
+
+def packed_spmv_items(pt, x_words, mask, per_piece, rng):
+    """numpy emulation of the packed SpMV kernel over ``ops.spmv_work``'s
+    items at ``per_piece`` tiles, in a shuffled item order (the blocks run
+    in none): each item's rows OR bit (col & 31) of x[col >> 5] over the
+    slots of its kept tiles below its rows' slot count, and a row that hit
+    ORs bit (v & 31) into word v >> 5 of the zeroed y. No fold and no
+    scratch. x_words int32 [ceil(n/32)] -> y of the same shape."""
+    items, _, _, _ = ops.spmv_work(pt.tile_ptr, pt.cl, pt.L, per_piece)
+    cols, rv = pt.cols.numpy(), pt.row_vertex.numpy()
+    x = x_words.view(np.uint32)
+    y = np.zeros_like(x)
+    for chunk, t, row_slots, _ in items[rng.permutation(len(items))].tolist():
+        hit = np.zeros(pt.C, bool)
+        for done in range(0, row_slots, pt.L):
+            if mask is None or mask[t]:
+                c = cols[t, :, :min(pt.L, row_slots - done)]
+                safe = np.where(c < 0, 0, c)
+                bit = (x[safe >> 5] >> (safe & 31).astype(np.uint32)) & 1
+                hit |= ((c >= 0) & (bit == 1)).any(axis=1)
+            t += 1
+        for v in rv[chunk][hit & (rv[chunk] >= 0)]:
+            y[v >> 5] |= np.uint32(1) << np.uint32(v & 31)
+    return y.view(np.int32)
+
+
+@pytest.mark.parametrize("per_piece", PER_PIECE)
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("graph", sorted(GRAPHS))
+def test_packed_spmv_items_equal_plain_and_jnp(layouts, graph, layout,
+                                               per_piece):
+    """The packed SpMV kernel's items ORed into y in a shuffled order,
+    emulated with every tile kept and with a mask that drops part of each
+    split chunk, at two frontier densities: exactly ``spmv_packed_plain``
+    and ``repro``'s jnp ``slimsell_spmv_packed``, the tail bits zero."""
+    _, jt, pt = layouts[(graph, layout)]
+    P = _per_piece(per_piece, pt, "spmv")
+    pieces, _, _ = _work("spmv", pt, P)
+    rng = np.random.default_rng([len(graph), len(layout), P, 7])
+    for masked in (False, True):
+        mask = _split_mask(pt, pieces, rng) if masked else None
+        tm = None if mask is None else torch.from_numpy(mask)
+        for density in (0.05, 0.5):
+            xw = jpk.pack_bits_np(rng.random(pt.n) < density)
+            got = packed_spmv_items(pt, xw.view(np.int32), mask, P, rng)
+            plain = spmv_packed_plain(pt, torch.from_numpy(xw.view(np.int32)),
+                                      tm)
+            want = np.asarray(jspmv.slimsell_spmv_packed(
+                jt, jnp.asarray(xw), backend="jnp",
+                tile_mask=jnp.asarray(np.ones(pt.n_tiles, bool)
+                                      if mask is None else mask)))
+            what = (masked, density)
+            assert np.array_equal(got, plain.numpy()), what
+            assert np.array_equal(got.view(np.uint32), want), what
+            assert jpk.check_tail_zero_host(got.view(np.uint32), pt.n)
