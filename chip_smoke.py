@@ -130,6 +130,31 @@ exit and no result line):
    beside the plain version, the implicit real SpMM on the same X,
    ``torch.sparse.mm`` on the GCN-normalised CSR (the same function) and
    its bound, and over parts of the layout as in phase 6;
+12. (run after phase 10 and before 11, which frees the scale-20 layout)
+   connected components, k-hop and PageRank through the ported sweeps:
+   (a) on the scale-14 graph and five small graphs (a star, a path, two
+   components, a sparse Erdos-Renyi graph with isolated vertices, an
+   edgeless graph), the card against the CPU's plain path: ``cc``
+   sel-max and boolean (lane push, pull and auto, packed push), fused
+   and hostloop, labels, counts, iterations and work logs equal and the
+   labels equal to scipy's; ``khop`` at k = 0, 1, 2, 3 and None and
+   ``khop_many`` over 12 roots, lane and packed, masks, distances and
+   iterations equal; ``pagerank`` fused and hostloop within the bounds
+   ``PR_*`` of the CPU's (sweep counts one apart beyond ``PR_TOL_REL``
+   printed as misses); (b) at scale 20, each run warm, median of 3:
+   ``cc`` sel-max fused and hostloop, equal to each other and to scipy's
+   canonical labels; boolean lane push and auto and packed, equal to
+   sel-max's; ``khop`` from the phase-4b root at k = 1, 2, 3, None equal
+   to phase 4b's boolean distances clipped at k; ``khop_many`` over the
+   64 phase-5 roots at k = 2, lane push, auto and pull and packed, equal
+   to the push batch's distances clipped at 2; ``pagerank`` fused and
+   hostloop (three runs and the two modes bit-equal) within ``PR_L1_F64``
+   of a float64 power iteration and within the bounds of the same call
+   with the plain sweeps on the card, mass 1 within 1e-5; (c) kernel 1 at
+   PageRank's second sweep (real, x = r/deg) within the bounds of plain,
+   timed beside plain, ``adj @ x`` and its bound, and at CC's first
+   sweep (sel-max, every label) exactly, timed beside the phase-6
+   sel-max operand;
 11. DLRM inference at the dlrm-mlperf widths through the embedding-bag
    kernel (7), after freeing what phases 4-10 hold: (a) the kernel against
    its plain version, bit-equal (sum and mean; the JAX package's (V, d, B,
@@ -163,7 +188,8 @@ the weights). The launch counts of each main path must be nonzero: the
 four lane kernels over phases 4b and 5, the two packed kernels over phase
 7b, the stored-weight SpMV over phase 8b, the stored-weight SpMM over
 phases 9b and 9c, the GCN SpMM over phase 10b, each counted from zero;
-the embedding bag over phase 11b, exactly once a forward.
+kernels 1 (its sel-max, boolean and real modes), 2, 3, 4, 5 and 6 over
+phase 12b; the embedding bag over phase 11b, exactly once a forward.
 The last lines are the kernel table, the card, and ``{"ok": true,
 "device": {...}}``.
 """
@@ -191,11 +217,21 @@ SEMIRINGS = ("tropical", "real", "boolean", "selmax")
 SCALE, EDGE_FACTOR, SMALL_SCALE = 20, 16, 14
 # the whole run must end within 1200 s; phase 8b validates 64 SSSP trees
 # only if that still ends by this mark, else the first 16; phase 9c the
-# same by its own mark; both leave phases 10 and 11 their reserves
+# same by its own mark; both leave phases 10, 12 and 11 their reserves
 GCN_RESERVE_S = 60.0
 DLRM_RESERVE_S = 90.0
-VALIDATE_ALL_BY_S = 900.0 - GCN_RESERVE_S - DLRM_RESERVE_S
-VALIDATE_BATCH_BY_S = 1000.0 - GCN_RESERVE_S - DLRM_RESERVE_S
+GRAPH_RESERVE_S = 90.0
+VALIDATE_ALL_BY_S = 900.0 - GCN_RESERVE_S - DLRM_RESERVE_S - GRAPH_RESERVE_S
+VALIDATE_BATCH_BY_S = 1000.0 - GCN_RESERVE_S - DLRM_RESERVE_S \
+    - GRAPH_RESERVE_S
+# PageRank with the kernels against the same call with the plain sweeps
+# (phase 12): kernel 1 adds a row in another order than the plain version,
+# so the ranks are held to bounds fixed before the first card run
+PR_RTOL, PR_ATOL = 1e-4, 1e-9  # ranks, per vertex
+PR_L1 = 1e-5                   # L1 between the two runs
+PR_TOL_REL = 1e-5              # sweeps one apart: last residual this near
+                               # tol, else a miss printed (not a failure)
+PR_L1_F64 = 2e-5               # L1 to a float64 power iteration
 KERNEL_INFO = {
     "slimsell_spmv": ("src/repro_torch/kernels/csrc/slimsell_spmv.cu",
                       "src/repro/kernels/slimsell_spmv.py:66"),
@@ -386,6 +422,381 @@ def split_line(split: dict) -> str:
     """``profile_spmm.chunk_split``'s times on one line."""
     return ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()
                      if k != "layout") + f" | {split['layout']}"
+
+
+def canonical_labels(csr):
+    """scipy's connected components, each labelled by its largest vertex
+    id (the port's canonical labels), and their count."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components
+    A = csr_matrix((np.ones(csr.nnz, np.int8), csr.indices, csr.indptr),
+                   shape=(csr.n, csr.n))
+    count, lab = connected_components(A, directed=False)
+    top = np.zeros(count, np.int64)
+    np.maximum.at(top, lab, np.arange(csr.n))
+    return top[lab].astype(np.int32), count
+
+
+def pagerank_f64(csr, damping: float, tol: float = 1e-12) -> np.ndarray:
+    """float64 power iteration on the host with the port's dangling rule
+    (a degree-0 vertex's rank spread uniformly), to an L1 residual of
+    ``tol``."""
+    from scipy.sparse import csr_matrix
+    n = csr.n
+    A = csr_matrix((np.ones(csr.nnz), csr.indices, csr.indptr), shape=(n, n))
+    deg = csr.deg.astype(np.float64)
+    dangling = deg == 0
+    inv_deg = np.where(dangling, 0.0, 1.0 / np.maximum(deg, 1.0))
+    r = np.full(n, 1.0 / n)
+    for _ in range(100_000):
+        r_new = (1.0 - damping) / n + damping * (
+            A @ (r * inv_deg) + r[dangling].sum() / n)
+        resid = np.abs(r_new - r).sum()
+        r = r_new
+        if resid <= tol:
+            return r
+    raise AssertionError("the float64 PageRank did not converge")
+
+
+def pagerank_close(got, ref, tol: float, what: str):
+    """PageRank with the kernels (``got``) against the same call with the
+    plain sweeps (``ref``), within the bounds fixed before the first card
+    run: ranks per vertex within ``PR_RTOL``, ``PR_ATOL`` and L1 at most
+    ``PR_L1``, else it raises; sweeps equal, or one apart with the plain
+    run's residual at the shorter run's last sweep within ``PR_TOL_REL``
+    of ``tol``. Sweeps one apart beyond that bound are a recorded miss,
+    not a failure: the residual is a float32 sum whose last bits depend
+    on the order of the kernel's adds, so it can land on either side of
+    ``tol``. Returns the L1 and the miss (None without one)."""
+    l1 = float(np.abs(got.ranks.astype(np.float64) - ref.ranks).sum())
+    if not np.allclose(got.ranks, ref.ranks, rtol=PR_RTOL, atol=PR_ATOL) \
+            or l1 > PR_L1:
+        raise AssertionError(f"pagerank {what}: ranks not within the bounds "
+                             f"of the plain run (L1 {l1:.3e})")
+    if got.iterations == ref.iterations:
+        return l1, None
+    k = min(got.iterations, ref.iterations)
+    rel = abs(float(ref.residuals[k - 1]) - tol) / tol
+    if abs(got.iterations - ref.iterations) > 1:
+        raise AssertionError(f"pagerank {what}: {got.iterations} sweeps, the "
+                             f"plain run {ref.iterations}")
+    if rel <= PR_TOL_REL:
+        return l1, None
+    return l1, (f"{what}: {got.iterations} sweeps, plain {ref.iterations}; "
+                f"residuals at sweep {k}: kernel "
+                f"{float(got.residuals[k - 1])!r}, plain "
+                f"{float(ref.residuals[k - 1])!r} ({rel:.3e} of tol from it)")
+
+
+def same_fields(a, b, fields, what: str) -> None:
+    for f in fields:
+        if not np.array_equal(np.asarray(getattr(a, f)),
+                              np.asarray(getattr(b, f))):
+            raise AssertionError(f"{what}: {f} differs")
+
+
+def median_run(fn, reps: int = 3):
+    """``reps`` warm calls of ``fn`` (the kernels built, the layout's work
+    lists made in phase 4), each timed by the host clock around a
+    synchronised call: the results and the median seconds."""
+    out, secs = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out.append(fn())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return out, float(np.median(secs)), secs
+
+
+def graph_workloads(*, dev, card, csr, tiled, root, lane_boolean, roots,
+                    push, small_csr, small_cpu, small, root0, adj, full,
+                    layout_bytes, errs, table):
+    """Phase 12: connected components, k-hop and PageRank through the
+    ported sweeps. (a) small graphs, the card against the CPU's plain
+    path; (b) scale 20, checked against scipy, the phase-4b and phase-5
+    results and the plain sweeps on the card, timed, the launches counted
+    from zero; (c) kernel 1 at the PageRank and CC payloads. Returns the
+    phase's main-path launch counts."""
+    from repro_torch.core import engine, semiring
+    from repro_torch.core.cc import cc
+    from repro_torch.core.formats import build_csr, build_slimsell
+    from repro_torch.core.khop import khop, khop_many
+    from repro_torch.core.options import EngineConfig
+    from repro_torch.core.pagerank import (pagerank, pagerank_spec,
+                                           pagerank_views)
+    from repro_torch.core.spmv import (pull_mm_plain, pull_plain, spmm_plain,
+                                       spmv_plain)
+    from repro_torch.graphs.generators import (erdos_renyi, star,
+                                               two_components)
+    from repro_torch.kernels import ops
+    from repro_torch.profile_spmm import time_ms
+
+    plain = (spmv_plain, spmm_plain, pull_plain, pull_mm_plain)
+    damping, tol = 0.85, 1e-6
+    cc_fields = ("labels", "n_components", "iterations", "work_log")
+    khop_fields = ("mask", "distances", "iterations")
+    pr_fields = ("ranks", "iterations", "residuals", "converged")
+    modes = ("fused", "hostloop")
+    # (semiring, packed, direction) of the CC runs: the peeling BFSes lane
+    # in the three directions and packed (push only)
+    cc_kinds = [("selmax", False, "push")] + [
+        ("boolean", False, d) for d in ("push", "pull", "auto")] + [
+        ("boolean", True, "push")]
+
+    # (a) the scale-14 graph and the CC families of the JAX package's tests
+    path = np.stack([np.arange(95), np.arange(1, 96)], axis=1)
+    graphs = {f"kronecker({SMALL_SCALE})": (small_csr, small_cpu, small)}
+    for name, g in (("star(64)", star(64)), ("path(96)", build_csr(path, 96)),
+                    ("two_components(7, 8)", two_components(7, 8, seed=0)),
+                    ("erdos_renyi(512, 1.5)", erdos_renyi(512, 1.5, seed=2)),
+                    ("edgeless(37)",
+                     build_csr(np.empty((0, 2), np.int64), 37))):
+        host = build_slimsell(g, C=8, L=32)
+        graphs[name] = (g, host.to_torch("cpu"), host.to_torch(dev))
+    n_runs, pr_l1, pr_misses = 0, 0.0, []
+    for gname, (g, gcpu, gdev) in graphs.items():
+        want_labels, want_count = canonical_labels(g)
+        for (sr_name, packed, direction), mode in itertools.product(
+                cc_kinds, modes):
+            kw = dict(semiring=sr_name, packed=packed, log_work=True,
+                      config=EngineConfig(direction=direction, mode=mode))
+            ref = cc(gcpu, device="cpu", **kw)
+            got = cc(gdev, device=dev, **kw)
+            what = f"cc {sr_name} packed={packed} {direction} {mode} on {gname}"
+            same_fields(ref, got, cc_fields, f"{what}, card vs CPU")
+            if not (np.array_equal(got.labels, want_labels)
+                    and got.n_components == want_count):
+                raise AssertionError(f"{what}: labels != scipy's")
+            n_runs += 1
+        kroot = root0 if g is small_csr else int(np.argmax(g.deg))
+        many = np.random.default_rng(12).choice(g.n, min(12, g.n),
+                                                replace=False)
+        for packed in (False, True):
+            for k in (0, 1, 2, 3, None):
+                ref = khop(gcpu, kroot, k, packed=packed, device="cpu")
+                got = khop(gdev, kroot, k, packed=packed, device=dev)
+                same_fields(ref, got, khop_fields, f"khop k={k} packed="
+                            f"{packed} on {gname}, card vs CPU")
+                n_runs += 1
+            ref = khop_many(gcpu, many, 2, packed=packed, device="cpu")
+            got = khop_many(gdev, many, 2, packed=packed, device=dev)
+            same_fields(ref, got, khop_fields, f"khop_many k=2 packed="
+                        f"{packed} on {gname}, card vs CPU")
+            n_runs += 1
+        for mode in modes:
+            cfg = EngineConfig(mode=mode)
+            ref = pagerank(gcpu, damping=damping, tol=tol, config=cfg,
+                           device="cpu")
+            got = pagerank(gdev, damping=damping, tol=tol, config=cfg,
+                           device=dev)
+            l1, miss = pagerank_close(got, ref, tol, f"{mode} on {gname}")
+            pr_l1 = max(pr_l1, l1)
+            pr_misses += [miss] if miss else []
+            n_runs += 1
+    log(f"[12a] card == CPU on {len(graphs)} graphs ({', '.join(graphs)}), "
+        f"{n_runs} runs: cc selmax and boolean (lane push / pull / auto, "
+        f"packed push), fused and hostloop, labels == scipy's (labels, "
+        f"n_components, iterations, work_log equal); khop k=0/1/2/3/None and "
+        f"khop_many k=2 over 12 roots, lane and packed (mask, distances, "
+        f"iterations equal); pagerank fused and hostloop within the bounds "
+        f"(largest L1 {pr_l1:.3e}); sweep-count misses of the bound: "
+        f"{pr_misses or 'none'}")
+
+    # (b) scale 20, the launches counted from zero
+    n = tiled.n
+    ops.reset_launches()
+    counts = {}
+
+    def spmv_launches(fn):
+        """``fn()`` and the launches of kernel 1 it made."""
+        before = ops.launch_counts()["slimsell_spmv"]
+        out = fn()
+        return out, ops.launch_counts()["slimsell_spmv"] - before
+
+    t0 = time.perf_counter()
+    want_labels, want_count = canonical_labels(csr)
+    scipy_s = time.perf_counter() - t0
+    n_isolated = int((csr.deg == 0).sum())
+    selmax = {}
+    for mode in modes:
+        cfg = EngineConfig(mode=mode)
+        (runs, med, secs), k1 = spmv_launches(lambda: median_run(
+            lambda: cc(tiled, log_work=True, config=cfg, device=dev)))
+        res = runs[0]
+        for r in runs[1:]:
+            same_fields(res, r, cc_fields, f"cc selmax {mode}, repeated")
+        if not (np.array_equal(res.labels, want_labels)
+                and res.n_components == want_count):
+            raise AssertionError(f"cc selmax {mode} at scale {SCALE}: labels "
+                                 "!= scipy's")
+        selmax[mode] = res
+        counts[f"cc selmax {mode}"] = k1
+        log(f"[12b] cc selmax {mode}: {res.n_components} components "
+            f"({n_isolated} isolated), sweeps={res.iterations} tiles per "
+            f"sweep={res.work_log.tolist()} median {med * 1e3:.1f} ms of "
+            f"{[round(s * 1e3, 1) for s in secs]}; slimsell_spmv launches "
+            f"{k1} on {card}")
+    same_fields(selmax["fused"], selmax["hostloop"], cc_fields,
+                "cc selmax fused vs hostloop")
+    log(f"[12b] cc selmax: labels == scipy's canonical labels (scipy "
+        f"{scipy_s:.1f} s), count equal; fused == hostloop (labels, "
+        f"iterations, work_log)")
+    for packed, direction in ((False, "push"), (False, "auto"),
+                              (True, "push")):
+        cfg = EngineConfig(direction=direction)
+        (runs, med, secs), k1 = spmv_launches(lambda: median_run(
+            lambda: cc(tiled, semiring="boolean", packed=packed, config=cfg,
+                       device=dev)))
+        res = runs[0]
+        if not all(np.array_equal(r.labels, selmax["fused"].labels)
+                   for r in runs):
+            raise AssertionError(f"cc boolean packed={packed} {direction}: "
+                                 "labels != selmax's")
+        kind = f"cc boolean {'packed' if packed else 'lane'} {direction}"
+        counts[kind] = k1
+        log(f"[12b] {kind}: labels == selmax's, {res.n_components - n_isolated}"
+            f" BFSes (isolated vertices labelled up front), {res.iterations} "
+            f"BFS iterations, median {med * 1e3:.1f} ms of "
+            f"{[round(s * 1e3, 1) for s in secs]}; slimsell_spmv launches {k1}"
+            f" on {card}")
+    d_root = lane_boolean.distances  # phase 4b's boolean push BFS, validated
+    for k in (1, 2, 3, None):
+        res = khop(tiled, root, k, device=dev)
+        cap = n if k is None else k
+        want = np.where((d_root >= 0) & (d_root <= cap), d_root, -1)
+        if not np.array_equal(res.distances, want):
+            raise AssertionError(f"khop k={k} from {root} != phase 4b's "
+                                 "distances clipped at k")
+    log(f"[12b] khop from root {root} at k=1/2/3/None == phase 4b's boolean "
+        f"BFS distances clipped at k (count at k=2: "
+        f"{int(((d_root >= 0) & (d_root <= 2)).sum())})")
+    want2 = np.where((push.distances >= 0) & (push.distances <= 2),
+                     push.distances, -1)
+    for packed, direction in ((False, "push"), (True, "push"),
+                              (False, "auto"), (False, "pull")):
+        before = ops.launch_counts()
+        (runs, med, secs) = median_run(lambda: khop_many(
+            tiled, roots, 2, packed=packed,
+            config=EngineConfig(direction=direction), device=dev))
+        for r in runs:
+            if not np.array_equal(r.distances, want2):
+                raise AssertionError(f"khop_many packed={packed} {direction}"
+                                     " != the phase-5 push batch clipped at 2")
+        kind = f"khop_many {'packed' if packed else 'lane'} {direction}"
+        counts[kind] = {k: v - before[k] for k, v in ops.launch_counts().items()
+                        if v != before[k]}
+        log(f"[12b] {kind} k=2 over the 64 phase-5 roots: == the push batch's "
+            f"distances clipped at 2; median {med * 1e3:.1f} ms of "
+            f"{[round(s * 1e3, 1) for s in secs]}; launches {counts[kind]} on "
+            f"{card}")
+    t0 = time.perf_counter()
+    ref64 = pagerank_f64(csr, damping)
+    f64_s = time.perf_counter() - t0
+    pr = {}
+    for mode in modes:
+        cfg = EngineConfig(mode=mode)
+        (runs, med, secs), k1 = spmv_launches(lambda: median_run(
+            lambda: pagerank(tiled, damping=damping, tol=tol, config=cfg,
+                             device=dev)))
+        res = runs[0]
+        for r in runs[1:]:
+            same_fields(res, r, pr_fields, f"pagerank {mode}, three runs")
+        with plain_sweeps(engine, *plain):
+            ref = pagerank(tiled, damping=damping, tol=tol, config=cfg,
+                           device=dev)
+        l1, miss = pagerank_close(res, ref, tol, f"{mode} at scale {SCALE}")
+        pr_misses += [miss] if miss else []
+        l1_64 = float(np.abs(res.ranks - ref64).sum())
+        mass = float(res.ranks.astype(np.float64).sum())
+        if not (res.converged and l1_64 <= PR_L1_F64
+                and abs(mass - 1.0) <= 1e-5):
+            raise AssertionError(f"pagerank {mode} at scale {SCALE}: "
+                                 f"converged={res.converged}, L1 to float64 "
+                                 f"{l1_64:.3e}, mass {mass!r}")
+        pr[mode] = res
+        counts[f"pagerank {mode}"] = k1
+        log(f"[12b] pagerank {mode} (a={damping}, tol={tol}): "
+            f"sweeps={res.iterations} (plain sweeps {ref.iterations}) "
+            f"residuals={[float(f'{x:.4g}') for x in res.residuals]}; median "
+            f"{med * 1e3:.1f} ms of {[round(s * 1e3, 1) for s in secs]}, "
+            f"{med * 1e3 / res.iterations:.2f} ms a sweep; three runs "
+            f"bit-equal; L1 to the plain sweeps {l1:.3e}, to float64 "
+            f"{l1_64:.3e} (bound {PR_L1_F64}); sweep-count miss: {miss}; "
+            f"mass - 1 = {mass - 1.0:.3e}; "
+            f"slimsell_spmv launches {k1} on {card}")
+    same_fields(pr["fused"], pr["hostloop"], pr_fields,
+                "pagerank fused vs hostloop")
+    main_path = ops.launch_counts()
+    log(f"[12b] pagerank fused == hostloop bit for bit; float64 reference "
+        f"{f64_s:.1f} s. Main-path launches of phase 12b: "
+        f"{ {k: v for k, v in main_path.items() if v} }; kernel 1 by run: "
+        f"{ {k: v for k, v in counts.items() if not isinstance(v, dict)} }")
+    needed = ("slimsell_spmv", "slimsell_spmm", "slimsell_pull",
+              "slimsell_spmv_packed", "slimsell_spmm_packed")
+    if min(main_path[k] for k in needed) == 0 or min(
+            counts[k] for k in ("cc selmax fused", "cc boolean lane push",
+                                "pagerank fused")) == 0 \
+            or "slimsell_spmm_packed" not in counts["khop_many packed push"] \
+            or "slimsell_pull_mm" not in counts["khop_many lane pull"]:
+        raise AssertionError(f"a kernel never ran on phase 12's path: "
+                             f"{main_path}, {counts}")
+
+    # (c) kernel 1 at the new payloads, every tile kept
+    real, selmax_sr = semiring.get("real"), semiring.get("selmax")
+    spec = pagerank_spec(n, damping, tol, *pagerank_views(tiled.deg))
+    xr = spec.frontier(engine.run_fused(spec, tiled, 0, max_iters=1).state, 2)
+    got = ops.spmv(real, tiled, xr, tile_mask=full)
+    want = spmv_plain(real, tiled, xr, full)
+    err = max_abs_err(got, want)
+    errs["slimsell_spmv"] = max(errs["slimsell_spmv"], err)
+    if not torch.allclose(got, want, rtol=PR_RTOL, atol=PR_ATOL) \
+            or not all(torch.equal(got, ops.spmv(real, tiled, xr,
+                                                 tile_mask=full))
+                       for _ in range(2)):
+        raise AssertionError("kernel 1 real at PageRank's second sweep: not "
+                             "within the bounds of plain, or not repeatable")
+    ms = time_ms(lambda: ops.spmv(real, tiled, xr, tile_mask=full), 20)
+    plain_ms = time_ms(lambda: spmv_plain(real, tiled, xr, full), 3)
+    library_ms = time_ms(lambda: adj @ xr, 20)
+    lib_err = max_abs_err(got, adj @ xr)
+    edges = int((tiled.cols >= 0).sum())
+    moved = layout_bytes + 2 * 4 * n
+    bound_ms = 1e3 * max(moved / HBM_BYTES_PER_S, 2 * edges / F32_OPS_PER_S)
+    payloads = {"pagerank_real": {
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": bound_ms, "max_abs_err": err,
+        "max_abs_err_vs_library": lib_err,
+        "library_call": "sparse CSR @ x (real; the same function)",
+        "pagerank_sweep_count_misses": pr_misses}}
+    log(f"[12c] slimsell_spmv real at PageRank's second sweep (x = r/deg), "
+        f"every tile kept: kernel {ms:.4f} ms plain {plain_ms:.3f} ms adj @ x "
+        f"(the same function) {library_ms:.4f} ms bound {bound_ms:.4f} ms "
+        f"({moved / 1e9:.4f} GB); max abs err vs plain {err:.3e}, vs adj @ x "
+        f"{lib_err:.3e}, three calls bit-equal on {card}")
+    xs = torch.arange(1, n + 1, dtype=torch.float32, device=dev)
+    got = ops.spmv(selmax_sr, tiled, xs, tile_mask=full)
+    check_equal("slimsell_spmv", got, spmv_plain(selmax_sr, tiled, xs, full),
+                errs, f"scale {SCALE} selmax, every label")
+    ms = time_ms(lambda: ops.spmv(selmax_sr, tiled, xs, tile_mask=full), 20)
+    plain_ms = time_ms(lambda: spmv_plain(selmax_sr, tiled, xs, full), 3)
+    # the phase-6 operand: integers times 1..999 (random sel-max payloads)
+    x6 = frontier(selmax_sr, (n,), np.random.default_rng(6), dev)
+    ms6 = time_ms(lambda: ops.spmv(selmax_sr, tiled, x6, tile_mask=full), 20)
+    payloads["cc_selmax"] = {"ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound_ms, "max_abs_err": 0.0,
+                             "phase6_operand_ms": ms6, "library_ms": None}
+    log(f"[12c] slimsell_spmv selmax at CC's first sweep (x = every label), "
+        f"every tile kept: kernel {ms:.4f} ms == plain ({plain_ms:.3f} ms); "
+        f"the phase-6 sel-max operand in the same call {ms6:.4f} ms; bound "
+        f"{bound_ms:.4f} ms on {card}")
+    for r in table:
+        if r["name"] == "slimsell_spmv":
+            r["payloads"] = payloads
+            r["max_abs_err"] = errs["slimsell_spmv"]  # with 12c's real sums
+        if r["name"] in main_path:
+            r["phase12_launches"] = main_path[r["name"]]
+    return main_path
 
 
 def main() -> int:
@@ -1717,6 +2128,19 @@ def main() -> int:
     log(f"[10] phase 10 took {time.perf_counter() - t10:.1f} s (reserve "
         f"{GCN_RESERVE_S:.0f} s); the run {time.perf_counter() - t_start:.1f} "
         f"s so far")
+
+    # ---- 12: CC, k-hop and PageRank on the ported sweeps, at scale 20
+    # before phase 11 frees the layout
+    t12 = time.perf_counter()
+    graph_workloads(dev=dev, card=card, csr=csr, tiled=tiled, root=root,
+                    lane_boolean=lane_boolean, roots=roots, push=push,
+                    small_csr=small_csr, small_cpu=small_cpu, small=small,
+                    root0=root0, adj=adj, full=full, layout_bytes=layout_bytes,
+                    errs=errs, table=table)
+    torch.cuda.synchronize()
+    log(f"[12] phase 12 took {time.perf_counter() - t12:.1f} s (reserve "
+        f"{GRAPH_RESERVE_S:.0f} s); the run {time.perf_counter() - t_start:.1f}"
+        f" s so far")
 
     # ---- 11: DLRM inference (dlrm-mlperf widths) with the embedding bag (7)
     t11 = time.perf_counter()

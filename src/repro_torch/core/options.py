@@ -23,6 +23,9 @@ BFS_SEMIRINGS = ("tropical", "real", "boolean", "selmax")
 # reached through packed=True rather than named
 SEMIRINGS = BFS_SEMIRINGS + ("minplus", "boolean_packed")
 
+# connected components: sel-max label propagation or boolean BFS peeling
+CC_SEMIRINGS = ("selmax", "boolean")
+
 
 def check_choice(name: str, value, allowed: Sequence[str], *,
                  hint: str = ""):

@@ -822,3 +822,48 @@ def test_spmv_packed_pieces_equal_plain(sweep_layouts, layout, mask_kind):
         assert got.is_cuda and torch.equal(got, want), density
         assert torch.equal(again, got)
         assert packing.check_tail_zero_host(got.cpu().numpy(), tiled.n)
+
+
+# PageRank's and CC's payloads through kernel 1: the real mode sums floats
+# in another order than the plain version (within rtol 1e-4, atol 1e-9,
+# the bounds of chip_smoke.py's PageRank checks); the sel-max mode carries
+# every vertex's 1-based label, exactly
+@pytest.mark.parametrize("mask_kind", SINGLE_MASKS)
+@pytest.mark.parametrize("layout", SINGLE_LAYOUTS)
+def test_real_kernel_on_pagerank_payloads(sweep_layouts, layout, mask_kind):
+    """x = r / deg for ranks r on the simplex (degree-0 vertices send 0),
+    as PageRank's sweep takes it: within the bounds of plain, and the
+    same bits on a second call (no atomics)."""
+    from repro_torch.core.pagerank import pagerank_views
+    dev, tiled = sweep_layouts(layout)
+    rng = np.random.default_rng([SINGLE_LAYOUTS.index(layout),
+                                 SINGLE_MASKS.index(mask_kind), 25])
+    mask = _any_mask(mask_kind, tiled, rng, dev)
+    r = torch.from_numpy(rng.dirichlet(np.ones(tiled.n)).astype(np.float32))
+    x = (r.to(dev) * pagerank_views(tiled.deg)[0]).contiguous()
+    before = ops.SPMV.launches
+    got = ops.spmv(psr.REAL, tiled, x, tile_mask=mask)
+    again = ops.spmv(psr.REAL, tiled, x, tile_mask=mask)
+    want = spmv_plain(psr.REAL, tiled, x, mask)
+    torch.cuda.synchronize()
+    assert ops.SPMV.launches == before + 2
+    assert got.is_cuda and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-9)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("mask_kind", SINGLE_MASKS)
+@pytest.mark.parametrize("layout", SINGLE_LAYOUTS)
+def test_selmax_kernel_on_every_label(sweep_layouts, layout, mask_kind):
+    """x = 1..n (CC's first sweep, every vertex its own label), exactly."""
+    dev, tiled = sweep_layouts(layout)
+    rng = np.random.default_rng([SINGLE_LAYOUTS.index(layout),
+                                 SINGLE_MASKS.index(mask_kind), 26])
+    mask = _any_mask(mask_kind, tiled, rng, dev)
+    x = torch.arange(1, tiled.n + 1, dtype=torch.float32, device=dev)
+    before = ops.SPMV.launches
+    got = ops.spmv(psr.SELMAX, tiled, x, tile_mask=mask)
+    want = spmv_plain(psr.SELMAX, tiled, x, mask)
+    torch.cuda.synchronize()
+    assert ops.SPMV.launches == before + 1
+    assert got.is_cuda and torch.equal(got, want)
