@@ -140,8 +140,9 @@ exit and no result line):
    labels equal to scipy's; ``khop`` at k = 0, 1, 2, 3 and None and
    ``khop_many`` over 12 roots, lane and packed, masks, distances and
    iterations equal; ``pagerank`` fused and hostloop within the bounds
-   ``PR_*`` of the CPU's (sweep counts one apart beyond ``PR_TOL_REL``
-   printed as misses); (b) at scale 20, each run warm, median of 3:
+   ``PR_*`` of the CPU's (sweep counts equal, or one apart where the
+   plain residual lies within ``PR_RESID_ULPS * n * ulp(max rank)`` of
+   tol); (b) at scale 20, each run warm, median of 3:
    ``cc`` sel-max fused and hostloop, equal to each other and to scipy's
    canonical labels; boolean lane push and auto and packed, equal to
    sel-max's; ``khop`` from the phase-4b root at k = 1, 2, 3, None equal
@@ -155,6 +156,23 @@ exit and no result line):
    timed beside plain, ``adj @ x`` and its bound, and at CC's first
    sweep (sel-max, every label) exactly, timed beside the phase-6
    sel-max operand;
+13. (run after phase 12 and before 11) Brandes betweenness through kernel
+   2's real mode (path counts forward, the fractions (1 + delta) / sigma
+   backward): (a) exact betweenness (all sources) on a star, a path, two
+   components and a sparse Erdos-Renyi graph, and 16 sampled sources on
+   the scale-14 graph, fused and hostloop x SlimWork on and off x one
+   batch and batches of 5, the card against the CPU's plain path within
+   the bounds ``BC_*`` (sweeps and depths equal, path counts bit-equal
+   below 2^24, scores within rtol 1e-4 and 1e-6 of the largest) and
+   against a float64 Brandes (scipy products level by level) within the
+   tests' betweenness tolerances; (b) at scale 20 the 64 phase-5 roots in
+   one batch of 64: fused, warm, median of 3, timed with the SpMM calls'
+   share (CUDA events) and the host fold's; hostloop once; the three
+   fused runs and the hostloop run bit-equal; depths equal to the phase-5
+   push batch's distances; within the ``BC_*`` bounds of the same call
+   with the plain sweeps on the card; eight roots against a float64
+   Brandes over phase 5's depths; the largest path count and how many
+   pass 2^24;
 11. DLRM inference at the dlrm-mlperf widths through the embedding-bag
    kernel (7), after freeing what phases 4-10 hold: (a) the kernel against
    its plain version, bit-equal (sum and mean; the JAX package's (V, d, B,
@@ -189,7 +207,8 @@ four lane kernels over phases 4b and 5, the two packed kernels over phase
 7b, the stored-weight SpMV over phase 8b, the stored-weight SpMM over
 phases 9b and 9c, the GCN SpMM over phase 10b, each counted from zero;
 kernels 1 (its sel-max, boolean and real modes), 2, 3, 4, 5 and 6 over
-phase 12b; the embedding bag over phase 11b, exactly once a forward.
+phase 12b; kernel 2 (its real mode under betweenness) over phase 13b; the
+embedding bag over phase 11b, exactly once a forward.
 The last lines are the kernel table, the card, and ``{"ok": true,
 "device": {...}}``.
 """
@@ -217,21 +236,37 @@ SEMIRINGS = ("tropical", "real", "boolean", "selmax")
 SCALE, EDGE_FACTOR, SMALL_SCALE = 20, 16, 14
 # the whole run must end within 1200 s; phase 8b validates 64 SSSP trees
 # only if that still ends by this mark, else the first 16; phase 9c the
-# same by its own mark; both leave phases 10, 12 and 11 their reserves
+# same by its own mark; both leave phases 10, 12, 13 and 11 their reserves
 GCN_RESERVE_S = 60.0
 DLRM_RESERVE_S = 90.0
 GRAPH_RESERVE_S = 90.0
-VALIDATE_ALL_BY_S = 900.0 - GCN_RESERVE_S - DLRM_RESERVE_S - GRAPH_RESERVE_S
+BC_RESERVE_S = 120.0
+VALIDATE_ALL_BY_S = 900.0 - GCN_RESERVE_S - DLRM_RESERVE_S \
+    - GRAPH_RESERVE_S - BC_RESERVE_S
 VALIDATE_BATCH_BY_S = 1000.0 - GCN_RESERVE_S - DLRM_RESERVE_S \
-    - GRAPH_RESERVE_S
+    - GRAPH_RESERVE_S - BC_RESERVE_S
 # PageRank with the kernels against the same call with the plain sweeps
 # (phase 12): kernel 1 adds a row in another order than the plain version,
 # so the ranks are held to bounds fixed before the first card run
 PR_RTOL, PR_ATOL = 1e-4, 1e-9  # ranks, per vertex
 PR_L1 = 1e-5                   # L1 between the two runs
-PR_TOL_REL = 1e-5              # sweeps one apart: last residual this near
-                               # tol, else a miss printed (not a failure)
+# sweeps one apart only where the plain run's residual at the shorter run's
+# last sweep lies within PR_RESID_ULPS * n * ulp(max rank) of tol, else the
+# run fails: the residual is a float32 sum of n differences of ranks, each
+# of which another order of adds moves by an ulp or two (star(64): 2 * 64 *
+# ulp(0.46) = 3.8e-6, above tol itself)
+PR_RESID_ULPS = 2
 PR_L1_F64 = 2e-5               # L1 to a float64 power iteration
+# betweenness with the kernels against the same call on the plain path
+# (phase 13): kernel 2 adds each row in its own fixed order, not the plain
+# version's, so path counts past 2^24 and the scores are held to bounds
+# fixed before the first card run; depths and sweep counts bit-equal
+BC_SIGMA_EXACT = 2 ** 24       # path counts bit-equal below this
+BC_SIGMA_RTOL = 1e-5           # path counts at or past it, relative
+BC_RTOL, BC_ATOL_REL = 1e-4, 1e-6  # scores: rtol; atol x the largest score
+# against a float64 Brandes: the tests' TOLERANCES["betweenness"], the
+# atol taken relative to the largest score at scale 20
+BC_F64_RTOL, BC_F64_ATOL = 2e-3, 1e-3
 KERNEL_INFO = {
     "slimsell_spmv": ("src/repro_torch/kernels/csrc/slimsell_spmv.cu",
                       "src/repro/kernels/slimsell_spmv.py:66"),
@@ -458,16 +493,23 @@ def pagerank_f64(csr, damping: float, tol: float = 1e-12) -> np.ndarray:
     raise AssertionError("the float64 PageRank did not converge")
 
 
+def pagerank_resid_bound(ref) -> float:
+    """``PR_RESID_ULPS * n * ulp(max rank)`` of a PageRank result: how far
+    its float32 residual may move under another order of adds."""
+    return PR_RESID_ULPS * ref.ranks.size * float(
+        np.spacing(np.float32(ref.ranks.max())))
+
+
 def pagerank_close(got, ref, tol: float, what: str):
     """PageRank with the kernels (``got``) against the same call with the
     plain sweeps (``ref``), within the bounds fixed before the first card
     run: ranks per vertex within ``PR_RTOL``, ``PR_ATOL`` and L1 at most
-    ``PR_L1``, else it raises; sweeps equal, or one apart with the plain
-    run's residual at the shorter run's last sweep within ``PR_TOL_REL``
-    of ``tol``. Sweeps one apart beyond that bound are a recorded miss,
-    not a failure: the residual is a float32 sum whose last bits depend
-    on the order of the kernel's adds, so it can land on either side of
-    ``tol``. Returns the L1 and the miss (None without one)."""
+    ``PR_L1``; sweeps equal, or one apart where the plain run's residual at
+    the shorter run's last sweep lies within ``pagerank_resid_bound(ref)``
+    of ``tol`` (the residual could then land on either side of ``tol``).
+    Anything else raises, two or more sweeps apart always. Returns the L1
+    and, for sweeps one apart that the bound admits, a line saying so (else
+    None)."""
     l1 = float(np.abs(got.ranks.astype(np.float64) - ref.ranks).sum())
     if not np.allclose(got.ranks, ref.ranks, rtol=PR_RTOL, atol=PR_ATOL) \
             or l1 > PR_L1:
@@ -476,16 +518,14 @@ def pagerank_close(got, ref, tol: float, what: str):
     if got.iterations == ref.iterations:
         return l1, None
     k = min(got.iterations, ref.iterations)
-    rel = abs(float(ref.residuals[k - 1]) - tol) / tol
-    if abs(got.iterations - ref.iterations) > 1:
-        raise AssertionError(f"pagerank {what}: {got.iterations} sweeps, the "
-                             f"plain run {ref.iterations}")
-    if rel <= PR_TOL_REL:
-        return l1, None
-    return l1, (f"{what}: {got.iterations} sweeps, plain {ref.iterations}; "
-                f"residuals at sweep {k}: kernel "
-                f"{float(got.residuals[k - 1])!r}, plain "
-                f"{float(ref.residuals[k - 1])!r} ({rel:.3e} of tol from it)")
+    gap = abs(float(ref.residuals[k - 1]) - tol)
+    bound = pagerank_resid_bound(ref)
+    said = (f"{got.iterations} sweeps, plain {ref.iterations}; the plain "
+            f"residual at sweep {k} {float(ref.residuals[k - 1])!r} is "
+            f"{gap:.3e} from tol, bound {bound:.3e}")
+    if abs(got.iterations - ref.iterations) > 1 or gap > bound:
+        raise AssertionError(f"pagerank {what}: {said}")
+    return l1, f"{what}: {said}"
 
 
 def same_fields(a, b, fields, what: str) -> None:
@@ -554,7 +594,7 @@ def graph_workloads(*, dev, card, csr, tiled, root, lane_boolean, roots,
                      build_csr(np.empty((0, 2), np.int64), 37))):
         host = build_slimsell(g, C=8, L=32)
         graphs[name] = (g, host.to_torch("cpu"), host.to_torch(dev))
-    n_runs, pr_l1, pr_misses = 0, 0.0, []
+    n_runs, pr_l1, pr_one_apart = 0, 0.0, []
     for gname, (g, gcpu, gdev) in graphs.items():
         want_labels, want_count = canonical_labels(g)
         for (sr_name, packed, direction), mode in itertools.product(
@@ -590,9 +630,10 @@ def graph_workloads(*, dev, card, csr, tiled, root, lane_boolean, roots,
                            device="cpu")
             got = pagerank(gdev, damping=damping, tol=tol, config=cfg,
                            device=dev)
-            l1, miss = pagerank_close(got, ref, tol, f"{mode} on {gname}")
+            l1, one_apart = pagerank_close(got, ref, tol,
+                                           f"{mode} on {gname}")
             pr_l1 = max(pr_l1, l1)
-            pr_misses += [miss] if miss else []
+            pr_one_apart += [one_apart] if one_apart else []
             n_runs += 1
     log(f"[12a] card == CPU on {len(graphs)} graphs ({', '.join(graphs)}), "
         f"{n_runs} runs: cc selmax and boolean (lane push / pull / auto, "
@@ -600,8 +641,8 @@ def graph_workloads(*, dev, card, csr, tiled, root, lane_boolean, roots,
         f"n_components, iterations, work_log equal); khop k=0/1/2/3/None and "
         f"khop_many k=2 over 12 roots, lane and packed (mask, distances, "
         f"iterations equal); pagerank fused and hostloop within the bounds "
-        f"(largest L1 {pr_l1:.3e}); sweep-count misses of the bound: "
-        f"{pr_misses or 'none'}")
+        f"(largest L1 {pr_l1:.3e}); sweeps one apart within the residual "
+        f"bound: {pr_one_apart or 'none'}")
 
     # (b) scale 20, the launches counted from zero
     n = tiled.n
@@ -705,8 +746,9 @@ def graph_workloads(*, dev, card, csr, tiled, root, lane_boolean, roots,
         with plain_sweeps(engine, *plain):
             ref = pagerank(tiled, damping=damping, tol=tol, config=cfg,
                            device=dev)
-        l1, miss = pagerank_close(res, ref, tol, f"{mode} at scale {SCALE}")
-        pr_misses += [miss] if miss else []
+        l1, one_apart = pagerank_close(res, ref, tol,
+                                       f"{mode} at scale {SCALE}")
+        pr_one_apart += [one_apart] if one_apart else []
         l1_64 = float(np.abs(res.ranks - ref64).sum())
         mass = float(res.ranks.astype(np.float64).sum())
         if not (res.converged and l1_64 <= PR_L1_F64
@@ -722,7 +764,8 @@ def graph_workloads(*, dev, card, csr, tiled, root, lane_boolean, roots,
             f"{med * 1e3:.1f} ms of {[round(s * 1e3, 1) for s in secs]}, "
             f"{med * 1e3 / res.iterations:.2f} ms a sweep; three runs "
             f"bit-equal; L1 to the plain sweeps {l1:.3e}, to float64 "
-            f"{l1_64:.3e} (bound {PR_L1_F64}); sweep-count miss: {miss}; "
+            f"{l1_64:.3e} (bound {PR_L1_F64}); sweeps one apart: "
+            f"{one_apart}; residual bound {pagerank_resid_bound(ref):.3e}; "
             f"mass - 1 = {mass - 1.0:.3e}; "
             f"slimsell_spmv launches {k1} on {card}")
     same_fields(pr["fused"], pr["hostloop"], pr_fields,
@@ -768,7 +811,7 @@ def graph_workloads(*, dev, card, csr, tiled, root, lane_boolean, roots,
         "bound_ms": bound_ms, "max_abs_err": err,
         "max_abs_err_vs_library": lib_err,
         "library_call": "sparse CSR @ x (real; the same function)",
-        "pagerank_sweep_count_misses": pr_misses}}
+        "pagerank_sweeps_one_apart": len(pr_one_apart)}}
     log(f"[12c] slimsell_spmv real at PageRank's second sweep (x = r/deg), "
         f"every tile kept: kernel {ms:.4f} ms plain {plain_ms:.3f} ms adj @ x "
         f"(the same function) {library_ms:.4f} ms bound {bound_ms:.4f} ms "
@@ -797,6 +840,297 @@ def graph_workloads(*, dev, card, csr, tiled, root, lane_boolean, roots,
         if r["name"] in main_path:
             r["phase12_launches"] = main_path[r["name"]]
     return main_path
+
+
+def brandes_f64(csr, roots, d=None):
+    """float64 Brandes on the host from each of ``roots`` (one column
+    each), level by level with scipy CSR products: ``(d, sigma, delta)``,
+    each [n, k]. ``d``, the roots' BFS depths (-1 unreached), is found by
+    the same products unless given."""
+    from scipy.sparse import csr_matrix
+    n, k = csr.n, len(roots)
+    A = csr_matrix((np.ones(csr.nnz), csr.indices, csr.indptr), shape=(n, n))
+    cols = np.arange(k)
+    if d is None:
+        d = np.full((n, k), -1, np.int64)
+        d[roots, cols] = 0
+        level = 0
+        while True:
+            new = ((A @ (d == level).astype(np.float64)) > 0) & (d < 0)
+            if not new.any():
+                break
+            level += 1
+            d[new] = level
+    sigma = np.zeros((n, k))
+    sigma[roots, cols] = 1.0
+    depth = int(d.max())
+    for level in range(1, depth + 1):
+        y = A @ np.where(d == level - 1, sigma, 0.0)
+        sigma = np.where(d == level, y, sigma)
+    delta = np.zeros((n, k))
+    for level in range(depth, 0, -1):
+        on = d == level
+        y = A @ np.where(on, (1.0 + delta) / np.where(on, sigma, 1.0), 0.0)
+        delta += np.where(d == level - 1, sigma * y, 0.0)
+    return d, sigma, delta
+
+
+def bc_from_delta(delta: np.ndarray, roots) -> np.ndarray:
+    """Unnormalised BC over ``roots`` from their dependency columns: each
+    source's own row left out, the sum halved (undirected pairs)."""
+    delta = np.array(delta, np.float64)
+    delta[np.asarray(roots), np.arange(len(roots))] = 0.0
+    return delta.sum(axis=1) / 2.0
+
+
+@contextlib.contextmanager
+def brandes_probe(engine, bc_module):
+    """Observe ``betweenness`` calls: each forward run's ``(d, sigma,
+    sweeps)`` and each backward run's ``(delta, sweeps)`` (the tensors, no
+    copy), CUDA events around each SpMM the engine calls, and the host
+    clock around each host fold."""
+    probe = {"forward": [], "backward": [], "spmm": [], "fold_s": 0.0}
+    saved = (engine.run_fused, engine.run_hostloop, engine.slimsell_spmm,
+             bc_module.brandes_accumulate)
+
+    def watch(run):
+        def watched(spec, tiled, arg, **kw):
+            res = run(spec, tiled, arg, **kw)
+            if spec.name == "betweenness/forward":
+                probe["forward"].append((res.state["d"], res.state["sigma"],
+                                         res.iterations))
+            elif spec.name == "betweenness/backward":
+                probe["backward"].append((res.state["delta"], res.iterations))
+            return res
+        return watched
+
+    def spmm(*args, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        y = saved[2](*args, **kw)
+        end.record()
+        probe["spmm"].append((start, end))
+        return y
+
+    def fold(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = saved[3](*args, **kw)
+        probe["fold_s"] += time.perf_counter() - t0
+        return out
+
+    engine.run_fused, engine.run_hostloop = watch(saved[0]), watch(saved[1])
+    engine.slimsell_spmm, bc_module.brandes_accumulate = spmm, fold
+    try:
+        yield probe
+    finally:
+        (engine.run_fused, engine.run_hostloop, engine.slimsell_spmm,
+         bc_module.brandes_accumulate) = saved
+
+
+def bc_close(got, ref, what: str) -> dict:
+    """Betweenness with the kernels against the same call on the plain
+    path, each a ``(result, probe)``, within the bounds fixed before the
+    first card run: sweeps and depths equal; path counts bit-equal where
+    the plain count is below ``BC_SIGMA_EXACT`` (every partial sum of it
+    then was too, and float32 adds such whole numbers exactly in any
+    order), within ``BC_SIGMA_RTOL`` at or above it; scores within
+    ``BC_RTOL`` and ``BC_ATOL_REL`` x the plain run's largest. Raises
+    otherwise; returns the largest errors."""
+    (res, probe), (res0, probe0) = got, ref
+    if res.iterations != res0.iterations \
+            or len(probe["forward"]) != len(probe0["forward"]):
+        raise AssertionError(f"betweenness {what}: {res.iterations} sweeps, "
+                             f"plain {res0.iterations}")
+    sigma_err = 0.0
+    for b, ((d, s, it), (d0, s0, it0)) in enumerate(
+            zip(probe["forward"], probe0["forward"])):
+        d0, s0 = d0.to(d.device), s0.to(s.device)
+        exact = s0 < BC_SIGMA_EXACT
+        if it != it0 or not torch.equal(d, d0) \
+                or not torch.equal(s[exact], s0[exact]):
+            raise AssertionError(f"betweenness {what}, batch {b}: forward "
+                                 f"sweeps {it} (plain {it0}), depths or path "
+                                 f"counts below 2^24 differ")
+        if not bool(exact.all()):
+            rel = ((s - s0).abs() / s0)[~exact]
+            sigma_err = max(sigma_err, float(rel.max()))
+    top = float(res0.scores.max())
+    score_err = float(np.abs(res.scores - res0.scores).max())
+    if sigma_err > BC_SIGMA_RTOL or not np.allclose(
+            res.scores, res0.scores, rtol=BC_RTOL, atol=BC_ATOL_REL * top):
+        raise AssertionError(f"betweenness {what}: path counts past 2^24 "
+                             f"{sigma_err:.3e} apart (bound {BC_SIGMA_RTOL}) "
+                             f"or scores {score_err:.3e} apart (largest "
+                             f"{top:.6e})")
+    return {"sigma_rel_err": sigma_err, "score_abs_err": score_err,
+            "score_rel_to_max": score_err / top if top else 0.0}
+
+
+def bc_f64_close(scores, ref, atol: float, what: str) -> float:
+    """Scores within ``BC_F64_RTOL`` and ``atol`` of a float64 Brandes;
+    returns the largest error over the largest reference score."""
+    if not np.allclose(scores, ref, rtol=BC_F64_RTOL, atol=atol):
+        raise AssertionError(f"betweenness {what}: not within the bounds of "
+                             f"the float64 Brandes (max abs err "
+                             f"{np.abs(scores - ref).max():.3e})")
+    top = float(np.abs(ref).max())
+    return float(np.abs(scores - ref).max()) / top if top else 0.0
+
+
+def betweenness_phase(*, dev, card, csr, tiled, roots, push, small_csr,
+                      small_cpu, small, table):
+    """Phase 13: Brandes betweenness through kernel 2's real mode. (a)
+    small graphs, exact BC (and 16 sampled sources on the scale-14 graph),
+    the card against the CPU's plain path and a float64 Brandes; (b)
+    scale 20, the 64 phase-5 roots in one batch, fused (warm, median of 3)
+    and hostloop, against the plain sweeps on the card and, for 8 roots, a
+    float64 Brandes over phase 5's depths; kernel 2's launches counted from
+    zero. Returns them."""
+    from repro_torch.core import betweenness as bc_module
+    from repro_torch.core import engine
+    from repro_torch.core.formats import build_csr, build_slimsell
+    from repro_torch.core.options import EngineConfig
+    from repro_torch.core.spmv import (pull_mm_plain, pull_plain, spmm_plain,
+                                       spmv_plain)
+    from repro_torch.graphs.generators import (erdos_renyi, star,
+                                               two_components)
+    from repro_torch.kernels import ops
+
+    betweenness = bc_module.betweenness
+    plain = (spmv_plain, spmm_plain, pull_plain, pull_mm_plain)
+
+    def call(fn):
+        with brandes_probe(engine, bc_module) as probe:
+            res = fn()
+        return res, probe
+
+    # (a) small graphs: all sources, and 16 sampled on the scale-14 graph
+    t0 = time.perf_counter()
+    path = np.stack([np.arange(95), np.arange(1, 96)], axis=1)
+    graphs = {}
+    for name, g in (("star(64)", star(64)), ("path(96)", build_csr(path, 96)),
+                    ("two_components(7, 8)", two_components(7, 8, seed=0)),
+                    ("erdos_renyi(512, 1.5)", erdos_renyi(512, 1.5, seed=2))):
+        host = build_slimsell(g, C=8, L=32)
+        graphs[name] = (g, None, host.to_torch("cpu"), host.to_torch(dev))
+    sampled = np.sort(np.random.default_rng(13).choice(
+        small_csr.n, 16, replace=False))
+    graphs[f"kronecker({SMALL_SCALE})"] = (small_csr, sampled, small_cpu,
+                                          small)
+    n_runs, worst, largest = 0, {}, 0.0
+    for gname, (g, src, gcpu, gdev) in graphs.items():
+        srcs = np.arange(g.n) if src is None else src
+        ref64 = bc_from_delta(brandes_f64(g, srcs)[2], srcs)
+        for mode, slimwork, batch_size in itertools.product(
+                ("fused", "hostloop"), (True, False), (None, 5)):
+            kw = dict(sources=src, batch_size=batch_size, slimwork=slimwork,
+                      config=EngineConfig(mode=mode))
+            what = (f"{mode} slimwork={slimwork} batch={batch_size} on "
+                    f"{gname}")
+            ref = call(lambda: betweenness(gcpu, device="cpu", **kw))
+            got = call(lambda: betweenness(gdev, device=dev, **kw))
+            errs = bc_close(got, ref, f"{what}, card vs CPU")
+            bc_f64_close(got[0].scores, ref64, BC_F64_ATOL, what)
+            for k, v in errs.items():
+                worst[k] = max(worst.get(k, 0.0), v)
+            largest = max(largest, max(float(s_.max())
+                                       for _, s_, _ in got[1]["forward"]))
+            n_runs += 1
+    log(f"[13a] betweenness card == CPU on {len(graphs)} graphs "
+        f"({', '.join(graphs)}; all sources, 16 sampled on the scale-"
+        f"{SMALL_SCALE} graph), {n_runs} runs (fused and hostloop x SlimWork "
+        f"on and off x batch None and 5): sweeps, depths and path counts "
+        f"equal (largest count {largest:.0f}), scores within "
+        f"rtol {BC_RTOL} atol {BC_ATOL_REL} x max (largest errors {worst}); "
+        f"every run within rtol {BC_F64_RTOL} atol {BC_F64_ATOL} of a "
+        f"float64 Brandes, in {time.perf_counter() - t0:.1f} s")
+
+    # (b) scale 20: the 64 phase-5 roots in one batch of 64
+    ops.reset_launches()
+    B = roots.size
+    runs, med, secs = median_run(lambda: call(lambda: betweenness(
+        tiled, roots, batch_size=B, device=dev)))
+    (res, probe) = runs[0]
+    d, sigma, fwd_sweeps = probe["forward"][0]
+    for r, p in runs[1:]:
+        rd, rs, _ = p["forward"][0]
+        if r.iterations != res.iterations \
+                or not np.array_equal(r.scores, res.scores) \
+                or not torch.equal(rd, d) or not torch.equal(rs, sigma):
+            raise AssertionError("betweenness fused at scale 20: three runs "
+                                 "not bit-equal")
+    bwd_sweeps = probe["backward"][0][1]
+    torch.cuda.synchronize()
+    k2_ms = [float(sum(s_.elapsed_time(e) for s_, e in p["spmm"]))
+             for _, p in runs]
+    fold_s = [p["fold_s"] for _, p in runs]
+    del runs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host, host_probe = call(lambda: betweenness(
+        tiled, roots, batch_size=B, config=EngineConfig(mode="hostloop"),
+        device=dev))
+    host_s = time.perf_counter() - t0
+    hd, hs, _ = host_probe["forward"][0]
+    if host.iterations != res.iterations \
+            or not np.array_equal(host.scores, res.scores) \
+            or not torch.equal(hd, d) or not torch.equal(hs, sigma):
+        raise AssertionError("betweenness hostloop at scale 20 != fused")
+    del host_probe, hd, hs
+    launches = ops.launch_counts()["slimsell_spmm"]
+    if launches == 0:
+        raise AssertionError("kernel 2 never ran on phase 13b's path")
+    with plain_sweeps(engine, *plain):
+        ref = call(lambda: betweenness(tiled, roots, batch_size=B,
+                                       device=dev))
+    errs = bc_close((res, probe), ref, f"fused at scale {SCALE}")
+    del ref
+    if not torch.equal(d, torch.from_numpy(
+            np.ascontiguousarray(push.distances.T)).to(dev)):
+        raise AssertionError("betweenness depths != the phase-5 push batch's "
+                             "distances")
+    past = int((sigma >= BC_SIGMA_EXACT).sum())
+    top_sigma = float(sigma.max())
+    # eight roots against a float64 Brandes over phase 5's depths
+    t0 = time.perf_counter()
+    eight = roots[:8]
+    _, sigma64, delta64 = brandes_f64(
+        csr, eight, d=push.distances[:8].T.astype(np.int64))
+    f64_s = time.perf_counter() - t0
+    sig8 = sigma[:, :8].double().cpu().numpy()
+    sigma64_err = float(np.max(np.abs(sig8 - sigma64)
+                               / np.maximum(sigma64, 1.0)))
+    ref8 = bc_from_delta(delta64, eight)
+    got8 = bc_from_delta(probe["backward"][0][0][:, :8].cpu().numpy(), eight)
+    f64_err = bc_f64_close(got8, ref8, BC_F64_ATOL * float(ref8.max()),
+                           f"8 roots at scale {SCALE}")
+    log(f"[13b] betweenness over the 64 phase-5 roots, one batch of {B}, "
+        f"fused: {fwd_sweeps} forward + {bwd_sweeps} backward sweeps "
+        f"({res.iterations}); median {med * 1e3:.1f} ms of "
+        f"{[round(s * 1e3, 1) for s in secs]}; the SpMM calls (kernel 2, "
+        f"CUDA events) {[round(x, 3) for x in k2_ms]} ms; the host fold "
+        f"{[round(x * 1e3, 1) for x in fold_s]} ms; hostloop (once) "
+        f"{host_s * 1e3:.1f} ms on {card}")
+    log(f"[13b] three fused runs and the hostloop run bit-equal (scores, "
+        f"sweeps, depths, path counts); depths == the phase-5 push batch's "
+        f"distances; largest path count {top_sigma:.6e}, {past} of "
+        f"{sigma.numel()} counts at or past 2^24; against the plain sweeps "
+        f"on the card: {errs}; 8 roots against a float64 Brandes ({f64_s:.1f}"
+        f" s): path counts {sigma64_err:.3e} relative, scores "
+        f"{f64_err:.3e} of the largest; slimsell_spmm launches over 13b "
+        f"{launches}; largest score {float(res.scores.max()):.6e}")
+    for r in table:
+        if r["name"] == "slimsell_spmm":
+            r["phase13_launches"] = launches
+            r["betweenness"] = {
+                "median_ms": med * 1e3, "spmm_ms": k2_ms, "fold_ms":
+                [x * 1e3 for x in fold_s], "hostloop_ms": host_s * 1e3,
+                "forward_sweeps": fwd_sweeps,
+                "backward_sweeps": bwd_sweeps, "sigma_past_2_24": past,
+                "largest_sigma": top_sigma, **errs,
+                "f64_rel_to_max": f64_err}
+    return launches
 
 
 def main() -> int:
@@ -2140,6 +2474,18 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[12] phase 12 took {time.perf_counter() - t12:.1f} s (reserve "
         f"{GRAPH_RESERVE_S:.0f} s); the run {time.perf_counter() - t_start:.1f}"
+        f" s so far")
+
+    # ---- 13: Brandes betweenness through kernel 2's real mode, at scale 20
+    # before phase 11 frees the layout
+    t13 = time.perf_counter()
+    betweenness_phase(dev=dev, card=card, csr=csr, tiled=tiled, roots=roots,
+                      push=push, small_csr=small_csr, small_cpu=small_cpu,
+                      small=small, table=table)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[13] phase 13 took {time.perf_counter() - t13:.1f} s (reserve "
+        f"{BC_RESERVE_S:.0f} s); the run {time.perf_counter() - t_start:.1f}"
         f" s so far")
 
     # ---- 11: DLRM inference (dlrm-mlperf widths) with the embedding bag (7)

@@ -5,8 +5,9 @@ The port of the JAX package ``repro``: the tiled SlimSell layout
 ``kernels/``), single-source and batched multi-source BFS (``core.bfs``,
 ``core.multi_bfs``), weighted single- and multi-source SSSP (``core.sssp``,
 ``core.multi_sssp``), connected components (``core.cc``), k-hop
-neighbourhoods (``core.khop``: ``khop``, ``khop_many``) and PageRank
-(``core.pagerank``), the Graph500 BFS and SSSP harnesses
+neighbourhoods (``core.khop``: ``khop``, ``khop_many``), PageRank
+(``core.pagerank``) and Brandes betweenness (``core.betweenness``), the
+Graph500 BFS and SSSP harnesses
 (``graph500``), and GCN inference on the SlimSell aggregation
 (``models.gnn``; the gcn-cora configuration in ``configs.gcn_cora``), and
 DLRM inference with the embedding-bag kernel (``models.dlrm``; the
@@ -14,6 +15,7 @@ dlrm-mlperf configuration in ``configs.dlrm_mlperf``).
 Entry points run on the card unless the caller passes ``device="cpu"``,
 which runs the plain PyTorch versions of the kernels.
 """
+from .core.betweenness import betweenness
 from .core.bfs import bfs
 from .core.cc import cc
 from .core.formats import build_csr, build_slimsell
@@ -26,7 +28,7 @@ from .graph500 import run_graph500, run_graph500_sssp
 from .models.dlrm import DLRMConfig, dlrm_forward, dlrm_init
 from .models.gnn import GCNConfig, gcn_forward, gcn_init
 
-__all__ = ["DLRMConfig", "GCNConfig", "bfs", "build_csr", "build_slimsell",
+__all__ = ["DLRMConfig", "GCNConfig", "betweenness", "bfs", "build_csr", "build_slimsell",
            "cc", "dlrm_forward", "dlrm_init", "gcn_forward", "gcn_init",
            "khop", "khop_many", "multi_source_bfs", "multi_source_sssp",
            "pagerank", "run_graph500", "run_graph500_sssp", "sssp"]

@@ -34,7 +34,8 @@ def _imported_roots(path):
 def test_port_imports_no_jax_and_no_jax_package():
     assert len(PORT_FILES) > 10
     names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
-    assert {"src/repro_torch/core/sssp.py",
+    assert {"src/repro_torch/core/betweenness.py",
+            "src/repro_torch/core/sssp.py",
             "src/repro_torch/core/multi_sssp.py",
             "src/repro_torch/configs/sssp_graph500.py",
             "src/repro_torch/models/gnn.py",
@@ -87,6 +88,23 @@ def test_cpu_layout_is_not_moved_to_another_device(no_card):
         pmulti.multi_source_bfs(cpu, [0])
     with pytest.raises(ValueError, match="layout is on cpu"):
         pbfs.bfs(cpu, 0, device="meta")
+
+
+def test_betweenness_without_card_raises(no_card, monkeypatch):
+    from repro_torch.core import betweenness as pbc
+    from repro_torch.core.options import EngineConfig
+    ran = []
+    monkeypatch.setattr(pbc.eng, "run_fused", lambda *a, **k: ran.append(1))
+    monkeypatch.setattr(pbc.eng, "run_hostloop",
+                        lambda *a, **k: ran.append(1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        repro_torch.betweenness(no_card)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pbc.betweenness(no_card, [0, 1], batch_size=1,
+                        config=EngineConfig(mode="hostloop"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pbc.betweenness(no_card.to_torch("cpu"), [0])
+    assert not ran
 
 
 def test_sssp_entry_points_without_card_raise(monkeypatch):

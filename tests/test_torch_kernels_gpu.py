@@ -867,3 +867,41 @@ def test_selmax_kernel_on_every_label(sweep_layouts, layout, mask_kind):
     torch.cuda.synchronize()
     assert ops.SPMV.launches == before + 1
     assert got.is_cuda and torch.equal(got, want)
+
+
+# Betweenness through kernel 2's real mode: the path counts and the
+# fractions (1 + delta) / sigma are float sums in the kernel's order, held
+# within the bounds of chip_smoke.py's BC_* checks: sweeps and depths
+# equal, path counts bit-equal below 2^24 (within rtol 1e-5 past it),
+# scores within rtol 1e-4 and atol 1e-6 x the CPU run's largest
+@pytest.mark.parametrize("slimwork", [True, False], ids=["slimwork", "all"])
+@pytest.mark.parametrize("mode", ["fused", "hostloop"])
+def test_betweenness_card_equals_cpu(cuda, mode, slimwork):
+    from repro_torch.core import engine as peng
+    from repro_torch.core.betweenness import (BRANDES_FORWARD_SPEC,
+                                              betweenness)
+    from repro_torch.core.options import EngineConfig
+    dev, tiled = cuda
+    cpu = build_slimsell(kronecker(12, 16, seed=1), C=8, L=128).to_torch(
+        "cpu")
+    roots = np.sort(np.random.default_rng(26).choice(tiled.n, 24,
+                                                     replace=False))
+    kw = dict(batch_size=10, slimwork=slimwork, config=EngineConfig(mode=mode))
+    before = ops.SPMM.launches
+    got = betweenness(tiled, roots, device=dev, **kw)
+    assert ops.SPMM.launches > before
+    want = betweenness(cpu, roots, device="cpu", **kw)
+    assert got.iterations == want.iterations
+    np.testing.assert_allclose(got.scores, want.scores, rtol=1e-4,
+                               atol=1e-6 * want.scores.max())
+    fwd = peng.run_fused(BRANDES_FORWARD_SPEC, tiled, torch.from_numpy(roots),
+                         slimwork=slimwork, max_iters=tiled.n + 1)
+    ref = peng.run_fused(BRANDES_FORWARD_SPEC, cpu, torch.from_numpy(roots),
+                         slimwork=slimwork, max_iters=tiled.n + 1)
+    assert fwd.iterations == ref.iterations
+    assert torch.equal(fwd.state["d"].cpu(), ref.state["d"])
+    sigma, sigma0 = fwd.state["sigma"].cpu(), ref.state["sigma"]
+    exact = sigma0 < 2 ** 24
+    assert torch.equal(sigma[exact], sigma0[exact])
+    torch.testing.assert_close(sigma[~exact], sigma0[~exact], rtol=1e-5,
+                               atol=0.0)
