@@ -173,6 +173,28 @@ exit and no result line):
    with the plain sweeps on the card; eight roots against a float64
    Brandes over phase 5's depths; the largest path count and how many
    pass 2^24;
+14. (run after phase 13 and before 11) the serving dispatcher
+   (``repro_torch.serving``: ``Batcher``, ``Dispatcher`` on cached
+   ``FixpointHandle``s, ``ServingMetrics``): (a) on kronecker(10, 8),
+   star(64) and two_components(7, 8), one mixed stream each of all six
+   algorithms (BFS in 4 semirings with parents on some roots and packed,
+   SSSP at two deltas, CC sel-max, boolean lane and packed, PageRank at two
+   dampings, k-hop at k = 1 and 2 lane and packed, betweenness) under
+   ``EngineConfig()``, direction "auto" and mode "hostloop", x
+   ``max_inflight`` 0 and 2: every result bit-equal to the card's front
+   doors for its slot, and to the dispatcher on the CPU (integers
+   bit-equal, PageRank within ``PR_*``, betweenness within ``BC_*``, sel-max
+   parents under "auto" validated), the counters equal; the queries the
+   JAX package refuses under "auto" (packed sweeps, betweenness) left out
+   of its stream and refused on both devices with one error type; (b) at
+   scale 20 one stream through ``Batcher(max_batch=64)`` and
+   ``Dispatcher(max_inflight=2)``: the 64 phase-5 roots tropical (parents
+   for 32), 16 sel-max with parents, 32 packed, 64 SSSP at the default
+   delta, CC sel-max, PageRank, k-hop at k = 2, equal bit for bit to phase
+   5's push batch and the front door's parents, phase 9b's rows, phase
+   12b's labels, fused ranks and ``khop_many``; submitted twice, the second
+   pass all handle hits and bit-equal to the first; the metrics' snapshot,
+   the passes' wall time against the same front-door calls one by one;
 11. DLRM inference at the dlrm-mlperf widths through the embedding-bag
    kernel (7), after freeing what phases 4-10 hold: (a) the kernel against
    its plain version, bit-equal (sum and mean; the JAX package's (V, d, B,
@@ -207,8 +229,10 @@ four lane kernels over phases 4b and 5, the two packed kernels over phase
 7b, the stored-weight SpMV over phase 8b, the stored-weight SpMM over
 phases 9b and 9c, the GCN SpMM over phase 10b, each counted from zero;
 kernels 1 (its sel-max, boolean and real modes), 2, 3, 4, 5 and 6 over
-phase 12b; kernel 2 (its real mode under betweenness) over phase 13b; the
-embedding bag over phase 11b, exactly once a forward.
+phase 12b; kernel 2 (its real mode under betweenness) over phase 13b;
+kernels 3 and 5 over the card's streams of phase 14a, kernels 1, 2, 2w and
+6 over the two passes of 14b; the embedding bag over phase 11b, exactly
+once a forward.
 The last lines are the kernel table, the card, and ``{"ok": true,
 "device": {...}}``.
 """
@@ -223,6 +247,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -236,15 +261,17 @@ SEMIRINGS = ("tropical", "real", "boolean", "selmax")
 SCALE, EDGE_FACTOR, SMALL_SCALE = 20, 16, 14
 # the whole run must end within 1200 s; phase 8b validates 64 SSSP trees
 # only if that still ends by this mark, else the first 16; phase 9c the
-# same by its own mark; both leave phases 10, 12, 13 and 11 their reserves
+# same by its own mark; both leave phases 10, 12, 13, 14 and 11 their
+# reserves
 GCN_RESERVE_S = 60.0
 DLRM_RESERVE_S = 90.0
 GRAPH_RESERVE_S = 90.0
 BC_RESERVE_S = 120.0
+SERVE_RESERVE_S = 60.0
 VALIDATE_ALL_BY_S = 900.0 - GCN_RESERVE_S - DLRM_RESERVE_S \
-    - GRAPH_RESERVE_S - BC_RESERVE_S
+    - GRAPH_RESERVE_S - BC_RESERVE_S - SERVE_RESERVE_S
 VALIDATE_BATCH_BY_S = 1000.0 - GCN_RESERVE_S - DLRM_RESERVE_S \
-    - GRAPH_RESERVE_S - BC_RESERVE_S
+    - GRAPH_RESERVE_S - BC_RESERVE_S - SERVE_RESERVE_S
 # PageRank with the kernels against the same call with the plain sweeps
 # (phase 12): kernel 1 adds a row in another order than the plain version,
 # so the ranks are held to bounds fixed before the first card run
@@ -557,7 +584,9 @@ def graph_workloads(*, dev, card, csr, tiled, root, lane_boolean, roots,
     path; (b) scale 20, checked against scipy, the phase-4b and phase-5
     results and the plain sweeps on the card, timed, the launches counted
     from zero; (c) kernel 1 at the PageRank and CC payloads. Returns the
-    phase's main-path launch counts."""
+    phase's main-path launch counts and the scale-20 results phase 14 is
+    held to: fused sel-max CC, fused PageRank and lane push ``khop_many``
+    at k = 2."""
     from repro_torch.core import engine, semiring
     from repro_torch.core.cc import cc
     from repro_torch.core.formats import build_csr, build_slimsell
@@ -727,6 +756,8 @@ def graph_workloads(*, dev, card, csr, tiled, root, lane_boolean, roots,
         kind = f"khop_many {'packed' if packed else 'lane'} {direction}"
         counts[kind] = {k: v - before[k] for k, v in ops.launch_counts().items()
                         if v != before[k]}
+        if kind == "khop_many lane push":
+            khop_push = runs[0]
         log(f"[12b] {kind} k=2 over the 64 phase-5 roots: == the push batch's "
             f"distances clipped at 2; median {med * 1e3:.1f} ms of "
             f"{[round(s * 1e3, 1) for s in secs]}; launches {counts[kind]} on "
@@ -839,7 +870,8 @@ def graph_workloads(*, dev, card, csr, tiled, root, lane_boolean, roots,
             r["max_abs_err"] = errs["slimsell_spmv"]  # with 12c's real sums
         if r["name"] in main_path:
             r["phase12_launches"] = main_path[r["name"]]
-    return main_path
+    return main_path, {"cc": selmax["fused"], "pagerank": pr["fused"],
+                       "khop_many": khop_push}
 
 
 def brandes_f64(csr, roots, d=None):
@@ -1131,6 +1163,412 @@ def betweenness_phase(*, dev, card, csr, tiled, roots, push, small_csr,
                 "largest_sigma": top_sigma, **errs,
                 "f64_rel_to_max": f64_err}
     return launches
+
+
+def serving_queries(n: int, seed: int, delta: float, config):
+    """Phase 14a's mixed stream on a graph of ``n`` vertices, as Query
+    fields (dicts) by ``config``: BFS in the four semirings (parents on
+    every other root) and packed, SSSP at ``delta`` and twice it, CC
+    sel-max, boolean lane and packed, PageRank at two dampings, k-hop at
+    k = 1 and 2 lane and at 2 packed, betweenness. Returns ``(stream,
+    refused)``: the queries the JAX package refuses under ``config`` (the
+    packed sweeps and betweenness under direction "auto") make up
+    ``refused``, one slot each, and are left out of ``stream``."""
+    roots = [int(r) for r in np.random.default_rng(seed).choice(
+        n, min(6, n), replace=False)]
+    qs = []
+
+    def add(**kw):
+        q = dict(qid=len(qs), algorithm="bfs", semiring="tropical",
+                 root=None, delta=None, need_parents=False, deadline_at=None,
+                 submitted_at=0.0)
+        q.update(kw)
+        qs.append(q)
+
+    for sem in SEMIRINGS:
+        for i, r in enumerate(roots[:5]):
+            add(semiring=sem, root=r, need_parents=i % 2 == 0)
+    for r in roots[:5]:
+        add(semiring="boolean", root=r, packed=True, need_parents=True)
+    for d in (delta, 2 * delta):
+        for i, r in enumerate(roots[:4]):
+            add(algorithm="sssp", semiring="minplus", root=r, delta=d,
+                need_parents=i % 2 == 1)
+    add(algorithm="cc", semiring="selmax")
+    add(algorithm="cc", semiring="boolean")
+    add(algorithm="cc", semiring="boolean", packed=True)
+    for damping in (0.85, 0.7):
+        add(algorithm="pagerank", semiring="real", damping=damping, tol=1e-6)
+    for k, packed in ((1, False), (2, False), (2, True)):
+        for r in roots[:3]:
+            add(algorithm="khop", semiring="boolean", root=r, k=k,
+                packed=packed)
+    add(algorithm="betweenness", semiring="real")
+    if config.direction != "auto":
+        return qs, []
+    refused = [q for q in qs if q.get("packed")
+               or q["algorithm"] == "betweenness"]
+    return [q for q in qs if q not in refused], refused
+
+
+def serve(tiled, config, qs, *, max_inflight, dev):
+    """``qs`` through a ``Batcher`` and a ``Dispatcher`` on ``dev``: the
+    results by qid, the metrics' snapshot and the slots."""
+    from repro_torch.serving import Batcher, Dispatcher, Query, ServingMetrics
+    metrics = ServingMetrics()
+    disp = Dispatcher(tiled, config, metrics, max_inflight=max_inflight,
+                      device=dev)
+    batcher = Batcher(max_batch=8)
+    for q in qs:
+        batcher.add(Query(**dict(q, submitted_at=time.monotonic())))
+    slots, expired = batcher.drain(time.monotonic())
+    if expired:
+        raise AssertionError(f"{len(expired)} queries without a deadline "
+                             "expired")
+    for slot in slots:
+        disp.dispatch(slot)
+    disp.drain()
+    return disp.results, metrics.snapshot(), slots
+
+
+def same_served(got, want, what: str, *, across: bool = False,
+                pr_ref=None, csr=None) -> None:
+    """Two serving results of one query, bit-equal (dtypes included) unless
+    ``across`` devices (the card against the CPU): then PageRank is held by
+    ``pagerank_close`` to ``pr_ref = (the CPU's front-door run, tol)``,
+    whose residual log decides sweeps one apart, and betweenness within
+    ``BC_RTOL`` and ``BC_ATOL_REL`` x the largest score with equal sweeps.
+    With ``csr`` the sel-max parents are validated (Graph500 §5.2) instead
+    of compared: the pull's first hit may pick another parent."""
+    from repro_torch.graph500 import validate_bfs_tree
+    if (got.status, got.buckets, got.delta, got.n_components) != \
+            (want.status, want.buckets, want.delta, want.n_components) \
+            or got.values.dtype != want.values.dtype:
+        raise AssertionError(f"{what}: status, buckets, delta, count or "
+                             "dtype differ")
+    if across and got.algorithm == "pagerank":
+        ref, tol = pr_ref
+        pagerank_close(types.SimpleNamespace(ranks=got.values,
+                                             iterations=got.sweeps),
+                       ref, tol, what)
+    elif across and got.algorithm == "betweenness":
+        if got.sweeps != want.sweeps or not np.allclose(
+                got.values, want.values, rtol=BC_RTOL,
+                atol=BC_ATOL_REL * float(want.values.max())):
+            raise AssertionError(f"{what}: betweenness not within BC_*")
+    elif got.sweeps != want.sweeps or got.residual != want.residual \
+            or not np.array_equal(got.values, want.values):
+        raise AssertionError(f"{what}: values, sweeps or residual differ")
+    if (got.parents is None) != (want.parents is None):
+        raise AssertionError(f"{what}: parents on one side only")
+    if got.parents is None:
+        return
+    if csr is not None and got.semiring == "selmax":
+        validate_bfs_tree(csr, int(np.flatnonzero(got.values == 0)[0]),
+                          got.values, got.parents)
+    elif got.parents.dtype != want.parents.dtype \
+            or not np.array_equal(got.parents, want.parents):
+        raise AssertionError(f"{what}: parents differ")
+
+
+def same_counters(got: dict, want: dict, pagerank_gap: int, what: str):
+    """Two metrics snapshots: every counter and ratio equal, latencies
+    aside, and the sweep total apart by the PageRank sweeps' gap alone."""
+    skip = ("sweeps_total", "sweeps_per_query")
+
+    def counters(snap):
+        return {k: v for k, v in snap.items()
+                if not k.startswith("latency") and k not in skip}
+    if got["sweeps_total"] - want["sweeps_total"] != pagerank_gap \
+            or counters(got) != counters(want):
+        raise AssertionError(f"{what}: counters differ")
+
+
+def serving_phase(*, dev, card, tiled, roots, push, msssp, workloads, table):
+    """Phase 14: the serving dispatcher (``repro_torch.serving``). (a) small
+    graphs, three configs x ``max_inflight`` 0 and 2, the card against its
+    own front doors and the dispatcher on the CPU; (b) scale 20, one mixed
+    stream of 64-root buckets through ``Batcher(max_batch=64)`` and
+    ``Dispatcher(max_inflight=2)`` twice, against phases 5, 9b and 12b and
+    the front doors, timed, the launches counted from zero. Returns the
+    launch counts of 14a and 14b."""
+    from repro_torch.configs.sssp_graph500 import WEIGHT_HIGH, WEIGHT_LOW
+    from repro_torch.core.cc import cc
+    from repro_torch.core.formats import build_slimsell
+    from repro_torch.core.khop import khop_many
+    from repro_torch.core.multi_bfs import multi_source_bfs
+    from repro_torch.core.multi_sssp import multi_source_sssp
+    from repro_torch.core.options import EngineConfig
+    from repro_torch.core.pagerank import pagerank
+    from repro_torch.core.sssp import default_delta
+    from repro_torch.graphs.generators import (kronecker, star, two_components,
+                                               with_random_weights)
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Batcher, Dispatcher, Query, ServingMetrics
+
+    # (a) small graphs: the card against its own front doors (the
+    # dispatcher's synchronous path, which calls them with the slot's
+    # roots, width and config) and against the dispatcher on the CPU
+    t0 = time.perf_counter()
+    configs = {"push fused": EngineConfig(), "auto fused":
+               EngineConfig(direction="auto"),
+               "push hostloop": EngineConfig(mode="hostloop")}
+    launches_a = {k: 0 for k in ops.launch_counts()}
+    n_streams = n_results = 0
+    refusals = []
+    for gname, g in (("kronecker(10, 8)", kronecker(10, 8, seed=1)),
+                     ("star(64)", star(64)),
+                     ("two_components(7, 8)", two_components(7, 8, seed=0))):
+        g = with_random_weights(g, low=WEIGHT_LOW, high=WEIGHT_HIGH, seed=2)
+        host = build_slimsell(g, C=8, L=32)
+        gcpu, gdev = host.to_torch("cpu"), host.to_torch(dev)
+        delta = default_delta(gcpu)
+        for cname, cfg in configs.items():
+            qs, refused = serving_queries(g.n, 14, delta, cfg)
+            ref, ref_snap, _ = serve(gcpu, cfg, qs, max_inflight=2,
+                                     dev="cpu")
+            # the fused handles run sel-max CC, PageRank and SSSP push
+            # under any direction, as the JAX package's dispatcher does
+            push_cfg = EngineConfig(mode=cfg.mode)
+            pr_ref = {}
+            for q in qs:
+                if q["algorithm"] == "pagerank":
+                    pr = pagerank(gcpu, damping=q["damping"], tol=q["tol"],
+                                  config=push_cfg, device="cpu")
+                    if not np.array_equal(pr.ranks, ref[q["qid"]].values):
+                        raise AssertionError("the CPU dispatcher's PageRank "
+                                             "!= its front door")
+                    pr_ref[q["qid"]] = (pr, q["tol"])
+            for max_inflight in (0, 2):
+                before = ops.launch_counts()
+                got, snap, slots = serve(gdev, cfg, qs,
+                                         max_inflight=max_inflight, dev=dev)
+                for k, v in ops.launch_counts().items():
+                    launches_a[k] += v - before[k]
+                # the front doors with each slot's roots, width and config:
+                # the dispatcher's synchronous path
+                doors = {c: Dispatcher(gdev, c, ServingMetrics(), device=dev)
+                         for c in (cfg, push_cfg)}
+                for slot in slots:
+                    own = slot.key.algorithm in ("bfs", "khop") \
+                        or slot.key.semiring == "boolean"
+                    doors[cfg if own else push_cfg]._dispatch_sync(slot)
+                doors = {**doors[push_cfg].results, **doors[cfg].results}
+                what = f"{cname} max_inflight={max_inflight} on {gname}"
+                for q in qs:
+                    qid = q["qid"]
+                    same_served(got[qid], doors[qid],
+                                f"qid {qid} {what}, card vs its front doors")
+                    same_served(got[qid], ref[qid],
+                                f"qid {qid} {what}, card vs CPU", across=True,
+                                pr_ref=pr_ref.get(qid),
+                                csr=g if cfg.direction == "auto" else None)
+                    n_results += 1
+                same_counters(snap, ref_snap, sum(
+                    got[qid].sweeps - ref[qid].sweeps for qid in pr_ref),
+                    f"{what}, card vs CPU")
+                n_streams += 1
+            for q in refused:
+                errors = []
+                for tiled_, d in ((gcpu, "cpu"), (gdev, dev)):
+                    b = Batcher()
+                    b.add(Query(**q))
+                    try:
+                        Dispatcher(tiled_, cfg, ServingMetrics(),
+                                   device=d).dispatch(b.drain(0.0)[0][0])
+                    except (ValueError, TypeError, NotImplementedError) as e:
+                        errors.append(type(e))
+                if len(errors) != 2 or errors[0] is not errors[1]:
+                    raise AssertionError(f"{q['algorithm']} packed="
+                                         f"{q.get('packed', False)} under "
+                                         f"{cname}: refused {errors}")
+                packed = " packed" if q.get("packed") else ""
+                refusals.append(f"{q['algorithm']}{packed} "
+                                f"{errors[0].__name__}")
+    log(f"[14a] dispatcher on the card == its front doors bit for bit and == "
+        f"the dispatcher on the CPU (integers bit-equal, PageRank within "
+        f"PR_*, betweenness within BC_*, sel-max parents under auto "
+        f"validated, counters equal) on kronecker(10, 8), star(64), "
+        f"two_components(7, 8) x {', '.join(configs)} x max_inflight 0 and "
+        f"2: {n_streams} streams, {n_results} results; refused under auto "
+        f"on both devices alike: {sorted(set(refusals))}; launches "
+        f"{ {k: v for k, v in launches_a.items() if v} } in "
+        f"{time.perf_counter() - t0:.1f} s")
+    needed_a = ("slimsell_pull", "slimsell_spmv_packed")
+    if min(launches_a[k] for k in needed_a) == 0:
+        raise AssertionError(f"a kernel never ran on phase 14a's path: "
+                             f"{launches_a}")
+
+    # (b) scale 20: one mixed stream through one dispatcher, twice
+    delta = default_delta(tiled)
+    roots = [int(r) for r in roots]
+    kinds = {}
+
+    def stream(base):
+        qs = []
+
+        def add(kind, **kw):
+            q = dict(qid=base + len(qs), algorithm="bfs", semiring="tropical",
+                     root=None, delta=None, need_parents=False,
+                     deadline_at=None, submitted_at=0.0)
+            q.update(kw)
+            if not base:   # the first pass's qids by kind
+                kinds.setdefault(kind, []).append(q["qid"])
+            qs.append(q)
+
+        for i, r in enumerate(roots):
+            add("tropical", root=r, need_parents=i < 32)
+        for r in roots[:16]:
+            add("selmax", semiring="selmax", root=r, need_parents=True)
+        for r in roots[:32]:
+            add("packed", semiring="boolean", root=r, packed=True)
+        for r in roots:
+            add("sssp", algorithm="sssp", semiring="minplus", root=r,
+                delta=delta)
+        add("cc", algorithm="cc", semiring="selmax")
+        add("pagerank", algorithm="pagerank", semiring="real", damping=0.85,
+            tol=1e-6)
+        for r in roots:
+            add("khop", algorithm="khop", semiring="boolean", root=r, k=2)
+        return qs
+
+    metrics = ServingMetrics()
+    disp = Dispatcher(tiled, EngineConfig(), metrics, max_inflight=2,
+                      device=dev)
+    batcher = Batcher(max_batch=64)
+
+    def one_pass(qs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for q in qs:
+            batcher.add(Query(**dict(q, submitted_at=time.monotonic())))
+        slots, expired = batcher.drain(time.monotonic())
+        if expired:
+            raise AssertionError("a query without a deadline expired")
+        for slot in slots:
+            disp.dispatch(slot)
+        disp.drain()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, len(slots)
+
+    first = stream(0)
+    second = stream(len(first))
+    ops.reset_launches()
+    wall1, n_slots = one_pass(first)
+    snap1 = metrics.snapshot()
+    wall2, _ = one_pass(second)
+    snap2 = metrics.snapshot()
+    launches_b = ops.launch_counts()
+    needed_b = ("slimsell_spmv", "slimsell_spmm", "slimsell_spmm_wts",
+                "slimsell_spmm_packed")
+    if min(launches_b[k] for k in needed_b) == 0:
+        raise AssertionError(f"a kernel never ran on phase 14b's path: "
+                             f"{launches_b}")
+    if snap2["compile_cache_misses"] != snap1["compile_cache_misses"] \
+            or snap2["compile_cache_hits"] - snap1["compile_cache_hits"] \
+            != n_slots:
+        raise AssertionError(f"the second pass was not all handle hits: "
+                             f"{snap1} then {snap2}")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    fd = {"tropical": timed(lambda: multi_source_bfs(
+              tiled, roots, "tropical", need_parents=True, device=dev)),
+          "tropical without parents": timed(lambda: multi_source_bfs(
+              tiled, roots, "tropical", device=dev)),
+          "selmax": timed(lambda: multi_source_bfs(
+              tiled, roots[:16], "selmax", need_parents=True, device=dev)),
+          "packed": timed(lambda: multi_source_bfs(
+              tiled, roots[:32], "boolean", packed=True, device=dev)),
+          "sssp": timed(lambda: multi_source_sssp(tiled, roots, delta=delta,
+                                                  device=dev)),
+          "cc": timed(lambda: cc(tiled, device=dev)),
+          "pagerank": timed(lambda: pagerank(tiled, device=dev)),
+          "khop": timed(lambda: khop_many(tiled, roots, 2, device=dev))}
+    res = disp.results
+
+    def check(cond, what):
+        if not cond:
+            raise AssertionError(f"phase 14b: {what}")
+
+    def equal(a, b):
+        return a.dtype == b.dtype and np.array_equal(a, b)
+
+    for i, qid in enumerate(kinds["tropical"]):
+        check(equal(res[qid].distances, push.distances[i]),
+              f"tropical root {roots[i]} != the phase-5 push batch")
+        if i < 32:
+            check(equal(res[qid].parents, fd["tropical"][0].parents[i]),
+                  f"tropical parents of root {roots[i]} != the front door's")
+        else:
+            check(res[qid].parents is None, "parents nobody asked for")
+    for i, qid in enumerate(kinds["selmax"]):
+        check(equal(res[qid].distances, push.distances[i])
+              and equal(res[qid].parents, fd["selmax"][0].parents[i]),
+              f"selmax root {roots[i]} != phase 5 / the front door")
+    for i, qid in enumerate(kinds["packed"]):
+        check(equal(res[qid].distances, push.distances[i]),
+              f"packed root {roots[i]} != the phase-5 push batch")
+    for i, qid in enumerate(kinds["sssp"]):
+        r = res[qid]
+        check(equal(r.distances, msssp.distances[i])
+              and (r.sweeps, r.buckets, r.delta)
+              == (msssp.sweeps[i], msssp.buckets[i], msssp.delta)
+              and equal(r.distances, fd["sssp"][0].distances[i]),
+              f"sssp root {roots[i]} != phase 9b's row / the front door")
+    r, want = res[kinds["cc"][0]], workloads["cc"]
+    check(equal(r.labels, want.labels) and r.n_components == want.n_components
+          and r.sweeps == want.iterations, "cc != phase 12b's labels")
+    r, want = res[kinds["pagerank"][0]], workloads["pagerank"]
+    check(equal(r.ranks, want.ranks) and r.sweeps == want.iterations
+          and r.residual == float(want.residuals[-1]),
+          "pagerank != phase 12b's fused ranks bit for bit")
+    for i, qid in enumerate(kinds["khop"]):
+        check(equal(res[qid].distances, workloads["khop_many"].distances[i]),
+              f"khop k=2 root {roots[i]} != phase 12b's khop_many")
+    for q in second:
+        same_served(res[q["qid"]], res[q["qid"] - len(first)],
+                    f"phase 14b qid {q['qid']}, second pass vs first")
+    with_parents = sum(t for k, (_, t) in fd.items()
+                       if k != "tropical without parents")
+    without = sum(t for k, (_, t) in fd.items() if k != "tropical")
+    keys = ("batches_dispatched", "columns_total", "columns_real",
+            "batch_fill_ratio", "compile_cache_hits", "compile_cache_misses",
+            "sweeps_total", "latency_p50_ms", "latency_p99_ms")
+    log(f"[14b] scale {SCALE}: {len(first)} queries in {n_slots} slots "
+        f"(Batcher(max_batch=64), Dispatcher(max_inflight=2)): tropical 64 "
+        f"roots (parents for 32) == the phase-5 push batch and the front "
+        f"door's parents; selmax 16 with parents and packed 32 == phase 5; "
+        f"sssp 64 (delta {delta:.6g}) == phase 9b's rows (distances, sweeps, "
+        f"buckets); cc == phase 12b's labels; pagerank == phase 12b's fused "
+        f"ranks bit for bit ({workloads['pagerank'].iterations} sweeps); "
+        f"khop k=2 == phase 12b's khop_many; the second pass all handle hits"
+        f" and bit-equal to the first")
+    log(f"[14b] pass 1 {wall1 * 1e3:.1f} ms, pass 2 {wall2 * 1e3:.1f} ms; "
+        f"the same front doors one by one: {with_parents * 1e3:.1f} ms (the "
+        f"tropical call with parents for all 64), {without * 1e3:.1f} ms (its "
+        f"call without parents): "
+        f"{ {k: round(t * 1e3, 1) for k, (_, t) in fd.items()} } on {card}")
+    log(f"[14b] after pass 1: { {k: snap1[k] for k in keys} }")
+    log(f"[14b] after pass 2: { {k: snap2[k] for k in keys} }")
+    log(f"[14b] launches over both passes, counted from zero: "
+        f"{ {k: v for k, v in launches_b.items() if v} }")
+    for r in table:
+        if launches_a.get(r["name"]):
+            r["phase14a_launches"] = launches_a[r["name"]]
+        if launches_b.get(r["name"]):
+            r["phase14b_launches"] = launches_b[r["name"]]
+    return {"14a": launches_a, "14b": launches_b, "serving": {
+        "pass_ms": [wall1 * 1e3, wall2 * 1e3],
+        "front_doors_ms": with_parents * 1e3,
+        "front_doors_without_parents_ms": without * 1e3,
+        "after_pass_1": {k: snap1[k] for k in keys},
+        "after_pass_2": {k: snap2[k] for k in keys}}}
 
 
 def main() -> int:
@@ -2466,11 +2904,11 @@ def main() -> int:
     # ---- 12: CC, k-hop and PageRank on the ported sweeps, at scale 20
     # before phase 11 frees the layout
     t12 = time.perf_counter()
-    graph_workloads(dev=dev, card=card, csr=csr, tiled=tiled, root=root,
-                    lane_boolean=lane_boolean, roots=roots, push=push,
-                    small_csr=small_csr, small_cpu=small_cpu, small=small,
-                    root0=root0, adj=adj, full=full, layout_bytes=layout_bytes,
-                    errs=errs, table=table)
+    _, workloads = graph_workloads(
+        dev=dev, card=card, csr=csr, tiled=tiled, root=root,
+        lane_boolean=lane_boolean, roots=roots, push=push,
+        small_csr=small_csr, small_cpu=small_cpu, small=small, root0=root0,
+        adj=adj, full=full, layout_bytes=layout_bytes, errs=errs, table=table)
     torch.cuda.synchronize()
     log(f"[12] phase 12 took {time.perf_counter() - t12:.1f} s (reserve "
         f"{GRAPH_RESERVE_S:.0f} s); the run {time.perf_counter() - t_start:.1f}"
@@ -2486,6 +2924,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[13] phase 13 took {time.perf_counter() - t13:.1f} s (reserve "
         f"{BC_RESERVE_S:.0f} s); the run {time.perf_counter() - t_start:.1f}"
+        f" s so far")
+
+    # ---- 14: the serving dispatcher over the ported front doors and
+    # handles, at scale 20 before phase 11 frees the layout
+    t14 = time.perf_counter()
+    serving_phase(dev=dev, card=card, tiled=tiled, roots=roots, push=push,
+                  msssp=mf, workloads=workloads, table=table)
+    del workloads
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[14] phase 14 took {time.perf_counter() - t14:.1f} s (reserve "
+        f"{SERVE_RESERVE_S:.0f} s); the run {time.perf_counter() - t_start:.1f}"
         f" s so far")
 
     # ---- 11: DLRM inference (dlrm-mlperf widths) with the embedding bag (7)

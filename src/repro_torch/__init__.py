@@ -11,7 +11,9 @@ Graph500 BFS and SSSP harnesses
 (``graph500``), and GCN inference on the SlimSell aggregation
 (``models.gnn``; the gcn-cora configuration in ``configs.gcn_cora``), and
 DLRM inference with the embedding-bag kernel (``models.dlrm``; the
-dlrm-mlperf configuration in ``configs.dlrm_mlperf``).
+dlrm-mlperf configuration in ``configs.dlrm_mlperf``), and the serving
+layer's dispatcher (``serving``: ``Batcher``, ``Dispatcher`` on the
+engine's cached ``FixpointHandle``s, ``ServingMetrics``).
 Entry points run on the card unless the caller passes ``device="cpu"``,
 which runs the plain PyTorch versions of the kernels.
 """

@@ -18,6 +18,10 @@ drive a spec to its fixpoint:
   choice in numpy, and hands the bool mask (T bytes) back to the ordinary
   sweep, whose kernels skip the masked tiles.
 
+``fixpoint_handle`` caches a ``FixpointHandle`` per bucket signature for
+the serving layer: it builds a state apart from running it, and runs it
+through the same fused loop as ``run_fused``.
+
 ``step`` is one iteration of either. Loop semantics match the JAX
 package's: iterate while ``cont and k <= max_iters`` from ``k = 1``;
 ``iterations = k - 1`` at exit; ``work_log[k-1]`` is the number of active
@@ -57,6 +61,8 @@ sweeps are push-only: ``_sweep`` raises on a pull sweep of one.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import threading
 from typing import Callable, Optional
 
 import numpy as np
@@ -210,13 +216,24 @@ def run_fused(spec: FixpointSpec, tiled, arg, *, slimwork: bool = True,
     are 0 without SlimWork.
     """
     _check_direction(spec, direction)
+    state = spec.init_state(tiled.n, arg, tiled.cols.device)
+    # a batched spec's arg is its roots, one per column
+    return _fused_loop(spec, tiled, state, len(arg) if spec.batched else None,
+                       slimwork=slimwork, max_iters=max_iters,
+                       log_work=log_work, direction=direction)
+
+
+def _fused_loop(spec: FixpointSpec, tiled, state: dict, B: Optional[int], *,
+                slimwork: bool, max_iters: int, log_work: bool,
+                direction: str) -> EngineResult:
+    """Drive ``state`` to the spec's fixpoint: the fused loop that
+    ``run_fused`` and ``FixpointHandle.run`` share (a batched spec's ``B``
+    is its width)."""
     device = tiled.cols.device
-    state = spec.init_state(tiled.n, arg, device)
     work = torch.zeros(WORK_LOG if log_work else 1, dtype=torch.int32,
                        device=device)
     if spec.batched:
-        # a batched spec's arg is its roots, one per column
-        return _run_fused_batched(spec, tiled, state, work, len(arg),
+        return _run_fused_batched(spec, tiled, state, work, B,
                                   slimwork=slimwork, max_iters=max_iters,
                                   log_work=log_work, direction=direction)
     dirs = np.full(WORK_LOG if log_work else 1, -1, np.int32)
@@ -297,6 +314,99 @@ def _run_fused_batched(spec: FixpointSpec, tiled, state: dict,
         wl, plog_out = work.cpu().numpy(), plog.cpu().numpy()
     return EngineResult(state=state, iterations=k - 1, work_log=wl,
                         pull_cols_log=plog_out)
+
+
+# ---------------------------------------------------------- fixpoint handles
+
+
+@dataclasses.dataclass(eq=False)
+class FixpointHandle:
+    """A persistent, re-entrant fused fixpoint runner for one bucket
+    signature (spec, slimwork, max_iters, direction, batch width): the
+    serving layer's unit of reuse.
+
+    ``spec`` is a ``FixpointSpec``, or a factory ``(tiled, *ctx_args) ->
+    FixpointSpec`` for a spec that closes over per-run constants (the SSSP
+    bucket width, PageRank's damping and tol): ``setup`` binds them, so one
+    handle serves every bucket of its signature, each run with its own
+    constants. The bound spec is the run's ``ctx``, which ``init_state``
+    and ``run`` take.
+
+    ``run`` drives a state through the same loop as ``run_fused``, without
+    the work log, and returns once the sweeps are done (the loop reads its
+    continue flag on the host each iteration): ``(state, iterations)``,
+    the state still on the layout's device.
+    """
+    spec: object
+    slimwork: bool
+    max_iters: int
+    direction: str
+    batch_width: Optional[int]
+
+    def setup(self, tiled, ctx_args=()) -> FixpointSpec:
+        """The spec bound to one run's constants."""
+        if isinstance(self.spec, FixpointSpec):
+            if tuple(ctx_args):
+                raise ValueError(f"{self.spec.name}: the spec takes no "
+                                 "per-run constants")
+            spec = self.spec
+        else:
+            spec = self.spec(tiled, *tuple(ctx_args))
+        if spec.batched != (self.batch_width is not None):
+            raise ValueError(f"{spec.name}: batched specs need batch_width, "
+                             "single-source specs none")
+        _check_direction(spec, self.direction)
+        return spec
+
+    def init_state(self, tiled, arg, ctx: FixpointSpec) -> dict:
+        """Fresh state for one run, on the layout's device."""
+        return ctx.init_state(tiled.n, arg, tiled.cols.device)
+
+    def run(self, tiled, ctx: FixpointSpec, state: dict):
+        """Drive ``state`` to the fixpoint: ``(state, iterations)``."""
+        res = _fused_loop(ctx, tiled, state, self.batch_width,
+                          slimwork=self.slimwork, max_iters=self.max_iters,
+                          log_work=False, direction=self.direction)
+        return res.state, res.iterations
+
+
+# fixpoint_handle's concurrent-first-call guard: lru_cache does not
+# deduplicate concurrent misses, so two serving threads asking for the
+# same new signature would both build a handle. One lock per signature
+# serializes construction exactly once per key.
+_HANDLE_ONCE_GUARD = threading.Lock()
+_HANDLE_BUILD_LOCKS: dict = {}
+
+
+@functools.lru_cache(maxsize=None)
+def _fixpoint_handle_cached(spec, slimwork: bool, max_iters: int,
+                            direction: str,
+                            batch_width: Optional[int]) -> FixpointHandle:
+    return FixpointHandle(spec=spec, slimwork=slimwork, max_iters=max_iters,
+                          direction=direction, batch_width=batch_width)
+
+
+def fixpoint_handle(spec, *, slimwork: bool = True, max_iters: int,
+                    direction: str = "push",
+                    batch_width: Optional[int] = None) -> FixpointHandle:
+    """Get (or build) the process-wide ``FixpointHandle`` for a bucket
+    signature; ``spec`` is a ``FixpointSpec`` or a factory of one (see
+    ``FixpointHandle``), keyed by identity. ``batch_width`` is required
+    for batched specs.
+
+    Thread-safe: a per-signature once-guard serializes the first call for
+    each new signature, so concurrent threads missing on the same key get
+    one handle, never two.
+    """
+    check_choice("direction", direction, DIRECTIONS)
+    if isinstance(spec, FixpointSpec) and spec.batched and batch_width is None:
+        raise ValueError(f"{spec.name}: batched specs need batch_width")
+    key = (spec, bool(slimwork), int(max_iters), direction,
+           None if batch_width is None else int(batch_width))
+    with _HANDLE_ONCE_GUARD:
+        build_lock = _HANDLE_BUILD_LOCKS.setdefault(key, threading.Lock())
+    with build_lock:
+        return _fixpoint_handle_cached(*key)
 
 
 # ----------------------------------------------------------------- hostloop

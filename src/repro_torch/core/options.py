@@ -26,6 +26,13 @@ SEMIRINGS = BFS_SEMIRINGS + ("minplus", "boolean_packed")
 # connected components: sel-max label propagation or boolean BFS peeling
 CC_SEMIRINGS = ("selmax", "boolean")
 
+# the serving layer's query vocabulary: every query names one of these
+ALGORITHMS = ("bfs", "sssp", "cc", "pagerank", "betweenness", "khop")
+
+# query lifecycle states reported by serving.QueryResult.status: "shed"
+# marks a query dropped at submit by the bounded-queue backpressure policy
+QUERY_STATUSES = ("ok", "timeout", "shed")
+
 
 def check_choice(name: str, value, allowed: Sequence[str], *,
                  hint: str = ""):
@@ -59,3 +66,7 @@ class EngineConfig:
     def __post_init__(self):
         check_choice("direction", self.direction, DIRECTIONS)
         check_choice("mode", self.mode, MODES)
+
+    def signature(self) -> tuple:
+        """Hashable identity for handle-cache and bucket keys."""
+        return (self.direction, self.mode)

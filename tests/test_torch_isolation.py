@@ -43,7 +43,11 @@ def test_port_imports_no_jax_and_no_jax_package():
             "src/repro_torch/models/dlrm.py",
             "src/repro_torch/configs/dlrm_mlperf.py",
             "src/repro_torch/data/pipeline.py",
-            "src/repro_torch/kernels/ref.py"} <= names
+            "src/repro_torch/kernels/ref.py",
+            "src/repro_torch/serving/__init__.py",
+            "src/repro_torch/serving/batcher.py",
+            "src/repro_torch/serving/dispatch.py",
+            "src/repro_torch/serving/metrics.py"} <= names
     bad = {str(p.relative_to(REPO)): sorted(set(_imported_roots(p)) & {"jax", "repro"})
            for p in PORT_FILES}
     assert not {k: v for k, v in bad.items() if v}
@@ -192,3 +196,17 @@ def test_profile_spmm_without_card_raises(monkeypatch):
                         lambda *a, **k: pytest.fail("built a graph"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         profile_spmm.main(["--scale", "5"])
+
+
+def test_dispatcher_without_card_raises(no_card, monkeypatch):
+    """The dispatcher resolves its layout's device as the entry points do:
+    without a card and without ``device=`` it raises, whether the layout is
+    on the host or already on the CPU."""
+    from repro_torch.core.options import EngineConfig
+    from repro_torch.serving import Dispatcher, ServingMetrics
+    monkeypatch.setattr(pbfs.eng, "run_fused", lambda *a, **k: pytest.fail())
+    for layout in (no_card, no_card.to_torch("cpu")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Dispatcher(layout, EngineConfig(), ServingMetrics())
+    disp = Dispatcher(no_card, EngineConfig(), ServingMetrics(), device="cpu")
+    assert disp.device == torch.device("cpu")

@@ -905,3 +905,81 @@ def test_betweenness_card_equals_cpu(cuda, mode, slimwork):
     assert torch.equal(sigma[exact], sigma0[exact])
     torch.testing.assert_close(sigma[~exact], sigma0[~exact], rtol=1e-5,
                                atol=0.0)
+
+
+# The serving dispatcher on the card: a mixed stream of all six algorithms
+# through Batcher and Dispatcher (max_inflight=2), each result bit-equal to
+# the card's front-door call for its bucket (the same kernels in the same
+# order, so the float results too)
+@pytest.mark.parametrize("mode", ["fused", "hostloop"])
+def test_dispatcher_card_equals_front_doors(cuda, mode):
+    from repro_torch.core.betweenness import betweenness
+    from repro_torch.core.cc import cc
+    from repro_torch.core.khop import khop_many
+    from repro_torch.core.multi_bfs import multi_source_bfs
+    from repro_torch.core.multi_sssp import multi_source_sssp
+    from repro_torch.core.options import EngineConfig
+    from repro_torch.core.pagerank import pagerank
+    from repro_torch.serving import (Batcher, Dispatcher, Query,
+                                     ServingMetrics)
+    dev, _ = cuda
+    csr = with_random_weights(kronecker(9, 8, seed=1), seed=2)
+    tiled = build_slimsell(csr, C=8, L=32).to_torch(dev)
+    cfg = EngineConfig(mode=mode)
+    roots = [int(r) for r in np.random.default_rng(27).choice(csr.n, 5,
+                                                              replace=False)]
+    buckets = [dict(algorithm="bfs", semiring=s) for s in
+               ("tropical", "real", "boolean", "selmax")]
+    buckets += [dict(algorithm="bfs", semiring="boolean", packed=True),
+                dict(algorithm="sssp", semiring="minplus", delta=2.0),
+                dict(algorithm="khop", semiring="boolean", k=2),
+                dict(algorithm="khop", semiring="boolean", k=2, packed=True)]
+    qs = [dict(b, root=r, need_parents=b["algorithm"] in ("bfs", "sssp"))
+          for b in buckets for r in roots]
+    qs += [dict(algorithm="cc", semiring="selmax", root=None),
+           dict(algorithm="cc", semiring="boolean", root=None),
+           dict(algorithm="pagerank", semiring="real", root=None,
+                damping=0.85, tol=1e-6),
+           dict(algorithm="betweenness", semiring="real", root=None)]
+    batcher = Batcher(max_batch=8)
+    for qid, q in enumerate(qs):
+        batcher.add(Query(qid=qid, delta=q.pop("delta", None),
+                          need_parents=q.pop("need_parents", False),
+                          deadline_at=None, submitted_at=0.0, **q))
+    disp = Dispatcher(tiled, cfg, ServingMetrics(), max_inflight=2,
+                      device=dev)
+    for slot in batcher.drain(0.0)[0]:
+        disp.dispatch(slot)
+    disp.drain()
+    res = disp.results
+    assert len(res) == len(qs)
+    kw = dict(config=cfg, device=dev)
+    for i, b in enumerate(buckets):
+        got = [res[i * len(roots) + j] for j in range(len(roots))]
+        packed = b.get("packed", False)
+        if b["algorithm"] == "bfs":
+            want = multi_source_bfs(tiled, roots, b["semiring"],
+                                    need_parents=True, packed=packed, **kw)
+        elif b["algorithm"] == "sssp":
+            want = multi_source_sssp(tiled, roots, delta=2.0,
+                                     need_parents=True, **kw)
+            assert [(g.sweeps, g.buckets) for g in got] == \
+                list(zip(want.sweeps.tolist(), want.buckets.tolist()))
+        else:
+            want = khop_many(tiled, roots, 2, packed=packed, **kw)
+        for j, g in enumerate(got):
+            np.testing.assert_array_equal(g.values, want.distances[j])
+            if b["algorithm"] != "khop":
+                np.testing.assert_array_equal(g.parents, want.parents[j])
+    whole = [res[len(buckets) * len(roots) + j] for j in range(4)]
+    for g, want in zip(whole[:2], (cc(tiled, **kw),
+                                   cc(tiled, semiring="boolean", **kw))):
+        np.testing.assert_array_equal(g.labels, want.labels)
+        assert (g.sweeps, g.n_components) == (want.iterations,
+                                              want.n_components)
+    want = pagerank(tiled, damping=0.85, tol=1e-6, **kw)
+    np.testing.assert_array_equal(whole[2].ranks, want.ranks)
+    assert whole[2].sweeps == want.iterations
+    want = betweenness(tiled, **kw)
+    np.testing.assert_array_equal(whole[3].scores, want.scores)
+    assert whole[3].sweeps == want.iterations
