@@ -40,10 +40,14 @@ exit and no result line):
    auto: distances, parents, iterations, work and direction logs equal;
    (b) single-source BFS at scale 20 in all four semirings, push and
    auto, and one hostloop auto run, each tree validated (Graph500 §5.2);
-5. the Graph500 harness, 64 roots in one batch of 64, on the same graph:
-   push (all 64 trees validated against the oracle), then auto and pull
-   (the pull batch through the pull_mm kernel): their TEPS, and their
-   distances bit-equal to the push batch's with all 64 trees validated;
+5. the Graph500 harness, 64 roots in one batch of 64, on the same graph,
+   through a ``GraphSession`` (``bfs_many``): push (all 64 trees validated
+   against the oracle; the batch bit-equal, distances and parents, to a
+   direct ``multi_source_bfs`` of the roots timed beside it, with as many
+   launches of kernel 2), then auto and pull (the pull batch through the
+   pull_mm kernel, its launches over the harness call nonzero): their
+   TEPS, and their distances bit-equal to the push batch's with all 64
+   trees validated;
 6. at the scale-20 shapes, every kernel against its plain version again:
    SpMV and SpMM (4 semirings x 4 masks), pull and pull_mm at a real pull
    state (the BFS state just before an iteration that pulls, 4
@@ -84,10 +88,14 @@ exit and no result line):
    buckets and work log equal; (b) at scale 20, ``sssp`` from the phase-4b
    root, fused and hostloop (bit-equal to each other, timed), its distances
    checked against scipy's Dijkstra and its tree validated; then
-   ``run_graph500_sssp`` over the phase-5 roots, timed without validation,
-   and their trees validated against one scipy Dijkstra call (all 64, or
-   the first 16 when 64 would not fit the time limit: the count is
-   printed); (c) the kernel at the real state of the sweep with the most
+   ``run_graph500_sssp`` over the phase-5 roots through a session, each
+   root a width-1 slot of the batched min-plus path (kernel 2w at B=1,
+   its launches over the harness nonzero), timed without validation, its
+   64 results (distances, parents, sweeps, buckets, delta) bit-equal to
+   the direct ``sssp`` of each root, and those trees validated against one
+   scipy Dijkstra call (all 64, or the first 16 when 64 would not fit the
+   time limit: the count is printed); (c) the kernel at the real state of
+   the sweep with the most
    tiles, with that sweep's mask and with every tile kept, against its
    plain version, timed beside it, the implicit-value SpMV on the same
    frontier, a library call and its bound; then over parts of the layout
@@ -103,9 +111,10 @@ exit and no result line):
    phase-5 roots in one batch of 64, default delta, parents on, fused and
    hostloop: fused == hostloop, and each row's distances, parents, sweeps
    and buckets == phase 8b's per-root ``sssp`` of that root; (c)
-   ``run_graph500_sssp(batched=True, batch_size=64)`` with and without
-   parents, its sweeps and buckets == the per-root harness's, and the
-   batch's trees validated against the per-root distances (all 64, or the
+   ``run_graph500_sssp(batched=True, batch_size=64)`` through a session
+   with and without parents, its sweeps and buckets == the per-root
+   harness's, its rows (distances, parents, sweeps, buckets) == 9b's, and
+   the batch's trees validated against the per-root distances (all 64, or the
    first 16 when 64 would not fit the time limit: the count is printed);
    (d) the kernel at the real state of the batch's sweep with the most
    tiles, with that sweep's mask and with every tile kept, against its
@@ -195,6 +204,27 @@ exit and no result line):
    12b's labels, fused ranks and ``khop_many``; submitted twice, the second
    pass all handle hits and bit-equal to the first; the metrics' snapshot,
    the passes' wall time against the same front-door calls one by one;
+15. (run after phase 14 and before 11) the serving session and router
+   (``GraphSession``, ``Router``, the flush thread, backpressure): (a) a
+   ``Router(background=True, max_inflight=2)`` over weighted
+   kronecker(10, 8) and erdos_renyi(150, 5), and the first layout again
+   (not copied) under direction "auto": 208 mixed queries from four
+   producer threads (BFS tropical and sel-max with parents on some roots,
+   packed BFS, SSSP, k-hop lane and packed, CC sel-max, boolean and
+   packed, PageRank; roots without replacement per graph and kind), every
+   result bit-equal to the card's front door for its query (PageRank
+   within ``PR_*``), the counters reconciled per graph and in total; then
+   ``on_full="shed"`` and ``"raise"`` at ``max_pending=4``, a ``close()``
+   that drains the work in flight and ends the flush thread,
+   ``SessionClosed`` after close and ``UnknownGraph`` for an unknown name;
+   (b) at scale 20 ``GraphSession(tiled, max_batch=64, max_inflight=2)``
+   on the resident layout (its ``cols`` storage, not a copy): phase 14b's
+   242 queries from four producers under a flush thread, twice, and
+   submitted then drained without one, twice; every value, parents,
+   bucket count and delta bit-equal to 14b's first pass (sweeps too, but
+   for batched BFS and k-hop under the flush thread, whose slot cuts
+   follow its timing: printed); the drained passes in 14b's slots at fill
+   1.0, the second all handle hits; each pass's wall time beside 14b's;
 11. DLRM inference at the dlrm-mlperf widths through the embedding-bag
    kernel (7), after freeing what phases 4-10 hold: (a) the kernel against
    its plain version, bit-equal (sum and mean; the JAX package's (V, d, B,
@@ -231,8 +261,10 @@ phases 9b and 9c, the GCN SpMM over phase 10b, each counted from zero;
 kernels 1 (its sel-max, boolean and real modes), 2, 3, 4, 5 and 6 over
 phase 12b; kernel 2 (its real mode under betweenness) over phase 13b;
 kernels 3 and 5 over the card's streams of phase 14a, kernels 1, 2, 2w and
-6 over the two passes of 14b; the embedding bag over phase 11b, exactly
-once a forward.
+6 over the two passes of 14b; kernels 3 and 5 over phase 15a, kernels 1,
+2, 2w and 6 over the four passes of 15b; kernel 4 over phase 5's pull
+harness batch and kernel 2w over phase 8b's per-root harness; the
+embedding bag over phase 11b, exactly once a forward.
 The last lines are the kernel table, the card, and ``{"ok": true,
 "device": {...}}``.
 """
@@ -246,6 +278,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 import types
 
@@ -261,17 +294,18 @@ SEMIRINGS = ("tropical", "real", "boolean", "selmax")
 SCALE, EDGE_FACTOR, SMALL_SCALE = 20, 16, 14
 # the whole run must end within 1200 s; phase 8b validates 64 SSSP trees
 # only if that still ends by this mark, else the first 16; phase 9c the
-# same by its own mark; both leave phases 10, 12, 13, 14 and 11 their
+# same by its own mark; both leave phases 10, 12, 13, 14, 15 and 11 their
 # reserves
 GCN_RESERVE_S = 60.0
 DLRM_RESERVE_S = 90.0
 GRAPH_RESERVE_S = 90.0
 BC_RESERVE_S = 120.0
 SERVE_RESERVE_S = 60.0
+SESSION_RESERVE_S = 60.0
 VALIDATE_ALL_BY_S = 900.0 - GCN_RESERVE_S - DLRM_RESERVE_S \
-    - GRAPH_RESERVE_S - BC_RESERVE_S - SERVE_RESERVE_S
+    - GRAPH_RESERVE_S - BC_RESERVE_S - SERVE_RESERVE_S - SESSION_RESERVE_S
 VALIDATE_BATCH_BY_S = 1000.0 - GCN_RESERVE_S - DLRM_RESERVE_S \
-    - GRAPH_RESERVE_S - BC_RESERVE_S - SERVE_RESERVE_S
+    - GRAPH_RESERVE_S - BC_RESERVE_S - SERVE_RESERVE_S - SESSION_RESERVE_S
 # PageRank with the kernels against the same call with the plain sweeps
 # (phase 12): kernel 1 adds a row in another order than the plain version,
 # so the ranks are held to bounds fixed before the first card run
@@ -1291,7 +1325,9 @@ def serving_phase(*, dev, card, tiled, roots, push, msssp, workloads, table):
     stream of 64-root buckets through ``Batcher(max_batch=64)`` and
     ``Dispatcher(max_inflight=2)`` twice, against phases 5, 9b and 12b and
     the front doors, timed, the launches counted from zero. Returns the
-    launch counts of 14a and 14b."""
+    launch counts of 14a and 14b, the passes' numbers, and for phase 15 the
+    14b stream (``stream``, its query dicts), its slot count (``slots``)
+    and its first pass's results by qid (``first``)."""
     from repro_torch.configs.sssp_graph500 import WEIGHT_HIGH, WEIGHT_LOW
     from repro_torch.core.cc import cc
     from repro_torch.core.formats import build_slimsell
@@ -1568,7 +1604,440 @@ def serving_phase(*, dev, card, tiled, roots, push, msssp, workloads, table):
         "front_doors_ms": with_parents * 1e3,
         "front_doors_without_parents_ms": without * 1e3,
         "after_pass_1": {k: snap1[k] for k in keys},
-        "after_pass_2": {k: snap2[k] for k in keys}}}
+        "after_pass_2": {k: snap2[k] for k in keys}},
+        "stream": first, "slots": n_slots,
+        "first": {q["qid"]: res[q["qid"]] for q in first}}
+
+
+# every thread the run starts is joined within this, then must have ended
+JOIN_TIMEOUT_S = 120.0
+# phase 15a's plan: the query kinds each router graph serves; the push
+# graphs everything, the "auto" graph (the kronecker layout under direction
+# "auto") what that direction serves with kernel 3 on its path
+SESSION_KINDS = {
+    "bfs tropical": ("bfs", "tropical", False, None),
+    "bfs selmax": ("bfs", "selmax", False, None),
+    "bfs packed": ("bfs", "boolean", True, None),
+    "sssp": ("sssp", "minplus", False, None),
+    "khop 2": ("khop", "boolean", False, 2),
+    "khop 1 packed": ("khop", "boolean", True, 1),
+    "cc selmax": ("cc", "selmax", False, None),
+    "cc boolean": ("cc", "boolean", False, None),
+    "cc packed": ("cc", "boolean", True, None),
+    "pagerank": ("pagerank", "real", False, None),
+}
+PUSH_KINDS = tuple(SESSION_KINDS)
+AUTO_KINDS = ("bfs tropical", "khop 2", "cc boolean")
+
+
+@contextlib.contextmanager
+def recorded(owner, name: str):
+    """Keep what ``owner.name`` returns while the block runs: the
+    harnesses' session calls, whose results their reports do not hold."""
+    orig = getattr(owner, name)
+    out = []
+
+    def wrapper(*args, **kwargs):
+        res = orig(*args, **kwargs)
+        out.append(res)
+        return res
+
+    setattr(owner, name, wrapper)
+    try:
+        yield out
+    finally:
+        setattr(owner, name, orig)
+
+
+def joined(threads, what: str) -> None:
+    """Join every thread within ``JOIN_TIMEOUT_S`` in all; fail if one is
+    still running."""
+    deadline = time.monotonic() + JOIN_TIMEOUT_S
+    for th in threads:
+        th.join(timeout=max(0.0, deadline - time.monotonic()))
+    alive = [th.name for th in threads if th.is_alive()]
+    if alive:
+        raise AssertionError(f"{what}: {alive} still running after "
+                             f"{JOIN_TIMEOUT_S:.0f} s")
+
+
+def produced(submit, plan, what: str, n_threads: int = 4) -> list:
+    """Submit ``plan`` (``(args, kwargs)`` of ``submit`` each) from
+    ``n_threads`` producer threads, thread t taking every n_threads-th
+    entry from t and then waiting on its handles; the results in plan
+    order. A producer's exception fails the run."""
+    results = [None] * len(plan)
+    errors = []
+
+    def producer(t):
+        try:
+            handles = [(i, submit(*plan[i][0], **plan[i][1]))
+                       for i in range(t, len(plan), n_threads)]
+            for i, h in handles:
+                results[i] = h.result()
+        except Exception as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=producer, args=(t,), daemon=True,
+                                name=f"{what} producer {t}")
+               for t in range(n_threads)]
+    for th in threads:
+        th.start()
+    joined(threads, what)
+    if errors:
+        raise errors[0]
+    return results
+
+
+def session_plan(seed: int, n_queries: int, graphs: dict) -> list:
+    """Phase 15a's mixed plan over ``graphs`` (name -> (n, kinds)): one
+    query in twenty whole-graph (CC, PageRank), the rest rooted (BFS
+    tropical and sel-max with parents on about half, packed BFS, SSSP,
+    k-hop lane and packed), roots drawn without replacement per (graph,
+    kind), as the JAX package's concurrent test draws them. Entries are
+    ``(graph, kind, root, need_parents)``."""
+    rng = np.random.default_rng(seed)
+    names = sorted(graphs)
+    pools, plan = {}, []
+    for _ in range(n_queries):
+        g = names[int(rng.integers(len(names)))]
+        n, kinds = graphs[g]
+        whole = [k for k in kinds if SESSION_KINDS[k][0] in ("cc", "pagerank")]
+        rooted = [k for k in kinds if k not in whole]
+        if int(rng.integers(20)) == 19:
+            plan.append((g, whole[int(rng.integers(len(whole)))], None, False))
+            continue
+        kind = rooted[int(rng.integers(len(rooted)))]
+        pool = pools.setdefault((g, kind), list(rng.permutation(n)))
+        parents = kind in ("bfs tropical", "bfs selmax") \
+            and bool(rng.integers(2))
+        plan.append((g, kind, int(pool.pop()), parents))
+    return plan
+
+
+def session_submit(kind: str, root, parents: bool) -> tuple:
+    """``(args, kwargs)`` of ``submit`` for one query of ``kind``."""
+    alg, sem, packed, k = SESSION_KINDS[kind]
+    kw = {}
+    if alg in ("bfs", "cc"):
+        kw["semiring"] = sem
+    if packed:
+        kw["packed"] = True
+    if k is not None:
+        kw["k"] = k
+    if parents:
+        kw["need_parents"] = True
+    return ((alg,) if root is None else (alg, root)), kw
+
+
+def stream_submit(q: dict) -> tuple:
+    """``(args, kwargs)`` of ``submit`` for one of phase 14b's query dicts."""
+    kw = {k: q[k] for k in ("semiring", "delta", "need_parents", "packed",
+                            "k", "damping", "tol") if q.get(k) is not None}
+    args = (q["algorithm"],) if q["root"] is None \
+        else (q["algorithm"], q["root"])
+    return args, kw
+
+
+def session_phase(*, dev, card, tiled, served, table):
+    """Phase 15: the serving session and router (``GraphSession``,
+    ``Router``, the flush thread, backpressure). (a) a router over two small
+    graphs (and the first again under direction "auto"), four producer
+    threads, every result against the card's front door for its query, then
+    the lifecycle; (b) scale 20, phase 14b's stream through one session
+    with a flush thread from four producers, twice, and through one without
+    (submit, then drain), twice, every query against 14b's first pass.
+    Returns the launch counts of 15a and 15b."""
+    from repro_torch.configs.sssp_graph500 import WEIGHT_HIGH, WEIGHT_LOW
+    from repro_torch.core.bfs import bfs
+    from repro_torch.core.cc import cc
+    from repro_torch.core.formats import build_slimsell
+    from repro_torch.core.khop import khop
+    from repro_torch.core.options import EngineConfig
+    from repro_torch.core.pagerank import pagerank
+    from repro_torch.core.sssp import sssp
+    from repro_torch.graphs.generators import (erdos_renyi, kronecker,
+                                               with_random_weights)
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (GraphSession, QueryShed, QueueFull,
+                                     Router, SessionClosed, UnknownGraph)
+
+    def check(cond, what):
+        if not cond:
+            raise AssertionError(f"phase 15: {what}")
+
+    def equal(a, b):
+        return a is not None and b is not None and a.dtype == b.dtype \
+            and np.array_equal(a, b)
+
+    # (a) small graphs through a router, four producers
+    t0 = time.perf_counter()
+    before = ops.launch_counts()
+    push, auto = EngineConfig(), EngineConfig(direction="auto")
+    layouts = {
+        "kron": build_slimsell(with_random_weights(
+            kronecker(10, 8, seed=1), low=WEIGHT_LOW, high=WEIGHT_HIGH,
+            seed=2), C=8, L=32).to_torch(dev),
+        "er": build_slimsell(with_random_weights(
+            erdos_renyi(150, 5, seed=3), low=WEIGHT_LOW, high=WEIGHT_HIGH,
+            seed=4), C=8, L=16).to_torch(dev)}
+    layouts["kron auto"] = layouts["kron"]
+    configs = {"kron": push, "er": push, "kron auto": auto}
+    plan = session_plan(15, 208, {
+        g: (t.n, AUTO_KINDS if configs[g] is auto else PUSH_KINDS)
+        for g, t in layouts.items()})
+    with Router(background=True, max_inflight=2, max_batch=16,
+                flush_interval=0.001, device=dev) as router:
+        for g, t in layouts.items():
+            router.add_graph(g, t, config=configs[g])
+        check(router.session("kron auto").tiled is layouts["kron"]
+              and router.session("kron").tiled is layouts["kron"],
+              "the router copied a layout on the card")
+        sigs = router.signatures()
+        check(sigs["kron"] == sigs["kron auto"] != sigs["er"],
+              f"layout signatures {sigs}")
+        calls = [session_submit(kind, r, p) for _, kind, r, p in plan]
+        got = produced(router.submit, [((g,) + args, kw) for (g, *_), (
+            args, kw) in zip(plan, calls)], "15a")
+        stats = router.stats()
+        try:
+            router.bfs("missing", 0)
+            check(False, "an unknown graph name served")
+        except UnknownGraph:
+            pass
+    # the router's stream is 15a's main path: the front doors below and the
+    # lifecycle's sessions launch kernels of their own
+    launches_a = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    check(router.closed, "the router did not close")
+    for fn in (lambda: router.submit("kron", "bfs", 0),
+               lambda: router.add_graph("x", layouts["er"])):
+        try:
+            fn()
+            check(False, "a closed router took work")
+        except SessionClosed:
+            pass
+    for name, st in [*stats["graphs"].items(), ("total", stats["total"])]:
+        check(st["submitted"] == st["completed"] + st["timeouts"] + st["shed"]
+              and st["queue_depth"] == 0, f"{name}'s counters {st}")
+    check(stats["total"]["submitted"] == len(plan) == stats["total"][
+        "completed"], f"the router's total {stats['total']}")
+
+    # every result against the card's front door for its query
+    twins = {}
+    for (g, kind, root, parents), res in zip(plan, got):
+        t, cfg = layouts[g], configs[g]
+        alg, sem, packed, k = SESSION_KINDS[kind]
+        what = f"15a {g} {kind} root {root}"
+        check(res is not None and res.status == "ok", f"{what}: {res}")
+        key = (g, kind, root, parents)
+        if key not in twins:
+            if alg == "bfs":
+                twins[key] = bfs(t, root, sem, need_parents=parents,
+                                 packed=packed, config=cfg, device=dev)
+            elif alg == "khop":
+                twins[key] = khop(t, root, k, packed=packed, config=cfg,
+                                  device=dev)
+            elif alg == "sssp":
+                twins[key] = sssp(t, root, config=push, device=dev)
+            elif alg == "cc":
+                twins[key] = cc(t, semiring=sem, packed=packed,
+                                config=cfg if sem == "boolean" else push,
+                                device=dev)
+            else:
+                twins[key] = pagerank(t, config=push, device=dev)
+        want = twins[key]
+        if alg == "pagerank":
+            pagerank_close(types.SimpleNamespace(ranks=res.values,
+                                                 iterations=res.sweeps),
+                           want, 1e-6, what)
+            continue
+        if alg == "cc":
+            check(equal(res.labels, want.labels)
+                  and res.n_components == want.n_components
+                  and res.sweeps == want.iterations, what)
+            continue
+        check(equal(res.distances, want.distances), f"{what}: distances")
+        if alg == "sssp":
+            check((res.sweeps, res.buckets, res.delta)
+                  == (want.sweeps, want.buckets, want.delta),
+                  f"{what}: sweeps, buckets or delta")
+        check(equal(res.parents, want.parents) if parents
+              else res.parents is None, f"{what}: parents")
+    kinds_run = sorted({kind for _, kind, _, _ in plan})
+
+    # the lifecycle on the card: shed, raise, close under load, typed errors
+    kron = layouts["kron"]
+    with GraphSession(kron, max_pending=4, on_full="shed",
+                      device=dev) as s:
+        hs = [s.submit("bfs", r) for r in range(10)]
+        out = [h.result() for h in hs]
+        st = s.stats()
+    shed = [r for r in out if r.status == "shed"]
+    check(len(shed) == 6 and all(r.values is None for r in shed)
+          and st["shed"] == 6 and st["submitted"] == 10 == st["completed"]
+          + st["timeouts"] + st["shed"], f"on_full='shed': {st}")
+    try:
+        shed[0].raise_for_status()
+        check(False, "a shed result raised nothing")
+    except QueryShed:
+        pass
+    for root, r in enumerate(out):
+        if r.ok:
+            check(equal(r.distances, bfs(kron, root, config=push,
+                                         device=dev).distances),
+                  f"on_full='shed': served root {root}")
+    with GraphSession(kron, max_pending=4, on_full="raise",
+                      device=dev) as s:
+        for r in range(4):
+            s.submit("bfs", r)
+        try:
+            s.submit("bfs", 4)
+            check(False, "a full queue took a fifth query")
+        except QueueFull:
+            pass
+        s.flush()
+        check(s.submit("bfs", 4).result().ok, "the retry after a flush")
+    s = GraphSession(kron, background=True, max_inflight=2, device=dev)
+    hs = [s.submit("bfs", r) for r in range(5)] + [s.submit("sssp", 0)]
+    flusher = s._flush_thread
+    s.close()
+    st = s.stats()
+    check(not flusher.is_alive() and st["completed"] == 6 == st["submitted"]
+          and st["inflight"] == 0 and st["queue_depth"] == 0,
+          f"close() with work in flight: {st}")
+    s.close()
+    for fn in (lambda: s.submit("bfs", 7), lambda: hs[0].result()):
+        try:
+            fn()
+            check(False, "a closed session served")
+        except SessionClosed:
+            pass
+    needed_a = ("slimsell_pull", "slimsell_spmv_packed")
+    if min(launches_a[k] for k in needed_a) == 0:
+        raise AssertionError(f"a kernel never ran on phase 15a's path: "
+                             f"{launches_a}")
+    log(f"[15a] Router(background=True, max_inflight=2) over kronecker(10, "
+        f"8) C8 L32 and erdos_renyi(150, 5) C8 L16 (weighted; the first "
+        f"also under direction 'auto', one layout, not copied): "
+        f"{len(plan)} queries from 4 producer threads, kinds {kinds_run}, "
+        f"every result == the card's front door for it (integers bit-equal, "
+        f"PageRank within PR_*); {stats['total']['batches_dispatched']} "
+        f"slots; counters reconcile per graph and in total "
+        f"({stats['total']['submitted']} submitted, "
+        f"{stats['total']['completed']} completed)")
+    log(f"[15a] lifecycle: on_full='shed' at max_pending=4 served 4 and "
+        f"shed 6 (QueryShed), 'raise' refused the fifth (QueueFull) and took "
+        f"it after a flush; close() with 6 queries in flight completed them "
+        f"all and ended the flush thread; a second close() a no-op; "
+        f"SessionClosed after close, UnknownGraph for an unknown name; "
+        f"the router stream's launches "
+        f"{dict((k, v) for k, v in launches_a.items() if v)}; 15a took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (b) scale 20: phase 14b's stream through one session
+    stream, first = served["stream"], served["first"]
+    plan = [stream_submit(q) for q in stream]
+    ops.reset_launches()
+
+    def same_as_14b(res, q, what, *, sweeps):
+        want = first[q["qid"]]
+        check(res.status == want.status == "ok"
+              and equal(res.values, want.values)
+              and (equal(res.parents, want.parents) if want.parents
+                   is not None else res.parents is None)
+              and (res.buckets, res.delta, res.n_components, res.residual)
+              == (want.buckets, want.delta, want.n_components, want.residual)
+              and (not sweeps or res.sweeps == want.sweeps),
+              f"{what}: qid {q['qid']} ({q['algorithm']} {q['semiring']}) "
+              "!= phase 14b's first pass")
+
+    def bfs_sweeps(results):
+        return sorted({r.sweeps for r, q in zip(results, stream)
+                       if q["algorithm"] == "bfs"})
+
+    passes = []
+    sess = GraphSession(tiled, max_batch=64, max_inflight=2, background=True,
+                        device=dev)
+    check(sess.tiled is tiled
+          and sess.tiled.cols.data_ptr() == tiled.cols.data_ptr(),
+          "the session copied the scale-20 layout")
+    for p in (1, 2):
+        s0 = sess.stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = produced(sess.submit, plan, f"15b pass {p}")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        s1 = sess.stats()
+        for res, q in zip(results, stream):
+            # batched BFS and k-hop sweeps follow the slot cuts, which the
+            # flush thread's timing decides: printed, not compared
+            same_as_14b(res, q, f"15b threaded pass {p}",
+                        sweeps=q["algorithm"] not in ("bfs", "khop"))
+        slots = s1["batches_dispatched"] - s0["batches_dispatched"]
+        fill = (s1["columns_real"] - s0["columns_real"]) / max(
+            1, s1["columns_total"] - s0["columns_total"])
+        passes.append((f"threaded {p}", wall, slots, fill,
+                       s1["compile_cache_hits"] - s0["compile_cache_hits"],
+                       s1["compile_cache_misses"] - s0["compile_cache_misses"],
+                       bfs_sweeps(results)))
+    flusher = sess._flush_thread
+    sess.close()
+    check(not flusher.is_alive(), "the flush thread outlived close()")
+    del results
+    sess = GraphSession(tiled, max_batch=64, max_inflight=2, device=dev)
+    for p in (1, 2):
+        s0 = sess.stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handles = [sess.submit(*a, **kw) for a, kw in plan]
+        sess.drain()
+        results = [h.result() for h in handles]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        s1 = sess.stats()
+        for res, q in zip(results, stream):
+            same_as_14b(res, q, f"15b drained pass {p}", sweeps=True)
+        slots = s1["batches_dispatched"] - s0["batches_dispatched"]
+        hits = s1["compile_cache_hits"] - s0["compile_cache_hits"]
+        misses = s1["compile_cache_misses"] - s0["compile_cache_misses"]
+        fill = (s1["columns_real"] - s0["columns_real"]) / (
+            s1["columns_total"] - s0["columns_total"])
+        check(slots == served["slots"] and fill == 1.0,
+              f"drained pass {p}: {slots} slots at fill {fill}, 14b "
+              f"{served['slots']} at 1.0")
+        check(p == 1 or (hits == slots and misses == 0),
+              f"drained pass 2: {hits} hits, {misses} misses")
+        passes.append((f"drained {p}", wall, slots, fill, hits, misses,
+                       bfs_sweeps(results)))
+    sess.close()
+    del results, handles
+    launches_b = ops.launch_counts()
+    needed_b = ("slimsell_spmv", "slimsell_spmm", "slimsell_spmm_wts",
+                "slimsell_spmm_packed")
+    if min(launches_b[k] for k in needed_b) == 0:
+        raise AssertionError(f"a kernel never ran on phase 15b's path: "
+                             f"{launches_b}")
+    log(f"[15b] scale {SCALE}: GraphSession(tiled, max_batch=64, "
+        f"max_inflight=2) on the resident layout (same cols storage, no "
+        f"copy): phase 14b's {len(stream)} queries, every value, parents, "
+        f"buckets, delta and count bit-equal to 14b's first pass (sweeps "
+        f"too, but batched BFS and k-hop under the flush thread)")
+    for name, wall, slots, fill, hits, misses, sw in passes:
+        log(f"[15b] {name}: {wall * 1e3:.1f} ms, {slots} slots, fill "
+            f"{fill:.4f}, handle hits {hits} misses {misses}, batched BFS "
+            f"sweeps {sw}")
+    log(f"[15b] phase 14b's passes (Batcher + Dispatcher, no session): "
+        f"{', '.join(f'{t:.1f}' for t in served['serving']['pass_ms'])} ms, "
+        f"{served['slots']} slots, on {card}")
+    log(f"[15b] launches over the four passes, counted from zero: "
+        f"{ {k: v for k, v in launches_b.items() if v} }")
+    for r in table:
+        if launches_a.get(r["name"]):
+            r["phase15a_launches"] = launches_a[r["name"]]
+        if launches_b.get(r["name"]):
+            r["phase15b_launches"] = launches_b[r["name"]]
+    return {"15a": launches_a, "15b": launches_b, "passes": passes}
 
 
 def main() -> int:
@@ -1598,6 +2067,7 @@ def main() -> int:
     from repro_torch.graph500 import (batch_teps, run_graph500,
                                       run_graph500_sssp, sample_roots,
                                       validate_bfs_tree, validate_sssp_tree)
+    from repro_torch.serving import GraphSession
     from repro_torch.configs.gcn_cora import make_config
     from repro_torch.graphs.generators import (erdos_renyi, kronecker,
                                                with_random_weights)
@@ -1948,14 +2418,43 @@ def main() -> int:
                 f"{res.directions.tolist()} work_log={res.work_log.tolist()} "
                 f"tiles={int(res.work_log.sum())} {dt * 1e3:.1f} ms valid tree")
 
-    rep = run_graph500(scale=SCALE, edge_factor=EDGE_FACTOR, n_roots=64,
-                       batch_size=64, semiring="tropical", csr=csr,
-                       tiled=tiled, device=dev)
+    spmm_before = ops.launch_counts()["slimsell_spmm"]
+    with recorded(GraphSession, "bfs_many") as harness_out:
+        rep = run_graph500(scale=SCALE, edge_factor=EDGE_FACTOR, n_roots=64,
+                           batch_size=64, semiring="tropical", csr=csr,
+                           tiled=tiled, device=dev)
+    harness_spmm = ops.launch_counts()["slimsell_spmm"] - spmm_before
     if rep.validated != 64:
         raise AssertionError(f"graph500 validated {rep.validated} of 64 roots")
     log(f"[5] {rep.summary()} batch_s={rep.batch_seconds.tolist()}")
     log(f"[5] push hmean TEPS {rep.harmonic_mean_teps:.6e} on {card}")
     roots = rep.roots
+    # the harness's batch went through GraphSession.bfs_many; a direct
+    # multi_source_bfs of the same roots, timed beside it, must give the
+    # same trees with the same kernel-2 launches
+    spmm_before = ops.launch_counts()["slimsell_spmm"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    direct = multi_source_bfs(tiled, roots, "tropical", need_parents=True,
+                              device=dev)
+    direct_s = time.perf_counter() - t0
+    direct_spmm = ops.launch_counts()["slimsell_spmm"] - spmm_before
+    (served_batch,) = harness_out
+    for i, r in enumerate(served_batch):
+        if not (np.array_equal(r.distances, direct.distances[i])
+                and np.array_equal(r.parents, direct.parents[i])):
+            raise AssertionError(f"root {roots[i]}: the harness's session "
+                                 "batch != a direct multi_source_bfs")
+    if harness_spmm != direct_spmm:
+        raise AssertionError(f"kernel 2 launched {harness_spmm} times for "
+                             f"the harness batch, {direct_spmm} for the "
+                             "direct call")
+    log(f"[5] the harness batch (GraphSession.bfs_many) == a direct "
+        f"multi_source_bfs of the 64 roots, parents on (distances and "
+        f"parents bit-equal), kernel 2 launches {harness_spmm} == "
+        f"{direct_spmm}; harness batch {rep.batch_seconds[0] * 1e3:.1f} ms, "
+        f"direct call {direct_s * 1e3:.1f} ms on {card}")
+    del harness_out, served_batch, direct
     # the push batch's distances: what run_graph500 just validated against
     # the oracle, and what the other directions must equal
     push = multi_source_bfs(tiled, roots, "tropical", log_work=True, device=dev)
@@ -1963,10 +2462,17 @@ def main() -> int:
     batched = {}
     for direction in ("auto", "pull"):
         cfg = EngineConfig(direction=direction)
+        before = ops.launch_counts()
         rep_d = run_graph500(scale=SCALE, edge_factor=EDGE_FACTOR, n_roots=64,
                              batch_size=64, semiring="tropical", csr=csr,
                              tiled=tiled, config=cfg, validate=False,
                              device=dev)
+        harness_launches = {k: v - before[k] for k, v in
+                            ops.launch_counts().items() if v > before[k]}
+        if direction == "pull" and not harness_launches.get(
+                "slimsell_pull_mm"):
+            raise AssertionError(f"the pull harness batch never launched "
+                                 f"kernel 4: {harness_launches}")
         if not np.array_equal(rep_d.roots, roots):
             raise AssertionError("the batches sampled other roots")
         res = multi_source_bfs(tiled, roots, "tropical", need_parents=True,
@@ -1984,7 +2490,8 @@ def main() -> int:
         # validated=0); this second call's trees are the ones validated
         log(f"[5] {rep_d.summary()} batch_s={rep_d.batch_seconds.tolist()}")
         log(f"[5] {direction} hmean TEPS {rep_d.harmonic_mean_teps:.6e} on "
-            f"{card}; distances == push batch, {n_valid} of 64 trees "
+            f"{card}; the harness batch's launches {harness_launches}; "
+            f"distances == push batch, {n_valid} of 64 trees "
             f"validated in a second call; "
             f"pull_cols_log={res.pull_cols_log[0][:it].tolist()} "
             f"work_log={res.work_log[0][:it].tolist()}")
@@ -2439,14 +2946,28 @@ def main() -> int:
         f"work_log); distances == scipy dijkstra ({scipy_one_s:.1f} s), tree "
         f"valid ({validate_one_s:.2f} s); "
         f"work_log={fused.work_log.tolist()}")
-    rep = run_graph500_sssp(scale=SCALE, edge_factor=EDGE_FACTOR, n_roots=64,
-                            csr=csr, tiled=tiled, validate=False, device=dev)
+    before = ops.launch_counts()
+    with recorded(GraphSession, "sssp") as per_root:
+        rep = run_graph500_sssp(scale=SCALE, edge_factor=EDGE_FACTOR,
+                                n_roots=64, csr=csr, tiled=tiled,
+                                validate=False, device=dev)
+    harness_launches = {k: v - before[k] for k, v in
+                        ops.launch_counts().items() if v > before[k]}
+    if not harness_launches.get("slimsell_spmm_wts"):
+        raise AssertionError(f"the per-root harness never launched kernel "
+                             f"2w: {harness_launches}")
+    for r in table:
+        if r["name"] == "slimsell_spmm_wts":
+            r["phase8b_harness_launches"] = harness_launches[
+                "slimsell_spmm_wts"]
     if not np.array_equal(rep.roots, roots):
         raise AssertionError("the SSSP harness sampled other roots")
     log(f"[8b] {rep.summary()}")
     log(f"[8b] sssp hmean TEPS {rep.harmonic_mean_teps:.6e} (per root "
-        f"{rep.teps.min():.4e}..{rep.teps.max():.4e}) on {card}; per root "
-        f"sweeps={rep.sweeps.tolist()} buckets={rep.buckets.tolist()}")
+        f"{rep.teps.min():.4e}..{rep.teps.max():.4e}) on {card}, each root "
+        f"a width-1 slot of GraphSession (kernel 2w at B=1; PR 22's "
+        f"harness on kernel 1w: 3.925e8); launches {harness_launches}; per "
+        f"root sweeps={rep.sweeps.tolist()} buckets={rep.buckets.tolist()}")
     # the timed run did not validate (its summary says validated=0): a
     # second pass gives the trees, with the same schedule
     trees = []
@@ -2455,7 +2976,17 @@ def main() -> int:
         if (res.sweeps, res.buckets) != (rep.sweeps[i], rep.buckets[i]):
             raise AssertionError(f"sssp root {r}: another schedule on a "
                                  "second call")
+        h = per_root[i]
+        if not (np.array_equal(h.distances, res.distances)
+                and np.array_equal(h.parents, res.parents)
+                and (h.sweeps, h.buckets, h.delta)
+                == (res.sweeps, res.buckets, res.delta)):
+            raise AssertionError(f"sssp root {r}: the harness's session "
+                                 "result != the direct sssp")
         trees.append(res)
+    del per_root
+    log("[8b] the harness's 64 session results == the direct sssp of each "
+        "root (distances, parents, sweeps, buckets, delta bit-equal)")
     wts_launches = ops.launch_counts()["slimsell_spmv_wts"]
     if wts_launches == 0:
         raise AssertionError("the stored-weight kernel never ran on the SSSP "
@@ -2627,18 +3158,30 @@ def main() -> int:
     # (c) the batched Graph500 SSSP harness, with and without parents
     for parents in (True, False):
         t0 = time.perf_counter()
-        rep9 = run_graph500_sssp(scale=SCALE, edge_factor=EDGE_FACTOR,
-                                 n_roots=64, batched=True, batch_size=64,
-                                 csr=csr, tiled=tiled, validate=False,
-                                 need_parents=parents, device=dev)
+        with recorded(GraphSession, "sssp") as batch_out:
+            rep9 = run_graph500_sssp(scale=SCALE, edge_factor=EDGE_FACTOR,
+                                     n_roots=64, batched=True, batch_size=64,
+                                     csr=csr, tiled=tiled, validate=False,
+                                     need_parents=parents, device=dev)
         call_s = time.perf_counter() - t0
         if not (np.array_equal(rep9.roots, roots)
                 and np.array_equal(rep9.sweeps, rep.sweeps)
                 and np.array_equal(rep9.buckets, rep.buckets)):
             raise AssertionError("the batched SSSP harness: other roots, "
                                  "sweeps or buckets than the per-root one")
+        for i, h in enumerate(batch_out[0]):
+            if not (np.array_equal(h.distances, mf.distances[i])
+                    and (np.array_equal(h.parents, mf.parents[i])
+                         if parents else h.parents is None)
+                    and (h.sweeps, h.buckets, h.delta)
+                    == (mf.sweeps[i], mf.buckets[i], mf.delta)):
+                raise AssertionError(f"the batched SSSP harness's row {i} "
+                                     "!= phase 9b's")
+        del batch_out
         log(f"[9c] {rep9.summary()} ({'with' if parents else 'without'} "
-            f"parents)")
+            f"parents); rows (GraphSession.sssp(batch=True)) == phase 9b's "
+            f"(distances, {'parents, ' if parents else ''}sweeps, buckets, "
+            f"delta)")
         log(f"[9c] batched sssp hmean TEPS {rep9.harmonic_mean_teps:.6e} "
             f"{'with' if parents else 'without'} parents (harness call "
             f"{call_s:.4f} s; per-root harness, phase 8b: "
@@ -2929,14 +3472,26 @@ def main() -> int:
     # ---- 14: the serving dispatcher over the ported front doors and
     # handles, at scale 20 before phase 11 frees the layout
     t14 = time.perf_counter()
-    serving_phase(dev=dev, card=card, tiled=tiled, roots=roots, push=push,
-                  msssp=mf, workloads=workloads, table=table)
+    served = serving_phase(dev=dev, card=card, tiled=tiled, roots=roots,
+                           push=push, msssp=mf, workloads=workloads,
+                           table=table)
     del workloads
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[14] phase 14 took {time.perf_counter() - t14:.1f} s (reserve "
         f"{SERVE_RESERVE_S:.0f} s); the run {time.perf_counter() - t_start:.1f}"
         f" s so far")
+
+    # ---- 15: the serving session and router, at scale 20 before phase 11
+    # frees the layout
+    t15 = time.perf_counter()
+    session_phase(dev=dev, card=card, tiled=tiled, served=served, table=table)
+    del served
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[15] phase 15 took {time.perf_counter() - t15:.1f} s (reserve "
+        f"{SESSION_RESERVE_S:.0f} s); the run "
+        f"{time.perf_counter() - t_start:.1f} s so far")
 
     # ---- 11: DLRM inference (dlrm-mlperf widths) with the embedding bag (7)
     t11 = time.perf_counter()

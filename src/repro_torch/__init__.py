@@ -12,8 +12,16 @@ Graph500 BFS and SSSP harnesses
 (``models.gnn``; the gcn-cora configuration in ``configs.gcn_cora``), and
 DLRM inference with the embedding-bag kernel (``models.dlrm``; the
 dlrm-mlperf configuration in ``configs.dlrm_mlperf``), and the serving
-layer's dispatcher (``serving``: ``Batcher``, ``Dispatcher`` on the
-engine's cached ``FixpointHandle``s, ``ServingMetrics``).
+layer (``serving``: ``GraphSession`` and ``Router`` over the ``Batcher``,
+the ``Dispatcher`` on the engine's cached ``FixpointHandle``s and
+``ServingMetrics``). The session is the front door the Graph500 harnesses
+run through::
+
+    import repro_torch
+    sess = repro_torch.session(edges)  # the layout on the card
+    sess.bfs(root)                     # BFS / SSSP / CC / ... on one path
+    sess.stats()                       # throughput / latency / fill
+
 Entry points run on the card unless the caller passes ``device="cpu"``,
 which runs the plain PyTorch versions of the kernels.
 """
@@ -24,13 +32,16 @@ from .core.formats import build_csr, build_slimsell
 from .core.khop import khop, khop_many
 from .core.multi_bfs import multi_source_bfs
 from .core.multi_sssp import multi_source_sssp
+from .core.options import EngineConfig
 from .core.pagerank import pagerank
 from .core.sssp import sssp
 from .graph500 import run_graph500, run_graph500_sssp
 from .models.dlrm import DLRMConfig, dlrm_forward, dlrm_init
 from .models.gnn import GCNConfig, gcn_forward, gcn_init
+from .serving import GraphSession, Router, session
 
-__all__ = ["DLRMConfig", "GCNConfig", "betweenness", "bfs", "build_csr", "build_slimsell",
+__all__ = ["DLRMConfig", "EngineConfig", "GCNConfig", "GraphSession", "Router",
+           "betweenness", "bfs", "build_csr", "build_slimsell",
            "cc", "dlrm_forward", "dlrm_init", "gcn_forward", "gcn_init",
            "khop", "khop_many", "multi_source_bfs", "multi_source_sssp",
-           "pagerank", "run_graph500", "run_graph500_sssp", "sssp"]
+           "pagerank", "run_graph500", "run_graph500_sssp", "session", "sssp"]

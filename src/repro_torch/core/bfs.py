@@ -216,7 +216,7 @@ def dp_transform(tiled, d: torch.Tensor, root: int) -> torch.Tensor:
     tile_red = torch.where(ok, safe + 1, 0).amax(dim=-1)              # [T, C]
     y_blocks = torch.zeros((tiled.n_chunks, tiled.C), dtype=torch.int32,
                            device=cols.device)
-    idx = tiled.row_block.long()[:, None].expand_as(tile_red)
+    idx = tiled.row_block.long()[:, None].expand_as(tile_red).contiguous()
     y_blocks.scatter_reduce_(0, idx, tile_red, "amax", include_self=True)
     # the ids are int32, so the int32 max semiring (boolean's) places them
     p = _combine_and_scatter(sm.BOOLEAN, tiled, y_blocks) - 1

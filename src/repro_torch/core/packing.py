@@ -200,7 +200,7 @@ def segment_or(data: torch.Tensor, segment_ids: torch.Tensor,
     summed in int64 and narrowed back to int32 words.
     """
     ids = segment_ids.long().reshape((-1,) + (1,) * (data.ndim - 1))
-    ids = ids.expand_as(data)
+    ids = ids.expand_as(data).contiguous()
     out = torch.zeros((num_segments,) + tuple(data.shape[1:]),
                       dtype=torch.int64, device=data.device)
     for b in range(PACK_BITS):

@@ -96,7 +96,9 @@ def _combine_and_scatter(sr: Semiring, tiled, y_blocks: torch.Tensor) -> torch.T
     ids = torch.where(rv < 0, tiled.n, rv)
     flat = y_blocks.reshape((-1,) + tuple(y_blocks.shape[2:]))
     if flat.ndim == 2:
-        ids = ids[:, None].expand_as(flat)
+        # every index given to scatter_reduce_ is made contiguous: an
+        # expanded (stride-0) one takes a CPU path thousands of times slower
+        ids = ids[:, None].expand_as(flat).contiguous()
     y = torch.full((tiled.n + 1,) + tuple(flat.shape[1:]), sr.zero,
                    dtype=flat.dtype, device=flat.device)
     y.scatter_reduce_(0, ids, flat, sr.scatter_reduce, include_self=True)
@@ -137,7 +139,7 @@ def spmm_plain(sr: Semiring, tiled, x: torch.Tensor,
             m = tile_mask[t0:t0 + step].reshape((-1,) + (1,) * (red.ndim - 1))
             red = torch.where(m, red, zero)
         idx = tiled.row_block[t0:t0 + step].long().reshape(
-            (-1,) + (1,) * (red.ndim - 1)).expand_as(red)
+            (-1,) + (1,) * (red.ndim - 1)).expand_as(red).contiguous()
         y_blocks.scatter_reduce_(0, idx, red, sr.scatter_reduce,
                                  include_self=True)
     return _combine_and_scatter(sr, tiled, y_blocks)
@@ -229,7 +231,8 @@ def spmv_packed_plain(tiled, x_words: torch.Tensor,
         red = torch.where(cols < 0, 0, bit).amax(dim=2)         # [t, C]
         if tile_mask is not None:
             red = torch.where(tile_mask[t0:t0 + step, None], red, 0)
-        idx = tiled.row_block[t0:t0 + step].long()[:, None].expand_as(red)
+        idx = tiled.row_block[t0:t0 + step].long()[:, None].expand_as(
+            red).contiguous()
         y_blocks.scatter_reduce_(0, idx, red, "amax", include_self=True)
     return packing.pack_bits(_combine_and_scatter(BOOLEAN, tiled, y_blocks) > 0)
 

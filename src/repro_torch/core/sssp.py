@@ -237,7 +237,7 @@ def sssp_parents(tiled, dist: torch.Tensor, root: int, *, rtol: float = 1e-6,
                         + torch.where(wts > 0, float(n), 0.0), 0.0)
     tile_red = score.amax(dim=-1)                                     # [T, C]
     y_blocks = torch.zeros((tiled.n_chunks, tiled.C), device=cols.device)
-    idx = tiled.row_block.long()[:, None].expand_as(tile_red)
+    idx = tiled.row_block.long()[:, None].expand_as(tile_red).contiguous()
     y_blocks.scatter_reduce_(0, idx, tile_red, "amax", include_self=True)
     p1 = _combine_and_scatter(sm.SELMAX, tiled, y_blocks)
     p1 = torch.where(p1 > n, p1 - n, p1)  # strip the positive-weight bonus

@@ -3,19 +3,23 @@
 The paper's evaluation protocol (§IV) is the Graph500 one: build a Kronecker
 graph, sample 64 search keys among non-isolated vertices, run one BFS per
 key, validate every BFS tree, and report traversed edges per second (TEPS)
-with the harmonic mean as the headline number. The keys run in batches
-through ``multi_source_bfs``: one SpMM per iteration advances a whole
-batch.
+with the harmonic mean as the headline number.
+
+Both harnesses run through one ``serving.GraphSession`` per run, as the
+JAX package's do: the keys run in batches through the session's
+shape-bucketed dispatch path (one resident layout, cached fixpoint
+handles, the multi-source SpMM engine: one SpMM per iteration advances a
+whole batch), so the harness and the serving layer exercise one path.
 
     from repro_torch.graph500 import run_graph500
     rep = run_graph500(scale=20, edge_factor=16, n_roots=64, batch_size=64)
     print(rep.summary())
 
 ``run_graph500_sssp`` is the weighted twin (Graph500's second kernel):
-uniform weights on [2^-8, 1], delta-stepping from each key in turn, or
-with ``batched=True`` from ``batch_size`` keys at once through
-``multi_source_sssp`` (one min-plus SpMM per sweep), distances validated
-against Dijkstra and parents by the tight-relaxation check.
+uniform weights on [2^-8, 1], delta-stepping from each key in turn (a
+width-1 slot of the batched min-plus path), or with ``batched=True`` from
+``batch_size`` keys at once (one min-plus SpMM per sweep), distances
+validated against Dijkstra and parents by the tight-relaxation check.
 """
 from __future__ import annotations
 
@@ -29,11 +33,10 @@ import torch
 from .configs import sssp_graph500 as cfg
 from .core.bfs_traditional import bfs_traditional
 from .core.formats import CSRGraph, SlimSellTiled, build_slimsell, resolve_device
-from .core.multi_bfs import multi_source_bfs
-from .core.multi_sssp import multi_source_sssp
 from .core.options import EngineConfig
-from .core.sssp import dijkstra_reference, sssp
+from .core.sssp import dijkstra_reference
 from .graphs.generators import kronecker, with_random_weights
+from .serving import GraphSession
 
 
 def sample_roots(csr: CSRGraph, n_roots: int = 64, *, seed: int = 2) -> np.ndarray:
@@ -132,11 +135,14 @@ def run_graph500(*, scale: int = 10, edge_factor: int = 16, n_roots: int = 64,
                  device=None) -> Graph500Report:
     """Build (or accept) the graph, run batched BFS from the sampled keys,
     validate, score. ``device`` None means the card (raises when there is
-    none); a given ``tiled`` may be the host layout or one on that device.
-    A given ``csr`` must have the 2**scale vertices the report names, and a
-    given ``tiled`` must be its layout. ``direction`` is a shorthand for
-    ``config=EngineConfig(direction=...)``; the config's direction and mode
-    go to ``multi_source_bfs`` unchanged.
+    none); a given ``tiled`` may be the host layout or one on that device
+    (used as it is, not copied). A given ``csr`` must have the 2**scale
+    vertices the report names, and a given ``tiled`` must be its layout.
+    ``direction`` is a shorthand for ``config=EngineConfig(direction=...)``.
+
+    Execution is one ``GraphSession`` per run (``max_batch`` = the batch
+    size): each timed batch is a submit wave and a drain (``bfs_many``)
+    through the serving layer's dispatch path.
 
     TEPS accounting follows the spec: the edges counted for a root are the
     undirected edges with at least one endpoint reached from it; the time
@@ -159,31 +165,31 @@ def run_graph500(*, scale: int = 10, edge_factor: int = 16, n_roots: int = 64,
         tiled = build_slimsell(csr, C=C, L=L, sigma=csr.n)
     elif tiled.n != csr.n:
         raise ValueError(f"tiled has n={tiled.n}, csr has n={csr.n}")
-    if tiled.device is None:
-        tiled = tiled.to_torch(dev)
     roots = sample_roots(csr, n_roots)
 
     teps = np.empty(roots.size, np.float64)
     batch_seconds = []
     validated = 0
-    for start in range(0, roots.size, batch_size):
-        batch = roots[start:start + batch_size]
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        # results come back as host arrays, so the window ends after the
-        # device work of the batch
-        res = multi_source_bfs(tiled, batch, semiring,
-                               need_parents=need_parents, config=config,
-                               device=dev)
-        dt = time.perf_counter() - t0
-        batch_seconds.append(dt)
-        teps[start:start + batch.size] = batch_teps(csr, res.distances, dt)
-        if validate:
-            for b, r in enumerate(batch):
-                validate_bfs_tree(csr, int(r), res.distances[b],
-                                  res.parents[b] if need_parents else None)
-                validated += 1
+    with GraphSession(tiled, config=config, max_batch=batch_size,
+                      device=dev) as sess:
+        for start in range(0, roots.size, batch_size):
+            batch = roots[start:start + batch_size]
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            # results come back as host arrays, so the window ends after
+            # the device work of the batch
+            results = sess.bfs_many(batch, semiring,
+                                    need_parents=need_parents)
+            dt = time.perf_counter() - t0
+            batch_seconds.append(dt)
+            teps[start:start + batch.size] = batch_teps(
+                csr, np.stack([r.distances for r in results]), dt)
+            if validate:
+                for r, res in zip(batch, results):
+                    validate_bfs_tree(csr, int(r), res.distances,
+                                      res.parents if need_parents else None)
+                    validated += 1
     return Graph500Report(
         scale=scale, edge_factor=edge_factor, n=csr.n, m=csr.m_undirected,
         semiring=semiring, device=str(dev), direction=config.direction,
@@ -277,14 +283,15 @@ def run_graph500_sssp(*, scale: int = 10, edge_factor: int = 16,
                       config: Optional[EngineConfig] = None,
                       device=None) -> Graph500SSSPReport:
     """Weighted Graph500 kernel: delta-stepping from the sampled keys,
-    validated, scored. ``batched=False`` runs one ``sssp`` call per key;
-    ``batched=True`` runs the keys in batches of ``batch_size`` through
-    ``multi_source_sssp``, one min-plus SpMM sweep advancing every root of
-    a batch. Per-root distances, sweeps and buckets are the same either
-    way. ``device`` None means the card (raises when there is none); a
-    given ``tiled`` may be the host layout or one on that device, and must
-    be the layout of the given weighted ``csr``. ``config`` goes to
-    ``sssp`` / ``multi_source_sssp`` unchanged.
+    validated, scored. Execution is one ``GraphSession`` per run:
+    ``batched=False`` serves each key as its own width-1 slot of the
+    batched min-plus path; ``batched=True`` submits the keys in waves of
+    ``batch_size``, one min-plus SpMM sweep advancing every root of a
+    batch. Per-root distances, sweeps and buckets are the same either way,
+    and equal those of ``sssp`` from each key. ``device`` None means the
+    card (raises when there is none); a given ``tiled`` may be the host
+    layout or one on that device (used as it is, not copied), and must be
+    the layout of the given weighted ``csr``.
 
     TEPS accounting mirrors the BFS harness: the edges charged to a root
     are the undirected edges with a reached endpoint; the time charged is
@@ -310,8 +317,6 @@ def run_graph500_sssp(*, scale: int = 10, edge_factor: int = 16,
         tiled = build_slimsell(csr, C=C, L=L, sigma=csr.n)
     elif tiled.n != csr.n:
         raise ValueError(f"tiled has n={tiled.n}, csr has n={csr.n}")
-    if tiled.device is None:
-        tiled = tiled.to_torch(dev)
     roots = sample_roots(csr, n_roots)
     if roots.size == 0:
         raise ValueError(f"need at least one search key, got n_roots={n_roots}")
@@ -322,34 +327,30 @@ def run_graph500_sssp(*, scale: int = 10, edge_factor: int = 16,
     validated = 0
     delta_used = None
     step = batch_size if batched else 1
-    for start in range(0, roots.size, step):
-        batch = roots[start:start + step]
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        if batched:
-            res = multi_source_sssp(tiled, batch, delta=delta,
-                                    need_parents=need_parents, config=config,
-                                    device=dev)
-            dists, parents = res.distances, res.parents
-            sweeps[start:start + batch.size] = res.sweeps
-            buckets[start:start + batch.size] = res.buckets
-        else:
-            res = sssp(tiled, int(batch[0]), delta=delta,
-                       need_parents=need_parents, config=config, device=dev)
-            dists = res.distances[None]
-            parents = None if res.parents is None else res.parents[None]
-            sweeps[start], buckets[start] = res.sweeps, res.buckets
-        per_root_s = (time.perf_counter() - t0) / batch.size
-        delta_used = res.delta
-        for b, r in enumerate(batch):
-            d = dists[b]
-            teps[start + b] = \
-                max(1, int(csr.deg[np.isfinite(d)].sum()) // 2) / per_root_s
-            if validate:
-                validate_sssp_tree(csr, int(r), d,
-                                   parents[b] if need_parents else None)
-                validated += 1
+    with GraphSession(tiled, config=config, max_batch=step,
+                      device=dev) as sess:
+        for start in range(0, roots.size, step):
+            batch = roots[start:start + step]
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            if batched:
+                results = sess.sssp(batch, delta=delta,
+                                    need_parents=need_parents, batch=True)
+            else:
+                results = [sess.sssp(int(batch[0]), delta=delta,
+                                     need_parents=need_parents)]
+            per_root_s = (time.perf_counter() - t0) / batch.size
+            for i, (r, res) in enumerate(zip(batch, results), start):
+                d = res.distances
+                delta_used = res.delta
+                sweeps[i], buckets[i] = res.sweeps, res.buckets
+                teps[i] = max(1, int(csr.deg[np.isfinite(d)].sum()) // 2) \
+                    / per_root_s
+                if validate:
+                    validate_sssp_tree(csr, int(r), d,
+                                       res.parents if need_parents else None)
+                    validated += 1
     return Graph500SSSPReport(
         scale=scale, edge_factor=edge_factor, n=csr.n, m=csr.m_undirected,
         device=str(dev), mode=config.mode, delta=float(delta_used),

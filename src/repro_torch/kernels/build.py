@@ -6,6 +6,11 @@ flags, so an edit rebuilds and an unchanged source loads what is there.
 Nothing is built at import: the first launch builds what it needs, and
 ``build`` compiles several libraries at once (one nvcc each, started
 together).
+
+Thread-safe: ``build`` runs under ``LOCK``, one process-wide lock that
+``ops.Kernel`` also holds while it loads a library, so threads that first
+launch one kernel at the same moment build and load it once. The
+temporary output is named per process and per thread.
 """
 from __future__ import annotations
 
@@ -13,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Sequence
 
@@ -23,6 +29,8 @@ SOURCES = ("slimsell_spmv", "slimsell_spmm", "slimsell_pull",
            "embedding_bag")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+# held by build() and by ops.Kernel's first load (re-entrant: a load builds)
+LOCK = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -51,13 +59,19 @@ def build(names: Sequence[str] = SOURCES, *, ptxas_info: bool = False) -> dict:
     processes running at once. Returns {name: compiler output} for the
     libraries it built; raises with the output if any build fails.
     ``ptxas_info`` adds ``-Xptxas -v`` (registers, shared memory, spills)."""
+    with LOCK:
+        return _build(names, ptxas_info)
+
+
+def _build(names: Sequence[str], ptxas_info: bool) -> dict:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name in names:
         out = library_path(name)
         if out.exists():
             continue
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp")
+        tmp = out.with_name(
+            f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_info else []),
                "-o", str(tmp), str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,

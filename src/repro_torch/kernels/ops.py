@@ -4,7 +4,9 @@ Each wrapper checks its inputs, allocates the output, and then either runs
 the plain PyTorch version (a CPU tensor) or launches its CUDA kernel on the
 current stream (a CUDA tensor). On CUDA there is no fallback: a kernel that
 does not build or launch raises. ``Kernel.launches`` counts the launches,
-so a run can show that its path went through the kernel.
+so a run can show that its path went through the kernel. Any thread may
+launch: a kernel's first launch builds and loads its library under
+``build.LOCK``, once, and the counts change under a lock of their own.
 
 ``spmv(..., weights=)`` and ``spmm(..., weights=)`` are the stored-weight
 (min-plus) sweeps of single- and multi-source SSSP: their kernels,
@@ -54,6 +56,7 @@ wrapper's gather of those bits into chunk-row space is not needed either.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional, Sequence
 
 import torch
@@ -67,6 +70,8 @@ from . import build
 from .ref import BAG_MODES, embedding_bag_grouped_ref, embedding_bag_ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# guards every Kernel.launches update, reset and read
+_COUNT_LOCK = threading.Lock()
 
 
 class Kernel:
@@ -91,16 +96,20 @@ class Kernel:
         err = getattr(lib, f"{self.source}_error")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
-        self._fn, self._error = fn, err
+        self._error = err
+        self._fn = fn  # last: a thread that sees it sees the error entry
 
     def launch(self, *args) -> None:
         if self._fn is None:
-            self._load()
+            with build.LOCK:
+                if self._fn is None:
+                    self._load()
         code = self._fn(*args)
         if code != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {code} "
                                f"({self._error(code).decode()})")
-        self.launches += 1
+        with _COUNT_LOCK:
+            self.launches += 1
 
 
 SPMV = Kernel("slimsell_spmv",
@@ -137,12 +146,14 @@ MAX_TABLES = 128
 
 
 def reset_launches() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    with _COUNT_LOCK:
+        for k in KERNELS:
+            k.launches = 0
 
 
 def launch_counts() -> dict:
-    return {k.name: k.launches for k in KERNELS}
+    with _COUNT_LOCK:
+        return {k.name: k.launches for k in KERNELS}
 
 
 def _check(sr: Semiring, tiled, x: torch.Tensor, ndim: int,

@@ -47,7 +47,9 @@ def test_port_imports_no_jax_and_no_jax_package():
             "src/repro_torch/serving/__init__.py",
             "src/repro_torch/serving/batcher.py",
             "src/repro_torch/serving/dispatch.py",
-            "src/repro_torch/serving/metrics.py"} <= names
+            "src/repro_torch/serving/metrics.py",
+            "src/repro_torch/serving/session.py",
+            "src/repro_torch/serving/router.py"} <= names
     bad = {str(p.relative_to(REPO)): sorted(set(_imported_roots(p)) & {"jax", "repro"})
            for p in PORT_FILES}
     assert not {k: v for k, v in bad.items() if v}
@@ -210,3 +212,36 @@ def test_dispatcher_without_card_raises(no_card, monkeypatch):
             Dispatcher(layout, EngineConfig(), ServingMetrics())
     disp = Dispatcher(no_card, EngineConfig(), ServingMetrics(), device="cpu")
     assert disp.device == torch.device("cpu")
+
+
+def test_session_router_and_harnesses_without_card_raise(no_card,
+                                                         monkeypatch):
+    """The session, the router and both harnesses resolve their device as
+    the entry points do: without a card and without ``device=`` they raise,
+    before any layout is built or any sweep runs."""
+    from repro_torch.serving import GraphSession, Router
+    from repro_torch.serving import dispatch
+    import sys
+    session_mod = sys.modules["repro_torch.serving.session"]
+    monkeypatch.setattr(pbfs.eng, "run_fused", lambda *a, **k: pytest.fail())
+    monkeypatch.setattr(session_mod, "build_slimsell",
+                        lambda *a, **k: pytest.fail("built a layout"))
+    monkeypatch.setattr(dispatch, "Dispatcher",
+                        lambda *a, **k: pytest.fail("made a dispatcher"))
+    edges = np.array([[0, 1], [1, 2]])
+    for layout in (no_card, no_card.to_torch("cpu")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            GraphSession(layout)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Router().add_graph("g", layout)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        repro_torch.session(edges)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        repro_torch.GraphSession(edges, background=True)
+    csr = kronecker(6, 4, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        graph500.run_graph500(scale=6, csr=csr, tiled=no_card)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        graph500.run_graph500_sssp(scale=6, csr=with_random_weights(csr))
+    assert repro_torch.Router is Router
+    assert repro_torch.EngineConfig().signature() == ("push", "fused")

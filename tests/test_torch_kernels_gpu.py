@@ -983,3 +983,60 @@ def test_dispatcher_card_equals_front_doors(cuda, mode):
     want = betweenness(tiled, **kw)
     np.testing.assert_array_equal(whole[3].scores, want.scores)
     assert whole[3].sweeps == want.iterations
+
+
+# The serving session on the card: four producer threads and the session's
+# flush thread, which launches the kernels; every result bit-equal to the
+# card's front door for its query, the counters reconciled, the thread
+# ended by close()
+def test_session_flush_thread_card_equals_front_doors(cuda):
+    import threading
+    from repro_torch.core.bfs import bfs
+    from repro_torch.core.khop import khop
+    from repro_torch.core.sssp import sssp
+    from repro_torch.serving import GraphSession
+    dev, _ = cuda
+    csr = with_random_weights(kronecker(9, 8, seed=1), seed=2)
+    tiled = build_slimsell(csr, C=8, L=32).to_torch(dev)
+    roots = [int(r) for r in np.random.default_rng(28).choice(csr.n, 24,
+                                                              replace=False)]
+    plan = [(("bfs", r), dict(semiring=s, need_parents=s == "tropical"))
+            for r in roots for s in ("tropical", "selmax")]
+    plan += [(("sssp", r), dict(delta=2.0)) for r in roots[:12]]
+    plan += [(("khop", r), dict(k=2, packed=True)) for r in roots[:12]]
+    sess = GraphSession(tiled, max_batch=16, max_inflight=2,
+                        background=True, device=dev)
+    assert sess.tiled is tiled
+    results = [None] * len(plan)
+
+    def producer(t):
+        hs = [(i, sess.submit(*plan[i][0], **plan[i][1]))
+              for i in range(t, len(plan), 4)]
+        for i, h in hs:
+            results[i] = h.result()
+
+    threads = [threading.Thread(target=producer, args=(t,), daemon=True)
+               for t in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    assert not any(th.is_alive() for th in threads)
+    flusher = sess._flush_thread
+    st = sess.stats()
+    sess.close()
+    assert not flusher.is_alive()
+    assert st["submitted"] == st["completed"] == len(plan)
+    for ((alg, r), kw), got in zip(plan, results):
+        assert got is not None and got.ok
+        if alg == "bfs":
+            want = bfs(tiled, r, kw["semiring"],
+                       need_parents=kw["need_parents"], device=dev)
+            if kw["need_parents"]:
+                np.testing.assert_array_equal(got.parents, want.parents)
+        elif alg == "sssp":
+            want = sssp(tiled, r, delta=2.0, device=dev)
+            assert (got.sweeps, got.buckets) == (want.sweeps, want.buckets)
+        else:
+            want = khop(tiled, r, 2, packed=True, device=dev)
+        np.testing.assert_array_equal(got.distances, want.distances)
