@@ -225,6 +225,26 @@ exit and no result line):
    for batched BFS and k-hop under the flush thread, whose slot cuts
    follow its timing: printed); the drained passes in 14b's slots at fill
    1.0, the second all handle hits; each pass's wall time beside 14b's;
+16. (run after phase 15 and before 11) the 2D-distributed strategy
+   (``core.dist_bfs`` on ``distributed.Grid``), ranks as processes that
+   share the card over gloo (collectives through the host): (a) the
+   scale-20 graph cut into a 2 x 2 partition (timed); on blocks (0, 0)
+   and (1, 1), kernel 1 in 4 semirings, 1w, 2, 2w, 3, 4 and 6 at the BFS
+   state before iteration 3 (the phase-4b root, the phase-5 batch, phase
+   8b's and 9b's distances) against their plain versions on the shard,
+   exactly; (b) a 2 x 2 world of four processes: ``make_dist_bfs``
+   tropical push and auto, ``make_dist_multi_bfs`` over the 64 phase-5
+   roots lane (tropical push) and packed, ``make_dist_sssp`` from the 8b
+   root at its delta, ``make_dist_multi_sssp`` over the 64 roots at 9b's
+   delta, ``make_dist_cc`` and ``make_dist_pagerank``, each equal to
+   phases 4b, 5, 8b, 9b and 12b (distances, levels, labels, iterations,
+   sweeps and buckets bit-equal; PageRank within ``PR_*``), each with its
+   time, collective time and launches per rank; (c) in the same world, on
+   kronecker(10, 8) (C=8, L=32), every factory under both comm modes and
+   every direction it takes, Brandes, k-hop lane and packed and the sliced
+   BFS in float32, bfloat16 and int16, each equal to the single-device
+   port on the card, then the same cases (BFS in tropical only) in a 1 x 1
+   world on NCCL, the route of a run with one rank a card;
 11. DLRM inference at the dlrm-mlperf widths through the embedding-bag
    kernel (7), after freeing what phases 4-10 hold: (a) the kernel against
    its plain version, bit-equal (sum and mean; the JAX package's (V, d, B,
@@ -262,7 +282,9 @@ kernels 1 (its sel-max, boolean and real modes), 2, 3, 4, 5 and 6 over
 phase 12b; kernel 2 (its real mode under betweenness) over phase 13b;
 kernels 3 and 5 over the card's streams of phase 14a, kernels 1, 2, 2w and
 6 over the two passes of 14b; kernels 3 and 5 over phase 15a, kernels 1,
-2, 2w and 6 over the four passes of 15b; kernel 4 over phase 5's pull
+2, 2w and 6 over the four passes of 15b; kernels 1, 1w, 2, 2w, 3 and 6
+over phase 16b's calls and those and 4 over 16c's, summed over the ranks
+(each rank's counted from zero a call); kernel 4 over phase 5's pull
 harness batch and kernel 2w over phase 8b's per-root harness; the
 embedding bag over phase 11b, exactly once a forward.
 The last lines are the kernel table, the card, and ``{"ok": true,
@@ -270,6 +292,7 @@ The last lines are the kernel table, the card, and ``{"ok": true,
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -294,18 +317,21 @@ SEMIRINGS = ("tropical", "real", "boolean", "selmax")
 SCALE, EDGE_FACTOR, SMALL_SCALE = 20, 16, 14
 # the whole run must end within 1200 s; phase 8b validates 64 SSSP trees
 # only if that still ends by this mark, else the first 16; phase 9c the
-# same by its own mark; both leave phases 10, 12, 13, 14, 15 and 11 their
-# reserves
+# same by its own mark; both leave phases 10, 12, 13, 14, 15, 16 and 11
+# their reserves
 GCN_RESERVE_S = 60.0
 DLRM_RESERVE_S = 90.0
 GRAPH_RESERVE_S = 90.0
 BC_RESERVE_S = 120.0
 SERVE_RESERVE_S = 60.0
 SESSION_RESERVE_S = 60.0
+DIST_RESERVE_S = 120.0
 VALIDATE_ALL_BY_S = 900.0 - GCN_RESERVE_S - DLRM_RESERVE_S \
-    - GRAPH_RESERVE_S - BC_RESERVE_S - SERVE_RESERVE_S - SESSION_RESERVE_S
+    - GRAPH_RESERVE_S - BC_RESERVE_S - SERVE_RESERVE_S - SESSION_RESERVE_S \
+    - DIST_RESERVE_S
 VALIDATE_BATCH_BY_S = 1000.0 - GCN_RESERVE_S - DLRM_RESERVE_S \
-    - GRAPH_RESERVE_S - BC_RESERVE_S - SERVE_RESERVE_S - SESSION_RESERVE_S
+    - GRAPH_RESERVE_S - BC_RESERVE_S - SERVE_RESERVE_S - SESSION_RESERVE_S \
+    - DIST_RESERVE_S
 # PageRank with the kernels against the same call with the plain sweeps
 # (phase 12): kernel 1 adds a row in another order than the plain version,
 # so the ranks are held to bounds fixed before the first card run
@@ -2040,6 +2066,499 @@ def session_phase(*, dev, card, tiled, served, table):
     return {"15a": launches_a, "15b": launches_b, "passes": passes}
 
 
+# ---------------------------------------------------------------- phase 16
+
+DIST_TIMEOUT_S = 600.0
+
+
+def after_file(path: str, stop: threading.Event, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` once ``path`` exists, with its start and end
+    on ``time.perf_counter``; raises if ``stop`` is set before it does."""
+    while not os.path.exists(path):
+        if stop.wait(0.2):
+            raise RuntimeError(f"{path} never appeared")
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    return out, t0, time.perf_counter()
+
+
+def nccl_case(case) -> bool:
+    """The 1 x 1 NCCL world runs each factory once: BFS tropical under
+    auto, multi-BFS tropical under pull and packed, SSSP at the default
+    delta, k-hop packed, the sliced BFS in int16, the rest as in 16c."""
+    kw, f = case["kwargs"], case["factory"]
+    if f == "bfs":
+        return (kw["sr_name"], kw["direction"]) == ("tropical", "auto")
+    if f == "multi_bfs" and not kw.get("packed"):
+        return (kw["sr_name"], kw["direction"]) == ("tropical", "pull")
+    if f == "sssp":
+        return case["args"][1] != float("inf")
+    if f == "khop":
+        return kw.get("packed", False)
+    if f == "bfs_sliced":
+        return kw["frontier_dtype"] == "int16"
+    return True
+# the kernels each sub-phase's path must launch (summed over the ranks)
+DIST_16B_KERNELS = ("slimsell_spmv", "slimsell_spmv_wts", "slimsell_spmm",
+                    "slimsell_spmm_wts", "slimsell_pull",
+                    "slimsell_spmm_packed")
+DIST_16C_KERNELS = DIST_16B_KERNELS + ("slimsell_pull_mm",)
+
+
+def dist_rows(ranks, cases) -> list:
+    """Per case: rank 0's outputs, checked equal on every rank (digests),
+    with each rank's time, collective time and calls, and launches."""
+    out = []
+    for idx, case in enumerate(cases):
+        digests = {r[idx]["digest"] for r in ranks}
+        if len(digests) != 1:
+            raise AssertionError(f"the ranks' outputs differ: {case}")
+        out.append({"case": case, "result": ranks[0][idx]["result"],
+                    "seconds": [r[idx]["seconds"] for r in ranks],
+                    "comm_s": [r[idx]["comm"]["seconds"] for r in ranks],
+                    "copy_s": [r[idx]["comm"]["copy_seconds"] for r in ranks],
+                    "comm_calls": ranks[0][idx]["comm"]["calls"],
+                    "comm_bytes": ranks[0][idx]["comm"]["bytes"],
+                    "launches": [r[idx]["launches"] for r in ranks]})
+    return out
+
+
+def launch_sum(rows) -> dict:
+    """Kernel launches of some cases, summed over cases and ranks."""
+    total = {}
+    for row_ in rows:
+        for per_rank in row_["launches"]:
+            for k, v in per_rank.items():
+                total[k] = total.get(k, 0) + v
+    return total
+
+
+def dist_line(row_) -> str:
+    per_rank = [sum(v.values()) for v in row_["launches"]]
+    return (f"{max(row_['seconds']) * 1e3:.1f} ms (slowest rank), "
+            f"collectives {max(row_['comm_s']) * 1e3:.1f} ms (host copies "
+            f"{max(row_['copy_s']) * 1e3:.1f}) in {row_['comm_calls']} calls "
+            f"of {row_['comm_bytes'] / 1e6:.1f} MB a rank, launches per rank "
+            f"{per_rank}")
+
+
+def small_dist_cases(path, slot_path, roots, delta, comms=("allreduce",
+                                                          "reduce_gather")):
+    """Phase 16c's cases on one partition: every factory, both comm modes,
+    every direction it takes, and the sliced BFS in three frontier types."""
+    cases = []
+    for comm in comms:
+        for sr in SEMIRINGS:
+            for d in ("push", "pull", "auto"):
+                cases.append(dict(factory="bfs", partition=path,
+                                  args=[roots[0]],
+                                  kwargs=dict(sr_name=sr, direction=d,
+                                              comm=comm)))
+                cases.append(dict(factory="multi_bfs", partition=path,
+                                  args=[roots],
+                                  kwargs=dict(sr_name=sr, direction=d,
+                                              comm=comm, slimwork=True)))
+        cases.append(dict(factory="multi_bfs", partition=path, args=[roots],
+                          kwargs=dict(sr_name="boolean", packed=True,
+                                      batch_width=len(roots), comm=comm)))
+        for dl in (delta, float("inf")):
+            cases.append(dict(factory="sssp", partition=path,
+                              args=[roots[0], dl],
+                              kwargs=dict(comm=comm, slimwork=True)))
+        cases.append(dict(factory="multi_sssp", partition=path,
+                          args=[roots, delta], kwargs=dict(comm=comm)))
+        cases.append(dict(factory="cc", partition=path, args=[],
+                          kwargs=dict(comm=comm, slimwork=True)))
+        cases.append(dict(factory="pagerank", partition=path,
+                          args=[0.85, 1e-6], kwargs=dict(comm=comm)))
+        cases.append(dict(factory="brandes", partition=path, args=[roots],
+                          kwargs=dict(comm=comm)))
+        for d in ("push", "pull", "auto"):
+            cases.append(dict(factory="khop", partition=path, args=[roots],
+                              kwargs=dict(k=2, direction=d, comm=comm)))
+        cases.append(dict(factory="khop", partition=path, args=[roots],
+                          kwargs=dict(k=2, packed=True,
+                                      batch_width=len(roots), comm=comm)))
+    for dtype in ("float32", "bfloat16", "int16"):
+        cases.append(dict(factory="bfs_sliced", partition=slot_path,
+                          args=["root_slot"],
+                          kwargs=dict(frontier_dtype=dtype)))
+    return cases
+
+
+def check_small_dist(rows, refs, what: str) -> int:
+    """Phase 16c: each case against the single-device port on the card;
+    returns the number of cases held."""
+    from repro_torch.core.betweenness import brandes_accumulate
+    for row_ in rows:
+        case, got = row_["case"], row_["result"]
+        kw, f = case["kwargs"], case["factory"]
+        name = f"{what} {f} {kw}"
+        if f == "bfs":
+            want = refs["bfs"][kw["sr_name"], kw["direction"]]
+            ok = np.array_equal(got[0], want.distances) \
+                and int(got[1]) == want.iterations
+        elif f == "multi_bfs" and kw.get("packed"):
+            want = refs["multi_bfs"]["boolean", "push"]
+            ok = np.array_equal(got[0], want.distances) \
+                and int(got[1]) == int(want.iterations[0])
+        elif f == "multi_bfs":
+            want = refs["multi_bfs"][kw["sr_name"], kw["direction"]]
+            ok = np.array_equal(got[0], want.distances) \
+                and int(got[1]) == int(want.iterations[0])
+        elif f == "sssp":
+            want = refs["sssp"][case["args"][1]]
+            ok = np.array_equal(got[0], want.distances) \
+                and (int(got[1]), int(got[2])) == (want.sweeps, want.buckets)
+        elif f == "multi_sssp":
+            want = refs["multi_sssp"]
+            ok = np.array_equal(got[0], want.distances) \
+                and np.array_equal(got[2], want.sweeps) \
+                and np.array_equal(got[3], want.buckets)
+        elif f == "cc":
+            want = refs["cc"]
+            ok = np.array_equal(got[0], want.labels) \
+                and int(got[1]) == want.iterations
+        elif f == "pagerank":
+            pagerank_close(types.SimpleNamespace(ranks=got[0],
+                                                 iterations=int(got[1])),
+                           refs["pagerank"], 1e-6, name)
+            ok = True
+        elif f == "brandes":
+            want, depths = refs["brandes"]
+            scores = brandes_accumulate(got[0], np.asarray(case["args"][0]))
+            scores /= 2.0
+            top = float(want.scores.max())
+            ok = np.allclose(scores, want.scores, rtol=BC_RTOL,
+                             atol=BC_ATOL_REL * top) \
+                and np.array_equal(got[1].T, depths.distances) \
+                and int(got[2]) == int(depths.iterations[0])
+        elif f == "khop":
+            want = refs["khop"][kw.get("direction", "push"),
+                                kw.get("packed", False)]
+            ok = np.array_equal(got[0], want.distances)
+        else:   # bfs_sliced: slot space back to vertex ids
+            perm = refs["perm"]
+            d = np.full(perm.size, -1, np.int32)
+            d[perm] = np.asarray(got[0]).reshape(-1)[:perm.size]
+            want = refs["bfs"]["tropical", "push"]
+            ok = np.array_equal(d, want.distances) \
+                and int(got[1]) == want.iterations
+        if not ok:
+            raise AssertionError(f"{name}: differs from the single-device "
+                                 "port on the card")
+    return len(rows)
+
+
+def dist_phase(*, dev, card, csr, tiled, root, roots, lane_boolean, push,
+               sssp_root, msssp, workloads, errs, table):
+    """Phase 16: the 2D-distributed strategy (``core.dist_bfs`` over
+    ``distributed.Grid``), ranks as processes sharing the one card over
+    gloo. (a) the kernels on the path over two blocks of the scale-20 2 x 2
+    partition against their plain versions; (b) a 2 x 2 world of four
+    processes runs the factories at scale 20, each held to the
+    single-device results of the earlier phases; (c) in the same world,
+    every factory on kronecker(10, 8) under both comm modes and every
+    direction it takes, then a 1 x 1 world on NCCL. Returns the launches of
+    (b) and (c), summed over the ranks."""
+    import tempfile
+    from repro_torch.core import direction as dm
+    from repro_torch.core import engine, packing, semiring
+    from repro_torch.core.betweenness import betweenness
+    from repro_torch.core.bfs import bfs
+    from repro_torch.core.cc import cc
+    from repro_torch.core.dist_bfs import (partition_slimsell, run_cases,
+                                           save_partition, shard)
+    from repro_torch.core.formats import build_slimsell, sellcs_order
+    from repro_torch.core.khop import khop_many
+    from repro_torch.core.multi_bfs import multi_source_bfs
+    from repro_torch.core.multi_sssp import multi_source_sssp
+    from repro_torch.core.options import EngineConfig
+    from repro_torch.core.pagerank import pagerank
+    from repro_torch.core.spmv import (pull_mm_plain, pull_plain,
+                                       spmm_packed_plain, spmm_plain,
+                                       spmv_plain)
+    from repro_torch.core.sssp import default_delta, sssp
+    from repro_torch.distributed import launch
+    from repro_torch.graphs.generators import kronecker, with_random_weights
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    part = partition_slimsell(csr, 2, 2, C=tiled.C, L=tiled.L,
+                              sigma=tiled.sigma, device=dev)
+    part_s = time.perf_counter() - t0
+    log(f"[16] scale {SCALE} 2 x 2 partition in {part_s:.1f} s (on the card, "
+        f"back to the host): "
+        f"t_max={part.t_max} tiles a block, real tiles "
+        f"{(-(-part.chunk_len // part.L)).sum(axis=-1).tolist()}, push pairs "
+        f"K={part.inc_src.shape[-1]}")
+
+    # (a) each kernel on the path at one state, on blocks (0, 0) and (1, 1):
+    # the BFS state before iteration 3 (level 2 the frontier) of the phase
+    # 4b root and of the first 16 roots of the phase-5 batch
+    level, width = 2, 16
+    d1 = torch.from_numpy(lane_boolean.distances).to(dev)
+    dB = torch.from_numpy(np.ascontiguousarray(
+        push.distances[:width].T)).to(dev)
+    sd1 = torch.from_numpy(sssp_root.distances).to(dev)
+    sdB = torch.from_numpy(np.ascontiguousarray(
+        msssp.distances[:width].T)).to(dev)
+    inf = float("inf")
+
+    def operands(d):
+        front = d == level
+        ids = torch.arange(1, d.shape[0] + 1, dtype=torch.float32,
+                           device=dev)
+        ids = ids[:, None] if d.ndim > 1 else ids
+        return front, ~((d >= 0) & (d <= level)), {
+            "tropical": torch.where((d >= 0) & (d <= level), d.float(), inf),
+            "real": front.float(), "boolean": front.int(),
+            "selmax": torch.where(front, ids, 0.0)}
+
+    front1, nf1, x1 = operands(d1)
+    frontB, nfB, xB = operands(dB)
+    xB = xB["tropical"]
+    w1 = torch.where(front1, sd1, inf)
+    wB = torch.where(frontB, sdB, inf)
+    words = packing.pack_bits(frontB, axis=1)
+    n_cases = 0
+    for i, j in ((0, 0), (1, 1)):
+        local = shard(part, i, j).to_torch(dev)
+        lo = j * local.n_x
+
+        def cut(x, fill):
+            return engine._column_range(x, lo, local.n_x, fill)
+
+        m1 = dm.push_tile_mask(local, cut(front1, False))
+        mB = dm.push_tile_mask(local, cut(frontB, False))
+        what = f"scale {SCALE} block ({i}, {j})"
+        for name in SEMIRINGS:
+            sr = semiring.get(name)
+            x = cut(x1[name], sr.zero)
+            check_equal("slimsell_spmv", ops.spmv(sr, local, x, tile_mask=m1),
+                        spmv_plain(sr, local, x, m1), errs, f"{what} {name}")
+            n_cases += 1
+        sr = semiring.TROPICAL
+        X = cut(xB, inf)
+        check_equal("slimsell_spmm", ops.spmm(sr, local, X, tile_mask=mB),
+                    spmm_plain(sr, local, X, mB), errs, f"{what} B={width}")
+        pm1 = engine._pull_tile_mask(local, nf1)
+        x = cut(x1["tropical"], inf)
+        check_equal("slimsell_pull", ops.pull(sr, local, x, nf1,
+                                              tile_mask=pm1),
+                    pull_plain(sr, local, x, nf1, pm1), errs, what)
+        pmB = engine._pull_tile_mask(local, nfB.any(dim=1))
+        check_equal("slimsell_pull_mm", ops.pull_mm(sr, local, X, nfB,
+                                                    tile_mask=pmB),
+                    pull_mm_plain(sr, local, X, nfB, pmB), errs,
+                    f"{what} B={width}")
+        mp = semiring.MINPLUS
+        x = cut(w1, inf)
+        check_equal("slimsell_spmv_wts",
+                    ops.spmv(mp, local, x, tile_mask=m1, weights=local.wts),
+                    spmv_plain(mp, local, x, m1, local.wts), errs, what)
+        X = cut(wB, inf)
+        check_equal("slimsell_spmm_wts",
+                    ops.spmm(mp, local, X, tile_mask=mB, weights=local.wts),
+                    spmm_plain(mp, local, X, mB, local.wts), errs,
+                    f"{what} B={width}")
+        W = cut(words, 0)
+        check_equal("slimsell_spmm_packed",
+                    ops.spmm_packed(local, W, tile_mask=mB),
+                    spmm_packed_plain(local, W, mB), errs, f"{what} B={width}")
+        n_cases += 6
+        del local, X, W
+    del d1, dB, sd1, sdB, x1, xB, w1, wB, words, front1, frontB, nf1, nfB
+    torch.cuda.synchronize()
+    log(f"[16a] kernels == plain on shard views, blocks (0, 0) and (1, 1) of "
+        f"the scale-{SCALE} 2 x 2 partition ({n_cases} cases: kernel 1 in 4 "
+        f"semirings, 1w, 2, 2w, 3, 4, 6 at the state before iteration "
+        f"{level + 1}, the batch kernels at B={width}; localized operands of n_col={part.n_col} rows, results "
+        f"of n={part.n} rows, the other shards' rows the semiring zero)")
+
+    # (c)'s graph and its single-device references on the card
+    small_csr = with_random_weights(kronecker(10, 8, seed=1), low=2 ** -8,
+                                    high=1.0, seed=2)
+    small = build_slimsell(small_csr, C=8, L=32).to_torch(dev)
+    small_roots = [int(r) for r in np.random.default_rng(16).choice(
+        np.nonzero(small_csr.deg)[0], 12, replace=False)]
+    delta = default_delta(small)
+    refs = {"bfs": {}, "multi_bfs": {}, "sssp": {}, "khop": {},
+            "perm": sellcs_order(small_csr.deg, small_csr.n)}
+    for name in SEMIRINGS:
+        for d in ("push", "pull", "auto"):
+            cfg = EngineConfig(direction=d)
+            refs["bfs"][name, d] = bfs(small, small_roots[0], name,
+                                       config=cfg, device=dev)
+            refs["multi_bfs"][name, d] = multi_source_bfs(
+                small, small_roots, name, config=cfg, device=dev)
+            if name == "boolean":
+                refs["khop"][d, False] = khop_many(small, small_roots, 2,
+                                                   config=cfg, device=dev)
+    refs["khop"]["push", True] = khop_many(small, small_roots, 2,
+                                           packed=True, device=dev)
+    for dl in (delta, inf):
+        refs["sssp"][dl] = sssp(small, small_roots[0], delta=dl, device=dev)
+    refs["multi_sssp"] = multi_source_sssp(small, small_roots, delta=delta,
+                                           device=dev)
+    refs["cc"] = cc(small, device=dev)
+    refs["pagerank"] = pagerank(small, device=dev)
+    refs["brandes"] = (betweenness(small, small_roots, device=dev),
+                       refs["multi_bfs"]["tropical", "push"])
+    slot_root = int(np.nonzero(refs["perm"] == small_roots[0])[0][0])
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        t0 = time.perf_counter()
+        big = os.path.join(tmp, "scale20")
+        save_partition(part, big)
+        del part
+        paths = {}
+        for name, (R, slot) in {"k10": (2, False), "k10s": (2, True),
+                                "k10_1": (1, False),
+                                "k10s_1": (1, True)}.items():
+            paths[name] = os.path.join(tmp, name)
+            save_partition(partition_slimsell(small_csr, R, R, C=8, L=32,
+                                              slot_space=slot, device=dev),
+                           paths[name])
+        save_s = time.perf_counter() - t0
+        # (b) the factories at scale 20 (the first BFS also builds each
+        # shard's work lists)
+        big_cases = [
+            dict(factory="bfs", partition=big, args=[root],
+                 kwargs=dict(direction="push")),
+            dict(factory="bfs", partition=big, args=[root],
+                 kwargs=dict(direction="auto")),
+            dict(factory="multi_bfs", partition=big, args=[roots],
+                 kwargs=dict(direction="push")),
+            dict(factory="multi_bfs", partition=big, args=[roots],
+                 kwargs=dict(sr_name="boolean", packed=True,
+                             batch_width=len(roots))),
+            dict(factory="sssp", partition=big,
+                 args=[root, sssp_root.delta], kwargs=dict(slimwork=True)),
+            dict(factory="multi_sssp", partition=big,
+                 args=[roots, msssp.delta], kwargs={}),
+            dict(factory="cc", partition=big, args=[],
+                 kwargs=dict(slimwork=True)),
+            dict(factory="pagerank", partition=big, args=[0.85, 1e-6],
+                 kwargs={}),
+        ]
+        small_cases = small_dist_cases(paths["k10"], paths["k10s"],
+                                       small_roots, delta)
+        for c in small_cases:
+            if c["args"] == ["root_slot"]:
+                c["args"] = [slot_root]
+        # (c) besides, a 1 x 1 world on NCCL (the route of a run with a
+        # card a rank): each factory once, started once the 2 x 2 world
+        # has ended 16b's cases, so that 16b is timed on a quiet card
+        big_done = os.path.join(tmp, "16b_done")
+        big_cases[-1]["signal"] = big_done
+        nccl_cases = [c for c in small_dist_cases(
+            paths["k10_1"], paths["k10s_1"], small_roots, delta,
+            comms=("allreduce",)) if nccl_case(c)]
+        for c in nccl_cases:
+            if c["args"] == ["root_slot"]:
+                c["args"] = [slot_root]
+        stop = threading.Event()
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            t0 = time.perf_counter()
+            nccl_world = pool.submit(after_file, big_done, stop, launch,
+                                     run_cases, (1, 1), ("data", "model"),
+                                     (nccl_cases,), backend="nccl",
+                                     device=dev, timeout=DIST_TIMEOUT_S)
+            try:
+                ranks = launch(run_cases, (2, 2), ("data", "model"),
+                               (big_cases + small_cases,), backend="gloo",
+                               device=dev, timeout=DIST_TIMEOUT_S)
+            finally:
+                stop.set()
+            world_s = time.perf_counter() - t0
+            nccl_ranks, nccl_t0, nccl_t1 = nccl_world.result()
+            nccl_rows = dist_rows(nccl_ranks, nccl_cases)
+            nccl_from, nccl_to = nccl_t0 - t0, nccl_t1 - t0
+        rows = dist_rows(ranks, big_cases + small_cases)
+        del ranks
+        big_rows, small_rows = rows[:len(big_cases)], rows[len(big_cases):]
+
+    # (b) against the single-device results of phases 4b, 5, 8b, 9b and 12b
+    names = ("bfs push", "bfs auto", "multi_bfs lane push",
+             "multi_bfs packed", "sssp", "multi_sssp", "cc", "pagerank")
+    got = {n: r["result"] for n, r in zip(names, big_rows)}
+    for n in ("bfs push", "bfs auto"):
+        if not np.array_equal(got[n][0], lane_boolean.distances) \
+                or int(got[n][1]) != lane_boolean.iterations:
+            raise AssertionError(f"[16b] {n}: distances or iterations differ "
+                                 "from phase 4b's")
+    for n in ("multi_bfs lane push", "multi_bfs packed"):
+        if not np.array_equal(got[n][0], push.distances) \
+                or int(got[n][1]) != int(push.iterations[0]):
+            raise AssertionError(f"[16b] {n}: distances or iterations differ "
+                                 "from phase 5's push batch")
+    dist, sweeps, buckets = got["sssp"]
+    if not np.array_equal(dist, sssp_root.distances) \
+            or (int(sweeps), int(buckets)) != (sssp_root.sweeps,
+                                               sssp_root.buckets):
+        raise AssertionError("[16b] sssp differs from phase 8b's")
+    dist, _, sweeps, buckets = got["multi_sssp"]
+    if not (np.array_equal(dist, msssp.distances)
+            and np.array_equal(sweeps, msssp.sweeps)
+            and np.array_equal(buckets, msssp.buckets)):
+        raise AssertionError("[16b] multi_sssp differs from phase 9b's")
+    if not np.array_equal(got["cc"][0], workloads["cc"].labels) \
+            or int(got["cc"][1]) != workloads["cc"].iterations:
+        raise AssertionError("[16b] cc differs from phase 12b's")
+    pr = types.SimpleNamespace(ranks=got["pagerank"][0],
+                               iterations=int(got["pagerank"][1]))
+    pr_l1, pr_said = pagerank_close(pr, workloads["pagerank"], 1e-6,
+                                    "[16b] dist pagerank")
+    log(f"[16b] scale {SCALE}, a 2 x 2 world of four processes sharing the "
+        f"card over gloo (collectives through the host), started and run in "
+        f"{world_s:.1f} s with 16c; shards written in {save_s:.1f} s")
+    for n, r in zip(names, big_rows):
+        log(f"[16b] {n}: {dist_line(r)}")
+    log(f"[16b] held: bfs push and auto == phase 4b (distances, iterations), "
+        f"both multi_bfs == phase 5's push batch, sssp == phase 8b "
+        f"(distances, sweeps, buckets), multi_sssp == phase 9b (distances, "
+        f"sweeps, buckets), cc == phase 12b (labels, sweeps), pagerank within "
+        f"PR_* of phase 12b's fused run (L1 {pr_l1:.3e}"
+        f"{'; ' + pr_said if pr_said else ', sweeps equal'})")
+    launches_b = launch_sum(big_rows)
+    missing = [k for k in DIST_16B_KERNELS if not launches_b.get(k)]
+    if missing:
+        raise AssertionError(f"[16b] kernels never ran on the path: {missing}"
+                             f" ({launches_b})")
+    log(f"[16b] launches over the eight calls, four ranks, counted from "
+        f"zero: {launches_b}")
+
+    # (c)
+    n_small = check_small_dist(small_rows, refs, "[16c] 2 x 2 gloo")
+    n_nccl = check_small_dist(nccl_rows, refs, "[16c] 1 x 1 nccl")
+    launches_c = launch_sum(small_rows)
+    missing = [k for k in DIST_16C_KERNELS if not launches_c.get(k)]
+    if missing:
+        raise AssertionError(f"[16c] kernels never ran on the path: {missing}"
+                             f" ({launches_c})")
+    small_s = sum(max(r["seconds"]) for r in small_rows)
+    comm_s = sum(max(r["comm_s"]) for r in small_rows)
+    log(f"[16c] kronecker(10, 8) C=8 L=32, 2 x 2 gloo: {n_small} cases "
+        f"(bfs and multi_bfs 4 semirings x push / pull / auto, packed, "
+        f"sssp at the default delta and inf, multi_sssp, cc, pagerank, "
+        f"brandes, khop lane x 3 directions and packed, x allreduce and "
+        f"reduce_gather; the sliced BFS in float32, bfloat16, int16) == the "
+        f"single-device port on the card; {small_s:.2f} s, collectives "
+        f"{comm_s:.2f} s; launches {launches_c}")
+    log(f"[16c] 1 x 1 world on NCCL, started once the 2 x 2 world had "
+        f"ended 16b's cases (beside its 16c cases): {n_nccl} cases (each "
+        f"factory once) == the same; ran from {nccl_from:.1f} s to "
+        f"{nccl_to:.1f} s after the 2 x 2 world started; launches "
+        f"{launch_sum(nccl_rows)}")
+    for r in table:
+        if launches_b.get(r["name"]):
+            r["phase16b_launches"] = launches_b[r["name"]]
+        if launches_c.get(r["name"]):
+            r["phase16c_launches"] = launches_c[r["name"]]
+    return {"16b": launches_b, "16c": launches_c}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3475,7 +3994,6 @@ def main() -> int:
     served = serving_phase(dev=dev, card=card, tiled=tiled, roots=roots,
                            push=push, msssp=mf, workloads=workloads,
                            table=table)
-    del workloads
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[14] phase 14 took {time.perf_counter() - t14:.1f} s (reserve "
@@ -3492,6 +4010,20 @@ def main() -> int:
     log(f"[15] phase 15 took {time.perf_counter() - t15:.1f} s (reserve "
         f"{SESSION_RESERVE_S:.0f} s); the run "
         f"{time.perf_counter() - t_start:.1f} s so far")
+
+    # ---- 16: the 2D-distributed strategy, ranks as processes sharing the
+    # card, at scale 20 before phase 11 frees the layout
+    t16 = time.perf_counter()
+    dist_phase(dev=dev, card=card, csr=csr, tiled=tiled, root=root,
+               roots=[int(r) for r in roots], lane_boolean=lane_boolean,
+               push=push, sssp_root=fused, msssp=mf, workloads=workloads,
+               errs=errs, table=table)
+    del workloads
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[16] phase 16 took {time.perf_counter() - t16:.1f} s (reserve "
+        f"{DIST_RESERVE_S:.0f} s); the run {time.perf_counter() - t_start:.1f}"
+        f" s so far")
 
     # ---- 11: DLRM inference (dlrm-mlperf widths) with the embedding bag (7)
     t11 = time.perf_counter()

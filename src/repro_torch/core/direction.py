@@ -53,12 +53,18 @@ def frontier_bits(sr_name: str, state, k: int) -> torch.Tensor:
 
 
 def push_tile_mask(tiled, fbits: torch.Tensor) -> torch.Tensor:
-    """bool[T]: tiles containing ≥1 frontier column, via the push index."""
+    """bool[T]: tiles containing ≥1 frontier column, via the push index.
+
+    A pair whose tile id is T is padding (a shard of the distributed
+    partition pads its pairs to the widest shard's count with tile id T,
+    as the JAX package's segment ops drop): it lands in a slot past the
+    mask, which is cut off."""
     if fbits.ndim > 1:
         fbits = fbits.any(dim=-1)
     hit = fbits.index_select(0, tiled.inc_src).to(torch.int32)
-    count = torch.zeros(tiled.n_tiles, dtype=torch.int32, device=fbits.device)
-    return count.index_add_(0, tiled.inc_tile, hit) > 0
+    count = torch.zeros(tiled.n_tiles + 1, dtype=torch.int32,
+                        device=fbits.device)
+    return count.index_add_(0, tiled.inc_tile, hit)[:tiled.n_tiles] > 0
 
 
 def edge_counts(deg: torch.Tensor, fbits: torch.Tensor, nf: torch.Tensor):

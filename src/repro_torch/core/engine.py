@@ -22,6 +22,10 @@ drive a spec to its fixpoint:
 the serving layer: it builds a state apart from running it, and runs it
 through the same fused loop as ``run_fused``.
 
+``dist_step`` is one iteration of a spec on one rank of the distributed
+strategy (``core.dist_bfs``): a sweep over the rank's ``ShardTiled`` and
+the semiring all-reduce of its partial result over the grid.
+
 ``step`` is one iteration of either. Loop semantics match the JAX
 package's: iterate while ``cont and k <= max_iters`` from ``k = 1``;
 ``iterations = k - 1`` at exit; ``work_log[k-1]`` is the number of active
@@ -504,3 +508,125 @@ def run_hostloop(spec: FixpointSpec, tiled, arg, *, slimwork: bool = True,
     return EngineResult(state=state, iterations=iters,
                         work_log=np.asarray(work_list, np.int32),
                         dirs_log=np.asarray(dir_list, np.int32))
+
+
+# --------------------------------------------------------------- distributed
+
+
+@dataclasses.dataclass
+class ShardTiled:
+    """One rank's block of the 2D partition (``dist_bfs.partition_slimsell``)
+    as a layout the sweeps and kernels take: the tiles of row shard ``row``
+    (chunks ``row * n_chunks`` on) and column shard ``col`` (vertices
+    ``col * n_x`` on).
+
+    ``cols`` hold *localized* column ids (``[0, n_x)``, -1 padding), so a
+    sweep's operand is the frontier's column range, ``n_x`` rows;
+    ``row_vertex`` holds *global* vertex ids, so the result lands in vertex
+    space, ``n`` rows, of which only the shard's rows are written
+    (``owns_all_rows`` is False: the kernels' wrappers start the others at
+    the semiring zero). ``n_tiles`` is the partition's ``t_max``: the
+    tiles past the shard's own are padding (all -1) that keep the last
+    chunk's id, so ``tile_ptr`` counts them into that chunk, and ``cl``,
+    each chunk's length in this column range, keeps the kernels' work
+    lists below them. ``deg`` is the whole graph's degree vector (the
+    direction heuristic and PageRank read it), ``inc_src`` / ``inc_tile``
+    the shard's push index padded with tile id ``n_tiles``. Arrays are
+    host numpy until ``to_torch``.
+    """
+    n: int
+    n_x: int
+    C: int
+    L: int
+    n_chunks: int
+    row: int
+    col: int
+    cols: object        # int32[n_tiles, C, L], localized
+    row_block: object   # int32[n_tiles]
+    row_vertex: object  # int32[n_chunks, C], global ids
+    tile_ptr: object    # int32[n_chunks + 1]
+    cl: object          # int32[n_chunks]
+    deg: object         # int[n]
+    inc_src: object = None
+    inc_tile: object = None
+    wts: object = None  # float32[n_tiles, C, L]
+    device: Optional[torch.device] = None
+    spmm_work: Optional[tuple] = dataclasses.field(default=None, repr=False,
+                                                   compare=False)
+    spmv_work: Optional[tuple] = dataclasses.field(default=None, repr=False,
+                                                   compare=False)
+    owns_all_rows = False
+
+    @property
+    def n_tiles(self) -> int:
+        return int(self.cols.shape[0])
+
+    def to_torch(self, device=None) -> "ShardTiled":
+        """The host shard as tensors on ``device`` (default: the card;
+        raises when there is none), with the layout's dtypes."""
+        from .formats import layout_to_torch
+        return layout_to_torch(self, device)
+
+
+def _column_range(x: torch.Tensor, lo: int, rows: int, fill) -> torch.Tensor:
+    """Rows ``[lo, lo + rows)`` of ``x``, those past its end ``fill``."""
+    part = x[lo:lo + rows]
+    if part.shape[0] < rows:
+        pad = x.new_full((rows - part.shape[0],) + tuple(x.shape[1:]), fill)
+        part = torch.cat([part, pad])
+    return part.contiguous()
+
+
+def dist_step(spec: FixpointSpec, local: ShardTiled, state: dict, k: int, *,
+              pull: bool, grid, row_axes, col_axes, comm: str,
+              slimwork: bool):
+    """One fixpoint iteration on one rank of the 2D partition.
+
+    The sweep runs over the rank's tiles on the frontier's column range
+    (padded with the semiring zero past n); its result is in vertex space
+    with the semiring zero outside the shard's rows, and the semiring
+    all-reduce over the grid combines the ranks' partial results: each
+    edge lies in exactly one block, so the combine is exact for every
+    semiring. The state is replicated, and every rank runs the spec's own
+    update on the combined result.
+
+    push: the SlimWork mask holds the tiles with a source in the shard's
+    column range (the shard's own push index). pull: the sweep runs over
+    the not-final rows, the mask holds the chunks with one; other shards'
+    rows contribute the zero, so the all-reduce doubles as the row
+    gather. ``comm`` "allreduce" reduces over every axis at once,
+    "reduce_gather" over the column axes first, then the row axes.
+    """
+    sr = sm.get(spec.sr_name)
+    lo = local.col * local.n_x
+    x = _column_range(spec.frontier(state, k), lo, local.n_x, sr.zero)
+    mask = nf = None
+    if pull:
+        nf = spec.not_final(state)
+        if slimwork:
+            mask = _pull_tile_mask(local, nf.any(dim=-1) if nf.ndim > 1 else nf)
+    elif slimwork:
+        sb = _column_range(spec.source_bits(state, k), lo, local.n_x, False)
+        mask = dm.push_tile_mask(local, sb)
+    y = _sweep(spec, local, x, mask, nf, _weights(spec, state))
+    if comm == "allreduce":
+        y = grid.pall(sr.reduction, y, tuple(col_axes) + tuple(row_axes))
+    else:
+        y = grid.pall(sr.reduction, y, tuple(col_axes))
+        y = grid.pall(sr.reduction, y, tuple(row_axes))
+    return spec.update(state, y, k)
+
+
+def dist_choose_direction(spec: FixpointSpec, deg: torch.Tensor, state: dict,
+                          k: int, current: torch.Tensor,
+                          n: int) -> torch.Tensor:
+    """The replicated Beamer choice of the distributed strategy, from the
+    whole graph's degrees. A batch takes one direction for all its columns
+    (the mean of their statistics), as the JAX package's distributed
+    strategy does: one sweep advances every column."""
+    sb = spec.source_bits(state, k)
+    nf = spec.not_final(state)
+    mf, mu, nnz_f = dm.edge_counts(deg, sb, nf)
+    if spec.batched:
+        mf, mu, nnz_f = mf.mean(), mu.mean(), nnz_f.mean()
+    return dm.choose_direction(current, mf, mu, nnz_f, n)

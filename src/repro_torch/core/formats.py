@@ -176,17 +176,36 @@ class SlimSellTiled:
     spmv_work: Optional[tuple] = dataclasses.field(default=None, repr=False,
                                                    compare=False)
 
+    @property
+    def n_x(self) -> int:
+        """Rows of a sweep's operand: every vertex (a shard of the
+        distributed partition takes only its column range)."""
+        return self.n
+
+    @property
+    def owns_all_rows(self) -> bool:
+        """Every vertex is a row of some chunk, so a sweep writes every row
+        of its output (a shard's chunks hold only its row range)."""
+        return True
+
     def to_torch(self, device=None) -> "SlimSellTiled":
         """The host layout as tensors on ``device`` (default: the card;
         raises when there is none)."""
-        if self.device is not None:
-            raise ValueError(f"the layout is already on {self.device}")
-        dev = resolve_device(device)
-        moved = {name: None if getattr(self, name) is None else
-                 torch.from_numpy(np.ascontiguousarray(getattr(self, name))).to(
-                     device=dev, dtype=dtype)
-                 for name, dtype in _TENSOR_FIELDS.items()}
-        return dataclasses.replace(self, device=dev, **moved)
+        return layout_to_torch(self, device)
+
+
+def layout_to_torch(layout, device=None):
+    """A host layout (``SlimSellTiled``, or a shard of the distributed
+    partition) with each array field of ``_TENSOR_FIELDS`` it has as a
+    tensor on ``device`` (default: the card; raises when there is none)."""
+    if layout.device is not None:
+        raise ValueError(f"the layout is already on {layout.device}")
+    dev = resolve_device(device)
+    moved = {name: None if getattr(layout, name) is None else
+             torch.from_numpy(np.ascontiguousarray(getattr(layout, name))).to(
+                 device=dev, dtype=dtype)
+             for name, dtype in _TENSOR_FIELDS.items() if hasattr(layout, name)}
+    return dataclasses.replace(layout, device=dev, **moved)
 
 
 def layout_signature(tiled: SlimSellTiled) -> tuple:

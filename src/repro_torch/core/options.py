@@ -23,6 +23,11 @@ BFS_SEMIRINGS = ("tropical", "real", "boolean", "selmax")
 # reached through packed=True rather than named
 SEMIRINGS = BFS_SEMIRINGS + ("minplus", "boolean_packed")
 
+# the distributed strategy's collective per iteration: one semiring
+# all-reduce over every grid axis, or a reduce over the column axes and
+# then over the row axes
+COMMS = ("allreduce", "reduce_gather")
+
 # connected components: sel-max label propagation or boolean BFS peeling
 CC_SEMIRINGS = ("selmax", "boolean")
 

@@ -211,6 +211,17 @@ def segment_or(data: torch.Tensor, segment_ids: torch.Tensor,
     return _narrow(out)
 
 
+def por(x: torch.Tensor, grid, axes: Sequence[str]) -> torch.Tensor:
+    """Cross-rank bitwise OR of packed words over the grid's ``axes`` (the
+    packed twin of the semiring all-reduce, ``distributed.Grid.pall``).
+    NCCL has no OR reduction, so each axis in turn is an all-gather and an
+    OR fold of the gathered leading axis: exact, and the words travel
+    packed."""
+    for axis in axes:
+        x = or_reduce(grid.all_gather(x, (axis,)), (0,))
+    return x
+
+
 def check_tail_zero_host(words: np.ndarray, n_bits: int) -> bool:
     """Host check of the tail-word invariant: every padding bit above
     ``n_bits`` is zero. The packed word axis must be the LAST axis."""

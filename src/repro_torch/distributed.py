@@ -1,0 +1,369 @@
+"""A grid of processes on ``torch.distributed``: the port's device mesh.
+
+The JAX package runs its 2D-distributed strategy under ``shard_map`` over a
+mesh with named axes, ``("data", "model")`` or ``("pod", "data",
+"model")`` (``repro.compat.make_mesh``). Here every mesh position is a
+process (a *rank*) and ``Grid`` gives the same names to the world's ranks:
+
+* ``rank`` <-> coordinates: the ranks fill the grid in row-major order of
+  the axes, as the devices fill a mesh; ``index(axes)`` flattens the
+  coordinates along some axes (the row shard of ``("pod", "data")`` is
+  ``pod * data_size + data``);
+* one process group for each set of axes a collective reduces over: the
+  ranks that share every other coordinate (made on first use, by every
+  rank in the same order, as ``torch.distributed.new_group`` requires);
+* the collectives of the strategy: ``pall``, the semiring add over some
+  axes (MIN, MAX or SUM all-reduce, the counterpart of ``Semiring.pall``),
+  whose "or" form is ``packing.por`` (all-gather, then an OR fold: NCCL
+  has no OR), plus ``all_gather`` and the paired send / receive of
+  ``exchange``.
+
+Backends. NCCL takes the card's tensors in place, one rank per card; it
+refuses two ranks on one device. Gloo takes host tensors only, so a
+card's tensor crosses to the host and back around every gloo collective,
+explicitly (``_host``), through a pinned buffer kept for each shape and
+type (a pageable copy runs several times slower); those copies are timed
+with the collective and on their own.
+Neither backend reduces or gathers int16, so an int16 tensor travels
+widened to int32 (exactly), and its paired send / receive as the raw two
+bytes of a bfloat16 view.
+
+``CommStats`` counts every collective's calls, bytes (one rank's buffer
+before the reduction) and seconds (host clock, the card synchronised
+before and after), host copies included (``copy_seconds`` alone): the
+time a loop spends outside its sweeps, waiting for the slowest rank
+included.
+
+``launch`` spawns a world of ranks with the ``spawn`` start method (a
+``torch.multiprocessing`` context), a ``FileStore`` in a temporary
+directory for the rendezvous (no port to collide with another world),
+runs ``fn(grid, *args)`` in each (``fn`` importable by name, not a
+closure) and returns the ranks' results. Every rank is joined against one
+deadline; a rank that raises, dies or overruns fails the launch, and the
+others are stopped.
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import itertools
+import math
+import os
+import pickle
+import tempfile
+import time
+import traceback
+from multiprocessing.connection import wait
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from .core import packing
+from .core.formats import resolve_device
+
+_OPS = {"min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX,
+        "sum": dist.ReduceOp.SUM}
+
+
+@dataclasses.dataclass
+class CommStats:
+    """Collectives of one rank since the last ``reset``."""
+    calls: int = 0
+    bytes: int = 0
+    seconds: float = 0.0
+    copy_seconds: float = 0.0
+
+    def reset(self) -> None:
+        self.calls, self.bytes = 0, 0
+        self.seconds = self.copy_seconds = 0.0
+
+    def snapshot(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+class Grid:
+    """Named axes over the ranks of the initialised default process group.
+
+    ``shape`` and ``axis_names`` are the mesh's (``(2, 2), ("data",
+    "model")``); their product must be the world size. ``device`` is where
+    the rank's tensors live.
+    """
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 device: torch.device):
+        if len(shape) != len(axis_names):
+            raise ValueError(f"{len(shape)} axis sizes for {len(axis_names)} "
+                             "axis names")
+        self.shape = tuple(int(s) for s in shape)
+        self.axis_names = tuple(axis_names)
+        self.size = math.prod(self.shape)
+        if dist.get_world_size() != self.size:
+            raise ValueError(f"a grid of {self.shape} needs {self.size} ranks, "
+                             f"the world has {dist.get_world_size()}")
+        self.rank = dist.get_rank()
+        self.backend = dist.get_backend()
+        self.device = torch.device(device)
+        self.coords = dict(zip(self.axis_names,
+                               (int(c) for c in np.unravel_index(self.rank,
+                                                                 self.shape))))
+        self.stats = CommStats()
+        self._groups: dict = {}
+        self._pinned: dict = {}
+
+    # ------------------------------------------------------------ geometry
+
+    def axis_size(self, axis: str) -> int:
+        return self.shape[self.axis_names.index(axis)]
+
+    def coord(self, axis: str) -> int:
+        return self.coords[axis]
+
+    def index(self, axes: Sequence[str]) -> int:
+        """This rank's flat index along ``axes``, the first axis major."""
+        idx = 0
+        for a in axes:
+            idx = idx * self.axis_size(a) + self.coords[a]
+        return idx
+
+    def rank_of(self, **coords) -> int:
+        """The rank at this rank's coordinates with ``coords`` replaced."""
+        c = dict(self.coords, **coords)
+        return int(np.ravel_multi_index([c[a] for a in self.axis_names],
+                                         self.shape))
+
+    def group(self, axes: Sequence[str]):
+        """The process group of the ranks that differ from this one only
+        along ``axes`` (None: the whole world)."""
+        key = tuple(a for a in self.axis_names if a in set(axes))
+        if len(key) != len(set(axes)):
+            raise ValueError(f"unknown axes {axes}; the grid has "
+                             f"{self.axis_names}")
+        if key == self.axis_names:
+            return None
+        if key not in self._groups:
+            # every rank makes every group of this axis set, in one order
+            rest = [a for a in self.axis_names if a not in key]
+            mine = None
+            for fixed in itertools.product(*(range(self.axis_size(a))
+                                             for a in rest)):
+                pinned = dict(zip(rest, fixed))
+                ranks = sorted(
+                    self.rank_of(**pinned, **dict(zip(key, free)))
+                    for free in itertools.product(*(range(self.axis_size(a))
+                                                    for a in key)))
+                g = dist.new_group(ranks)
+                if self.rank in ranks:
+                    mine = g
+            self._groups[key] = mine
+        return self._groups[key]
+
+    # --------------------------------------------------------- collectives
+
+    def _timed(self, t: torch.Tensor):
+        if t.device.type == "cuda":
+            torch.cuda.synchronize(t.device)
+        self.stats.calls += 1
+        self.stats.bytes += t.numel() * t.element_size()
+        return time.perf_counter()
+
+    def _done(self, t0: float, device: torch.device) -> None:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        self.stats.seconds += time.perf_counter() - t0
+
+    def _host(self, t: torch.Tensor) -> bool:
+        """Gloo reduces and gathers host tensors only: a card's tensor is
+        copied to the host before and back after (the copies count in the
+        collective's time)."""
+        return self.backend == "gloo" and t.device.type == "cuda"
+
+    def _buffer(self, t: torch.Tensor) -> torch.Tensor:
+        """What the backend takes for ``t``: its copy in this shape's pinned
+        host buffer under gloo, else a copy on its device; int16 widened
+        to int32 (neither backend reduces or gathers int16)."""
+        if self._host(t):
+            buf = self._pinned_buffer("send", t)
+            t0 = time.perf_counter()
+            buf.copy_(t)
+            self.stats.copy_seconds += time.perf_counter() - t0
+        else:
+            buf = t.clone(memory_format=torch.contiguous_format)
+        return buf.to(torch.int32) if buf.dtype == torch.int16 else buf
+
+    def _pinned_buffer(self, role: str, t: torch.Tensor) -> torch.Tensor:
+        """This role's pinned host buffer for ``t``'s shape and type."""
+        key = (role, tuple(t.shape), t.dtype)
+        buf = self._pinned.get(key)
+        if buf is None:
+            buf = self._pinned[key] = torch.empty(t.shape, dtype=t.dtype,
+                                                  pin_memory=True)
+        return buf
+
+    def _back(self, buf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        """``buf`` on ``like``'s device in its type (the copy back from the
+        host timed as a copy)."""
+        if buf.device == like.device:
+            return buf.to(like.dtype)
+        t0 = time.perf_counter()
+        out = torch.empty(buf.shape, dtype=like.dtype, device=like.device)
+        out.copy_(buf)
+        self.stats.copy_seconds += time.perf_counter() - t0
+        return out
+
+    def all_reduce(self, t: torch.Tensor, op: str,
+                   axes: Sequence[str]) -> torch.Tensor:
+        """The MIN, MAX or SUM of ``t`` over ``axes``, as a new tensor."""
+        t0 = self._timed(t)
+        buf = self._buffer(t)
+        dist.all_reduce(buf, op=_OPS[op], group=self.group(axes))
+        out = self._back(buf, t)
+        self._done(t0, t.device)
+        return out
+
+    def all_gather(self, t: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+        """[size along axes, *t.shape]: every member's ``t``, in the order
+        of their flat index along ``axes``."""
+        t0 = self._timed(t)
+        buf = self._buffer(t)
+        parts = [torch.empty_like(buf) for _ in range(
+            math.prod(self.axis_size(a) for a in axes))]
+        dist.all_gather(parts, buf, group=self.group(axes))
+        # the group's ranks are sorted, which is the flat order along axes
+        out = self._back(torch.stack(parts), t)
+        self._done(t0, t.device)
+        return out
+
+    def pall(self, reduction: str, t: torch.Tensor,
+             axes: Sequence[str]) -> torch.Tensor:
+        """The semiring add of ``t`` over ``axes`` (``Semiring.reduction``:
+        "min", "max", "sum", or "or" for packed words)."""
+        if reduction == "or":
+            return packing.por(t, self, axes)
+        return self.all_reduce(t, reduction, axes)
+
+    def exchange(self, t: torch.Tensor, peer: int) -> torch.Tensor:
+        """Send ``t`` to rank ``peer`` and receive its tensor of the same
+        shape and type (a paired ``batch_isend_irecv``); the rank itself
+        keeps ``t``."""
+        if peer == self.rank:
+            return t.clone()
+        t0 = self._timed(t)
+        wire = t.contiguous()
+        if wire.dtype == torch.int16:
+            # neither backend sends int16: the same two bytes as bfloat16
+            wire = wire.view(torch.bfloat16)
+        buf = self._buffer(wire)
+        got = (self._pinned_buffer("recv", wire) if self._host(wire)
+               else torch.empty_like(buf))
+        for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, buf, peer),
+                                           dist.P2POp(dist.irecv, got, peer)]):
+            req.wait()
+        out = self._back(got, wire).view(t.dtype)
+        self._done(t0, t.device)
+        return out
+
+
+# ------------------------------------------------------------------ launcher
+
+
+def _rank_main(rank: int, world: int, tmp: str, backend: str, device: str,
+               shape, axis_names, fn, args, timeout_s: float) -> None:
+    """One rank: join the world, run ``fn(grid, *args)``, write its result
+    (or the traceback) under ``tmp``, leave the world. A rank runs its
+    PyTorch host work on one thread: the ranks of a world share the host's
+    cores."""
+    try:
+        torch.set_num_threads(1)
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(f"rank {rank}: no CUDA device")
+            # ranks share the cards in turn: one card -> all on card 0
+            dev = torch.device("cuda", rank % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+        dist.init_process_group(
+            backend, store=dist.FileStore(os.path.join(tmp, "store"), world),
+            rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=timeout_s))
+        try:
+            out = fn(Grid(shape, axis_names, dev), *args)
+            part = os.path.join(tmp, f"result-{rank}.part")
+            with open(part, "wb") as f:
+                pickle.dump(out, f)
+            os.replace(part, os.path.join(tmp, f"result-{rank}.pkl"))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(tmp, f"error-{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def launch(fn: Callable, shape: Sequence[int], axis_names: Sequence[str],
+           args: tuple = (), *, backend: str = "gloo", device=None,
+           timeout: float = 600.0) -> list:
+    """Run ``fn(grid, *args)`` on every rank of a fresh world of
+    ``prod(shape)`` processes and return the results, by rank.
+
+    ``device``: where the ranks' tensors live; None means the card, and
+    raises at once when there is none. On one card the ranks share it, so
+    ``backend`` must then be "gloo" for more than one rank (NCCL refuses
+    two ranks on a device). ``fn`` and ``args`` are pickled; a result must
+    be picklable without a card (numpy arrays, numbers). Raises
+    ``TimeoutError`` when a rank outlives ``timeout`` seconds and
+    ``RuntimeError`` when one fails; either way every rank is stopped.
+    """
+    dev = resolve_device(device)
+    world = math.prod(int(s) for s in shape)
+    if backend == "nccl" and dev.type == "cuda" \
+            and world > torch.cuda.device_count():
+        raise ValueError(f"NCCL takes one rank a card: {world} ranks, "
+                         f"{torch.cuda.device_count()} cards")
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="repro_torch_world_") as tmp:
+        procs = [ctx.Process(target=_rank_main,
+                             args=(r, world, tmp, backend, str(dev),
+                                   tuple(shape), tuple(axis_names), fn, args,
+                                   timeout))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        try:
+            _join(procs, tmp, time.monotonic() + timeout)
+            results = []
+            for r in range(world):
+                with open(os.path.join(tmp, f"result-{r}.pkl"), "rb") as f:
+                    results.append(pickle.load(f))
+            return results
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join(10)
+
+
+def _join(procs, tmp: str, deadline: float) -> None:
+    """Wait for every rank until ``deadline``; raise at the first failure
+    or at the deadline."""
+    live = list(procs)
+    while live:
+        left = deadline - time.monotonic()
+        if left <= 0:
+            ranks = [procs.index(p) for p in live]
+            raise TimeoutError(f"ranks {ranks} still running at the deadline")
+        for sentinel in wait([p.sentinel for p in live], timeout=left):
+            p = next(q for q in live if q.sentinel == sentinel)
+            p.join()
+            live.remove(p)
+            if p.exitcode != 0:
+                rank = procs.index(p)
+                err = os.path.join(tmp, f"error-{rank}.txt")
+                text = ""
+                if os.path.exists(err):
+                    with open(err) as f:
+                        text = f.read()
+                raise RuntimeError(f"rank {rank} exited with code "
+                                   f"{p.exitcode}:\n{text}")

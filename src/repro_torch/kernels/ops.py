@@ -45,6 +45,11 @@ not the semiring add of the pieces. Each list is built at a layout's
 first launch of its kernels and kept on the layout (``tiled.spmm_work``,
 ``tiled.spmv_work``).
 
+A shard of the distributed partition (``engine.ShardTiled``) is a layout
+too: its operand has ``tiled.n_x`` rows (its column range, localized
+column ids), its result n rows in vertex space, and the wrappers start
+the rows its chunks do not hold at the semiring zero (``_out``).
+
 The kernels take the SlimWork mask as the bool ``tile_mask`` itself and
 write straight into vertex space through ``row_vertex``, so neither the
 TPU wrapper's tile-id compaction nor its chunk-row scatter epilogue is
@@ -159,8 +164,8 @@ def launch_counts() -> dict:
 def _check(sr: Semiring, tiled, x: torch.Tensor, ndim: int,
            tile_mask: Optional[torch.Tensor], rows: Optional[int] = None) -> None:
     """Shape, type and device of a sweep operand with ``rows`` rows
-    (default n) and the mask."""
-    rows = tiled.n if rows is None else rows
+    (default ``tiled.n_x``: n, or a shard's column range) and the mask."""
+    rows = tiled.n_x if rows is None else rows
     if x.ndim != ndim or x.shape[0] != rows:
         shape = f"[{rows}]" if ndim == 1 else f"[{rows}, B]"
         raise ValueError(f"expected a frontier of shape {shape}, "
@@ -219,14 +224,29 @@ def _check_deg(sr: Semiring, tiled, x: torch.Tensor, deg: torch.Tensor,
         raise ValueError("deg must be contiguous")
 
 
-def _check_rows(x: torch.Tensor, row_mask: torch.Tensor) -> None:
-    if (row_mask.dtype != torch.bool or row_mask.shape != x.shape
+def _check_rows(tiled, x: torch.Tensor, row_mask: torch.Tensor) -> None:
+    """The not-final bits: bool in vertex space, [n] or [n, B] (a shard's
+    operand has fewer rows, its output n)."""
+    shape = (tiled.n,) + tuple(x.shape[1:])
+    if (row_mask.dtype != torch.bool or tuple(row_mask.shape) != shape
             or row_mask.device != x.device):
-        raise ValueError(f"row_mask must be bool{tuple(x.shape)} on {x.device}, "
+        raise ValueError(f"row_mask must be bool{shape} on {x.device}, "
                          f"got {row_mask.dtype}{tuple(row_mask.shape)} on "
                          f"{row_mask.device}")
     if x.device.type == "cuda" and not row_mask.is_contiguous():
         raise ValueError("row_mask must be contiguous")
+
+
+def _out(sr: Semiring, tiled, x: torch.Tensor) -> torch.Tensor:
+    """A sweep's output in vertex space, [n] or [n, B]. The kernels write
+    every row of the layout's chunks; where the chunks do not hold every
+    vertex (a shard of the distributed partition holds its row range) the
+    other rows start at the semiring zero, which the all-reduce then
+    combines."""
+    shape = (tiled.n,) + tuple(x.shape[1:])
+    if tiled.owns_all_rows:
+        return x.new_empty(shape)
+    return x.new_full(shape, sr.zero)
 
 
 def _cuda_operands(tiled, x: torch.Tensor, tile_mask: Optional[torch.Tensor]):
@@ -389,7 +409,7 @@ def spmv(sr: Semiring, tiled, x: torch.Tensor, *,
         return spmv_plain(sr, tiled, x, tile_mask, weights)
     cols, _, row_vertex, _, mask = _cuda_operands(tiled, x, tile_mask)
     items, classes, folds, slots = _spmv_work_on_device(tiled)
-    y = torch.empty_like(x)
+    y = _out(sr, tiled, x)
     partial = x.new_empty(slots * tiled.C) if folds.shape[0] else None
     work = (row_vertex, mask, items.data_ptr(), classes, folds.data_ptr(),
             folds.shape[0], 0 if partial is None else partial.data_ptr(),
@@ -430,7 +450,7 @@ def spmm(sr: Semiring, tiled, X: torch.Tensor, *,
     cols, tile_ptr, row_vertex, cl, mask = _cuda_operands(tiled, X, tile_mask)
     pieces, folds, slots = _spmm_work_on_device(tiled)
     B = X.shape[1]
-    Y = torch.empty_like(X)
+    Y = _out(sr, tiled, X)
     partial = X.new_empty(slots * tiled.C * B) if folds.shape[0] else None
     work = (pieces.data_ptr(), pieces.shape[0], folds.data_ptr(),
             folds.shape[0], 0 if partial is None else partial.data_ptr(),
@@ -456,12 +476,12 @@ def pull(sr: Semiring, tiled, x: torch.Tensor, row_mask: torch.Tensor, *,
     space, first-hit semantics (``core.spmv``)."""
     _check(sr, tiled, x, 1, tile_mask)
     _implicit(sr)
-    _check_rows(x, row_mask)
+    _check_rows(tiled, x, row_mask)
     if x.device.type == "cpu":
         return pull_plain(sr, tiled, x, row_mask, tile_mask)
     cols, _, row_vertex, _, mask = _cuda_operands(tiled, x, tile_mask)
     items, classes, folds, slots = _spmv_work_on_device(tiled)
-    y = torch.empty_like(x)
+    y = _out(sr, tiled, x)
     partial = x.new_empty(slots * tiled.C) if folds.shape[0] else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -479,13 +499,13 @@ def pull_mm(sr: Semiring, tiled, X: torch.Tensor, row_mask: torch.Tensor, *,
     Y [n, B] in vertex space, the early exit per (row, column)."""
     _check(sr, tiled, X, 2, tile_mask)
     _implicit(sr)
-    _check_rows(X, row_mask)
+    _check_rows(tiled, X, row_mask)
     if X.device.type == "cpu":
         return pull_mm_plain(sr, tiled, X, row_mask, tile_mask)
     cols, _, row_vertex, _, mask = _cuda_operands(tiled, X, tile_mask)
     items, _, folds, slots = _spmv_work_on_device(tiled)
     B = X.shape[1]
-    Y = torch.empty_like(X)
+    Y = _out(sr, tiled, X)
     partial = X.new_empty(slots * tiled.C * B) if folds.shape[0] else None
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
@@ -526,7 +546,7 @@ def spmm_packed(tiled, X_words: torch.Tensor, *,
     cols, _, row_vertex, _, mask = _cuda_operands(tiled, X_words, tile_mask)
     items, classes, folds, slots = _spmv_work_on_device(tiled)
     Wb = X_words.shape[1]
-    Y = torch.empty_like(X_words)
+    Y = _out(BOOLEAN_PACKED, tiled, X_words)
     partial = X_words.new_empty(slots * tiled.C * Wb) if folds.shape[0] \
         else None
     with torch.cuda.device(X_words.device):

@@ -49,7 +49,9 @@ def test_port_imports_no_jax_and_no_jax_package():
             "src/repro_torch/serving/dispatch.py",
             "src/repro_torch/serving/metrics.py",
             "src/repro_torch/serving/session.py",
-            "src/repro_torch/serving/router.py"} <= names
+            "src/repro_torch/serving/router.py",
+            "src/repro_torch/core/dist_bfs.py",
+            "src/repro_torch/distributed.py"} <= names
     bad = {str(p.relative_to(REPO)): sorted(set(_imported_roots(p)) & {"jax", "repro"})
            for p in PORT_FILES}
     assert not {k: v for k, v in bad.items() if v}
@@ -245,3 +247,31 @@ def test_session_router_and_harnesses_without_card_raise(no_card,
         graph500.run_graph500_sssp(scale=6, csr=with_random_weights(csr))
     assert repro_torch.Router is Router
     assert repro_torch.EngineConfig().signature() == ("push", "fused")
+
+
+def test_dist_factories_and_launcher_without_card_raise(monkeypatch):
+    """The distributed factories and the launcher resolve their device
+    first: without a card and without ``device="cpu"`` they raise before
+    they read the grid, build a spec or start a rank."""
+    from repro_torch import distributed
+    from repro_torch.core import dist_bfs
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(distributed.mp, "get_context",
+                        lambda *a, **k: pytest.fail("started a rank"))
+    meta = {"n": 8, "C": 4, "L": 8, "R": 2, "Co": 2, "n_col": 4,
+            "chunks_per_shard": 1, "t_max": 1}
+    grid = None   # never read: the device is resolved first
+    for factory in (dist_bfs.make_dist_bfs, dist_bfs.make_dist_multi_bfs,
+                    dist_bfs.make_dist_sssp, dist_bfs.make_dist_multi_sssp,
+                    dist_bfs.make_dist_cc, dist_bfs.make_dist_pagerank,
+                    dist_bfs.make_dist_brandes, dist_bfs.make_dist_bfs_sliced):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            factory(grid, meta)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dist_bfs.make_dist_khop(grid, meta, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dist_bfs.make_dist_multi_bfs(grid, meta, "boolean", packed=True,
+                                     batch_width=3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distributed.launch(dist_bfs.run_cases, (2, 2), ("data", "model"),
+                           ([],))

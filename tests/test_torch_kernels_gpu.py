@@ -1040,3 +1040,102 @@ def test_session_flush_thread_card_equals_front_doors(cuda):
         else:
             want = khop(tiled, r, 2, packed=True, device=dev)
         np.testing.assert_array_equal(got.distances, want.distances)
+
+
+# The distributed strategy's shard views: every kernel on its path (1, 1w,
+# 2, 2w, 3, 4, 6) over each block of a 2 x 2 partition equals its plain
+# version on the same shard (localized operand of n_col rows, vertex-space
+# result of n rows, the rows of other shards left at the semiring zero);
+# then a 2 x 2 gloo world of processes sharing the card against the
+# single-device port on the card
+@pytest.mark.parametrize("name", SEMIRINGS)
+def test_dist_shard_kernels_equal_plain(cuda, name):
+    from repro_torch.core.dist_bfs import partition_slimsell, shard
+    dev, _ = cuda
+    sr = psr.get(name)
+    csr = with_random_weights(kronecker(11, 16, seed=3), seed=4)
+    part = partition_slimsell(csr, 2, 2, C=8, L=128, device=dev)
+    rng = np.random.default_rng(29)
+    for i in range(2):
+        for j in range(2):
+            t = shard(part, i, j).to_torch(dev)
+            for mask_kind in MASKS:
+                mask = _mask(mask_kind, t, rng, dev)
+                for width in (None, 5, 64):
+                    shape = (t.n_x,) if width is None else (t.n_x, width)
+                    x = _operand(sr, shape, rng, dev)
+                    nf = torch.from_numpy(rng.random(
+                        (t.n,) + shape[1:]) < 0.5).to(dev)
+                    if width is None:
+                        got = ops.spmv(sr, t, x, tile_mask=mask)
+                        want = spmv_plain(sr, t, x, mask)
+                        pulled = ops.pull(sr, t, x, nf, tile_mask=mask)
+                        pull_want = pull_plain(sr, t, x, nf, mask)
+                    else:
+                        got = ops.spmm(sr, t, x, tile_mask=mask)
+                        want = spmm_plain(sr, t, x, mask)
+                        pulled = ops.pull_mm(sr, t, x, nf, tile_mask=mask)
+                        pull_want = pull_mm_plain(sr, t, x, nf, mask)
+                    assert got.shape == (t.n,) + shape[1:]
+                    assert torch.equal(got, want), (i, j, mask_kind, width)
+                    assert torch.equal(pulled, pull_want), (i, j, mask_kind,
+                                                            width)
+                    if name != "tropical":
+                        continue
+                    xw = torch.where(torch.isinf(x), x, x / 3.0)
+                    got = (ops.spmv if width is None else ops.spmm)(
+                        psr.MINPLUS, t, xw, tile_mask=mask, weights=t.wts)
+                    want = (spmv_plain if width is None else spmm_plain)(
+                        psr.MINPLUS, t, xw, mask, t.wts)
+                    assert torch.equal(got, want), (i, j, mask_kind, width)
+                    words = torch.from_numpy(rng.integers(
+                        -2 ** 31, 2 ** 31, (t.n_x, 2)).astype(np.int32)).to(dev)
+                    assert torch.equal(
+                        ops.spmm_packed(t, words, tile_mask=mask),
+                        spmm_packed_plain(t, words, mask))
+
+
+def test_dist_world_on_card_equals_single_device(cuda, tmp_path):
+    from repro_torch.core.bfs import bfs
+    from repro_torch.core.dist_bfs import (partition_slimsell, run_cases,
+                                           save_partition)
+    from repro_torch.core.multi_bfs import multi_source_bfs
+    from repro_torch.core.multi_sssp import multi_source_sssp
+    from repro_torch.core.options import EngineConfig
+    from repro_torch.distributed import launch
+    dev, _ = cuda
+    csr = with_random_weights(kronecker(10, 16, seed=3), seed=4)
+    save_partition(partition_slimsell(csr, 2, 2, C=8, L=128, device=dev),
+                   str(tmp_path))
+    tiled = build_slimsell(csr, C=8, L=128).to_torch(dev)
+    root = int(np.argmax(csr.deg))
+    roots = [int(r) for r in np.random.default_rng(3).choice(
+        np.nonzero(csr.deg)[0], 40, replace=False)]
+    cases = [dict(factory="bfs", partition=str(tmp_path), args=[root],
+                  kwargs=dict(direction=d, comm=c))
+             for d in ("push", "pull", "auto")
+             for c in ("allreduce", "reduce_gather")]
+    cases += [dict(factory="multi_bfs", partition=str(tmp_path), args=[roots],
+                   kwargs=dict(direction="auto", slimwork=True)),
+              dict(factory="multi_bfs", partition=str(tmp_path), args=[roots],
+                   kwargs=dict(sr_name="boolean", packed=True,
+                               batch_width=len(roots))),
+              dict(factory="multi_sssp", partition=str(tmp_path),
+                   args=[roots, 0.5], kwargs={})]
+    ranks = launch(run_cases, (2, 2), ("data", "model"), (cases,),
+                   backend="gloo", device=dev, timeout=300)
+    out = [o["result"] for o in ranks[0]]
+    for d in range(6):
+        want = bfs(tiled, root, device=dev,
+                   config=EngineConfig(direction=("push", "pull",
+                                                  "auto")[d // 2]))
+        np.testing.assert_array_equal(out[d][0], want.distances)
+        assert int(out[d][1]) == want.iterations
+    want = multi_source_bfs(tiled, roots, device=dev)
+    np.testing.assert_array_equal(out[6][0], want.distances)
+    np.testing.assert_array_equal(out[7][0], want.distances)
+    ms = multi_source_sssp(tiled, roots, delta=0.5, device=dev)
+    np.testing.assert_array_equal(out[8][0], ms.distances)
+    np.testing.assert_array_equal(out[8][2], ms.sweeps)
+    for rank in ranks:
+        assert all(o["launches"] for o in rank)   # the kernels ran
