@@ -8,7 +8,7 @@ exit and no result line):
 
 1. the card's name and power limit;
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (ten
-   entry points in seven sources);
+   entry points in seven sources, and the semiring probe);
 3. every kernel against its plain PyTorch version on the card, exactly
    (all values are integers or +-inf), on a scale-14 Kronecker graph:
    4 semirings x {SpMV, SpMM B=1/5/64} x 4 tile masks (none given, all
@@ -245,6 +245,27 @@ exit and no result line):
    BFS in float32, bfloat16 and int16, each equal to the single-device
    port on the card, then the same cases (BFS in tropical only) in a 1 x 1
    world on NCCL, the route of a run with one rank a card;
+17. (run after phase 16 and before 11) the analysis layer and the
+   sanitizer (``repro_torch.analysis``, ``core.debug``): (a) the entry
+   ``semiring_probe`` evaluates the CUDA semiring table on the card,
+   exactly equal to the port's table for every code it defines, the laws
+   held on its own tables (associativity and distributivity through
+   second launches over the first one's results), an unknown code
+   refused, and the source's enum, structs and dispatch cases held to the
+   port's table; (b) the kernel contracts on the work lists the kernels
+   read: the scale-20 layout's ``spmm_work`` and ``spmv_work`` and those of
+   blocks (0, 0) and (1, 1) of phase 16's partition, timed; (c) at scale
+   20, BFS push, auto and hostloop auto, packed BFS, multi-BFS over the 64
+   phase-5 roots lane, pull and packed, SSSP, multi-SSSP, CC and PageRank,
+   each sanitized and unsanitized, bit-equal (PageRank within ``PR_*``)
+   and timed beside each other, and one ``check_layout`` timed; the GCN
+   and bag kernels sanitized at scale 14; corrupt copies of the scale-14
+   layout (a column n + 7, a NaN weight, a ``tile_ptr`` entry past T)
+   refused with ``SanitizerError`` under fused and hostloop, with the
+   launch counts unchanged; (d) a 2 x 2 gloo world on kronecker(10, 8),
+   each case unsanitized and sanitized, equal on every rank, and a block
+   with a column >= n_x failing its sanitized launch with the rank's
+   message;
 11. DLRM inference at the dlrm-mlperf widths through the embedding-bag
    kernel (7), after freeing what phases 4-10 hold: (a) the kernel against
    its plain version, bit-equal (sum and mean; the JAX package's (V, d, B,
@@ -284,7 +305,9 @@ kernels 3 and 5 over the card's streams of phase 14a, kernels 1, 2, 2w and
 6 over the two passes of 14b; kernels 3 and 5 over phase 15a, kernels 1,
 2, 2w and 6 over the four passes of 15b; kernels 1, 1w, 2, 2w, 3 and 6
 over phase 16b's calls and those and 4 over 16c's, summed over the ranks
-(each rank's counted from zero a call); kernel 4 over phase 5's pull
+(each rank's counted from zero a call); kernels 1, 1w, 2, 2w, 3, 4, 5 and
+6 over phase 17c's sanitized runs, 1, 1w and 2 over 17d's, and the probe
+over 17a; kernel 4 over phase 5's pull
 harness batch and kernel 2w over phase 8b's per-root harness; the
 embedding bag over phase 11b, exactly once a forward.
 The last lines are the kernel table, the card, and ``{"ok": true,
@@ -317,8 +340,8 @@ SEMIRINGS = ("tropical", "real", "boolean", "selmax")
 SCALE, EDGE_FACTOR, SMALL_SCALE = 20, 16, 14
 # the whole run must end within 1200 s; phase 8b validates 64 SSSP trees
 # only if that still ends by this mark, else the first 16; phase 9c the
-# same by its own mark; both leave phases 10, 12, 13, 14, 15, 16 and 11
-# their reserves
+# same by its own mark; both leave phases 10, 12, 13, 14, 15, 16, 17 and
+# 11 their reserves
 GCN_RESERVE_S = 60.0
 DLRM_RESERVE_S = 90.0
 GRAPH_RESERVE_S = 90.0
@@ -326,12 +349,13 @@ BC_RESERVE_S = 120.0
 SERVE_RESERVE_S = 60.0
 SESSION_RESERVE_S = 60.0
 DIST_RESERVE_S = 120.0
+ANALYSIS_RESERVE_S = 60.0
 VALIDATE_ALL_BY_S = 900.0 - GCN_RESERVE_S - DLRM_RESERVE_S \
     - GRAPH_RESERVE_S - BC_RESERVE_S - SERVE_RESERVE_S - SESSION_RESERVE_S \
-    - DIST_RESERVE_S
+    - DIST_RESERVE_S - ANALYSIS_RESERVE_S
 VALIDATE_BATCH_BY_S = 1000.0 - GCN_RESERVE_S - DLRM_RESERVE_S \
     - GRAPH_RESERVE_S - BC_RESERVE_S - SERVE_RESERVE_S - SESSION_RESERVE_S \
-    - DIST_RESERVE_S
+    - DIST_RESERVE_S - ANALYSIS_RESERVE_S
 # PageRank with the kernels against the same call with the plain sweeps
 # (phase 12): kernel 1 adds a row in another order than the plain version,
 # so the ranks are held to bounds fixed before the first card run
@@ -377,6 +401,11 @@ KERNEL_INFO = {
         "src/repro/kernels/slimsell_packed.py:134"),
     "embedding_bag_grouped": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
                               "src/repro/kernels/embedding_bag.py:23"),
+    # not a ported TPU kernel: the analysis layer's probe of the CUDA
+    # semiring table, the counterpart of the JAX package's check of its
+    # kernel-side table
+    "semiring_probe": ("src/repro_torch/kernels/csrc/semiring_probe.cu",
+                       "src/repro/kernels/slimsell_spmv.py:33"),
 }
 LANE_KERNELS = ("slimsell_spmv", "slimsell_spmm", "slimsell_pull",
                 "slimsell_pull_mm")
@@ -2260,7 +2289,8 @@ def dist_phase(*, dev, card, csr, tiled, root, roots, lane_boolean, push,
     single-device results of the earlier phases; (c) in the same world,
     every factory on kronecker(10, 8) under both comm modes and every
     direction it takes, then a 1 x 1 world on NCCL. Returns the launches of
-    (b) and (c), summed over the ranks."""
+    (b) and (c), summed over the ranks, and the two blocks of (a) with the
+    work lists their kernels read."""
     import tempfile
     from repro_torch.core import direction as dm
     from repro_torch.core import engine, packing, semiring
@@ -2322,8 +2352,9 @@ def dist_phase(*, dev, card, csr, tiled, root, roots, lane_boolean, push,
     wB = torch.where(frontB, sdB, inf)
     words = packing.pack_bits(frontB, axis=1)
     n_cases = 0
+    shards = {}   # kept, with their work lists, for phase 17's contracts
     for i, j in ((0, 0), (1, 1)):
-        local = shard(part, i, j).to_torch(dev)
+        local = shards[i, j] = shard(part, i, j).to_torch(dev)
         lo = j * local.n_x
 
         def cut(x, fill):
@@ -2556,7 +2587,361 @@ def dist_phase(*, dev, card, csr, tiled, root, roots, lane_boolean, push,
             r["phase16b_launches"] = launches_b[r["name"]]
         if launches_c.get(r["name"]):
             r["phase16c_launches"] = launches_c[r["name"]]
-    return {"16b": launches_b, "16c": launches_c}
+    return {"16b": launches_b, "16c": launches_c, "shards": shards}
+
+
+# ---------------------------------------------------------------- phase 17
+
+# the kernels phase 17c's sanitized runs at scale 20 must launch (the 2g and
+# bag kernels run sanitized at scale 14 beside them)
+ANALYSIS_17C_KERNELS = ("slimsell_spmv", "slimsell_spmv_wts", "slimsell_spmm",
+                        "slimsell_spmm_wts", "slimsell_pull",
+                        "slimsell_pull_mm", "slimsell_spmv_packed",
+                        "slimsell_spmm_packed")
+ANALYSIS_17D_KERNELS = ("slimsell_spmv", "slimsell_spmv_wts",
+                        "slimsell_spmm")
+
+
+def corrupt_copy(tiled, kind: str):
+    """A copy of a device layout with one corrupt field (the layout itself
+    untouched) and the message the sanitizer must raise for it."""
+    live = int(torch.nonzero(tiled.cols.reshape(-1) >= 0)[0])
+    if kind == "column n + 7":
+        cols = tiled.cols.clone()
+        cols.view(-1)[live] = tiled.n + 7
+        return dataclasses.replace(tiled, cols=cols), "out-of-bounds vertex ids"
+    if kind == "NaN weight":
+        wts = tiled.wts.clone()
+        wts.view(-1)[live] = float("nan")
+        return dataclasses.replace(tiled, wts=wts), "NaN/inf/negative"
+    tp = tiled.tile_ptr.clone()           # "tile_ptr past T"
+    tp[tiled.n_chunks // 2] = tiled.n_tiles + 5
+    return dataclasses.replace(tiled, tile_ptr=tp), "tile_ptr is not"
+
+
+def analysis_phase(*, dev, card, tiled, root, roots, lane_boolean, push,
+                   sssp_root, msssp, workloads, shards, small, errs, table):
+    """Phase 17: the analysis layer and the sanitizer on the card. (a) the
+    semiring probe against the port's table and the laws on the probe's
+    tables, an unknown code refused; (b) the contracts on the work lists the
+    kernels read (the scale-20 layout's, its 2 x 2 blocks'); (c) sanitized
+    runs at scale 20 against unsanitized ones, bit-equal and timed beside
+    each other, the GCN and bag kernels sanitized at scale 14, and corrupt
+    copies of the scale-14 layout refused before any launch; (d) a 2 x 2
+    gloo world sanitized against unsanitized, and a corrupt shard failing
+    its launch. Returns the launches of (c)'s sanitized scale-20 runs."""
+    import tempfile
+    from repro_torch.analysis import contracts, laws
+    from repro_torch.core import debug, semiring
+    from repro_torch.core.bfs import bfs
+    from repro_torch.core.cc import cc
+    from repro_torch.core.dist_bfs import (partition_slimsell, run_cases,
+                                           save_partition)
+    from repro_torch.core.multi_bfs import multi_source_bfs
+    from repro_torch.core.multi_sssp import multi_source_sssp
+    from repro_torch.core.options import EngineConfig
+    from repro_torch.core.pagerank import pagerank
+    from repro_torch.core.sssp import sssp
+    from repro_torch.distributed import launch
+    from repro_torch.graphs.generators import kronecker, with_random_weights
+    from repro_torch.kernels import ops
+    from repro_torch.profile_spmm import time_ms
+
+    # (a) the CUDA table on the card against the port's, and its laws
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    failures = laws.cross_check_kernel_tables() + laws.cross_check_probe(dev)
+    torch.cuda.synchronize()
+    probe_launches = ops.launch_counts()["semiring_probe"]
+    if failures:
+        raise AssertionError(f"[17a] the kernel table: {failures}")
+    if not probe_launches:
+        raise AssertionError("[17a] semiring_probe never ran")
+    try:
+        laws.probe(11, torch.zeros(2, device=dev))
+        raise AssertionError("[17a] the probe took unknown code 11")
+    except RuntimeError as e:
+        refused = str(e)
+    x = laws.value_domain(semiring.TROPICAL).to(dev)
+    got = laws.probe(semiring.TROPICAL.code, x)
+    want = laws.table_on(semiring.TROPICAL, x)
+    errs["semiring_probe"] = max(float(torch.where(
+        laws.same(got[k], want[k]), 0.0,
+        (got[k].double() - want[k].double()).abs()).max()) for k in want)
+    ms = time_ms(lambda: laws.probe(semiring.TROPICAL.code, x), 50)
+    plain_ms = time_ms(lambda: laws.table_on(semiring.TROPICAL, x), 50)
+    n = x.numel()
+    moved = 4 * (n + 1 + n + n * n)           # values in; zero, edge, add out
+    ops_needed = n * n + n
+    bound_ms = 1e3 * max(moved / HBM_BYTES_PER_S, ops_needed / F32_OPS_PER_S)
+    source, replaces = KERNEL_INFO["semiring_probe"]
+    table.append({
+        "name": "semiring_probe", "route": "cuda", "source": source,
+        "replaces": replaces, "launches": probe_launches,
+        "max_abs_err": errs["semiring_probe"], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": "bytes" if moved / HBM_BYTES_PER_S
+        >= ops_needed / F32_OPS_PER_S else "operations", "library_ms": None,
+        "semiring": "tropical", "bytes": moved,
+        "note": "the analysis layer's probe of the CUDA semiring table, not "
+                "a ported TPU kernel: it replaces the JAX package's "
+                "behavioural check of semiring_ops"})
+    log(f"[17a] semiring_probe: the CUDA table (semiring.cuh) == the port's "
+        f"table exactly for codes 0, 1, 2, 3, 5 on their domains; the laws "
+        f"hold on the probe's tables (associativity and distributivity "
+        f"through second launches over the first one's results); the "
+        f"source's enum, structs and dispatch cases == the port's; unknown "
+        f"code refused ({refused.split(':', 1)[1].strip()}); "
+        f"{probe_launches} launches; one launch {ms:.4f} ms, the port's "
+        f"table {plain_ms:.4f} ms on {card}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (b) the contracts on the work lists the kernels read
+    t0 = time.perf_counter()
+    failures = contracts.check_layout_work(f"scale {SCALE}", tiled)
+    sizes = {"layout": (int(tiled.spmm_work[2][0].shape[0]),
+                        int(tiled.spmv_work[2][0].shape[0]))}
+    for (i, j), local in shards.items():
+        failures += contracts.check_layout_work(f"block ({i}, {j})", local)
+        sizes[f"block ({i}, {j})"] = (int(local.spmm_work[2][0].shape[0]),
+                                      int(local.spmv_work[2][0].shape[0]))
+    contract_s = time.perf_counter() - t0
+    if failures:
+        raise AssertionError(f"[17b] contract violations: {failures[:10]}")
+    log(f"[17b] contracts hold on the work lists the kernels read (bounds, "
+        f"coverage below cl, one writer a row and a partial slot, folds in "
+        f"piece order): the scale-{SCALE} layout's spmm_work and spmv_work "
+        f"({tiled.n_chunks} chunks) and blocks (0, 0) and (1, 1) of its "
+        f"2 x 2 partition (padding tiles past cl); (pieces, items) "
+        f"{sizes}; {contract_s:.2f} s on the host")
+
+    # (c) sanitized against unsanitized at scale 20
+    E = EngineConfig
+    runs = {
+        "bfs push": (lambda c: bfs(tiled, root, config=c, device=dev),
+                     ("distances", "iterations"), E()),
+        "bfs auto": (lambda c: bfs(tiled, root, config=c, device=dev),
+                     ("distances", "iterations"), E(direction="auto")),
+        "bfs hostloop auto": (
+            lambda c: bfs(tiled, root, config=c, device=dev),
+            ("distances", "iterations", "work_log"),
+            E(direction="auto", mode="hostloop")),
+        "packed bfs": (
+            lambda c: bfs(tiled, root, "boolean", packed=True, config=c,
+                          device=dev), ("distances", "iterations"), E()),
+        "multi_bfs lane": (
+            lambda c: multi_source_bfs(tiled, roots, config=c, device=dev),
+            ("distances", "iterations"), E()),
+        "multi_bfs pull": (
+            lambda c: multi_source_bfs(tiled, roots, config=c, device=dev),
+            ("distances", "iterations"), E(direction="pull")),
+        "multi_bfs packed": (
+            lambda c: multi_source_bfs(tiled, roots, "boolean", packed=True,
+                                       config=c, device=dev),
+            ("distances", "iterations"), E()),
+        "sssp": (lambda c: sssp(tiled, root, delta=sssp_root.delta, config=c,
+                                device=dev),
+                 ("distances", "sweeps", "buckets"), E()),
+        "multi_sssp": (lambda c: multi_source_sssp(
+            tiled, roots, delta=msssp.delta, config=c, device=dev),
+            ("distances", "sweeps", "buckets"), E()),
+        "cc": (lambda c: cc(tiled, config=c, device=dev),
+               ("labels", "iterations"), E()),
+        "pagerank": (lambda c: pagerank(tiled, config=c, device=dev), None,
+                     E()),
+    }
+    t0 = time.perf_counter()
+    secs = {name: {False: [], True: []} for name in runs}
+
+    def timed(name, fn, cfg, sanitize):
+        with (debug.checked() if sanitize else debug.suspended()):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn(cfg)
+            torch.cuda.synchronize()
+        secs[name][sanitize].append(time.perf_counter() - t1)
+        return out
+
+    # the main path of the phase: every run sanitized, counted from zero
+    ops.reset_launches()
+    sanitized = {name: timed(name, fn, cfg, True)
+                 for name, (fn, _, cfg) in runs.items()}
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    missing = [k for k in ANALYSIS_17C_KERNELS if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"[17c] kernels never ran sanitized: {missing}")
+    plain = {name: timed(name, fn, cfg, False)
+             for name, (fn, _, cfg) in runs.items()}
+    for name, (_, fields, _) in runs.items():
+        if fields is None:
+            pagerank_close(sanitized[name], plain[name], 1e-6,
+                           f"[17c] sanitized pagerank at scale {SCALE}")
+        else:
+            same_fields(sanitized[name], plain[name], fields,
+                        f"[17c] {name} sanitized vs unsanitized")
+    # and the earlier phases' results where the run is theirs
+    for name in ("bfs push", "bfs auto", "bfs hostloop auto", "packed bfs"):
+        same_fields(plain[name], lane_boolean, ("distances", "iterations"),
+                    f"[17c] {name} vs phase 4b")
+    for name in ("multi_bfs lane", "multi_bfs packed", "multi_bfs pull"):
+        same_fields(plain[name], push, ("distances",),
+                    f"[17c] {name} vs phase 5")
+    same_fields(plain["sssp"], sssp_root, ("distances", "sweeps", "buckets"),
+                "[17c] sssp vs phase 8b")
+    same_fields(plain["multi_sssp"], msssp, ("distances", "sweeps",
+                                             "buckets"),
+                "[17c] multi_sssp vs phase 9b")
+    same_fields(plain["cc"], workloads["cc"], ("labels",),
+                "[17c] cc vs phase 12b")
+    # more rounds, each pair in the other order than the one before: one
+    # for a call of 0.1 s or more, four for a shorter one (the host clock's
+    # noise weighs more there)
+    for name, (fn, _, cfg) in runs.items():
+        for r in range(1 if secs[name][False][0] >= 0.1 else 4):
+            for s in ((False, True) if r % 2 == 0 else (True, False)):
+                timed(name, fn, cfg, s)
+        plain_s = float(np.median(secs[name][False]))
+        san_s = float(np.median(secs[name][True]))
+        log(f"[17c] {name}: unsanitized {plain_s * 1e3:.1f} ms, sanitized "
+            f"{san_s * 1e3:.1f} ms ({san_s / plain_s:.3f}x; medians of "
+            f"{len(secs[name][True])} each, in turns) on {card}")
+    with debug.checked():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        debug.check_layout(tiled)
+        torch.cuda.synchronize()
+        layout_ms = (time.perf_counter() - t1) * 1e3
+    log(f"[17c] scale {SCALE}: every sanitized run == its unsanitized twin "
+        f"(bit for bit; pagerank within PR_*), and == phases 5, 8b, 9b, 12b "
+        f"where the run is theirs; one check_layout over {tiled.n_tiles} "
+        f"tiles and wts {layout_ms:.1f} ms; sanitized launches {launches}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # the GCN and bag kernels sanitized at scale 14: the layout checked, the
+    # operands' gathers bounded, the results' finiteness read
+    real = semiring.REAL
+    g17 = torch.Generator(device=dev).manual_seed(17)
+    X = torch.randn(small.n, 16, generator=g17, device=dev)
+    deg = small.deg.float()
+    with debug.checked():
+        debug.check_layout(small)
+        y = ops.spmm(real, small, X, deg=deg)
+        debug.check_sweep(real, y)
+        tab = torch.randn(1000, 64, generator=g17, device=dev)
+        bags = torch.randint(-1, 1000, (512, 4), generator=g17, device=dev,
+                             dtype=torch.int32)
+        debug.check_gather(bags[bags >= 0], tab.shape[0])
+        out = ops.embedding_bag(tab, bags)
+        debug.check_sweep(real, out)
+        bad = bags.clone()
+        bad[0, 0] = tab.shape[0] + 5
+        try:
+            debug.check_gather(bad[bad >= 0], tab.shape[0])
+            raise AssertionError("[17c] a bag id past the table passed")
+        except debug.SanitizerError:
+            pass
+    torch.cuda.synchronize()
+    log(f"[17c] scale {SMALL_SCALE}: slimsell_spmm_gcn and "
+        f"embedding_bag_grouped sanitized (layout, bag ids, finite results); "
+        f"a bag id past the table refused")
+
+    # corrupt copies at scale 14, refused on the card before any launch
+    refusals = []
+    for kind in ("column n + 7", "NaN weight", "tile_ptr past T"):
+        bad_layout, match = corrupt_copy(small, kind)
+        for mode in ("fused", "hostloop"):
+            cfg = E(mode=mode, sanitize=True)
+            torch.cuda.synchronize()
+            before = ops.launch_counts()
+            try:
+                if kind == "NaN weight":
+                    sssp(bad_layout, 0, delta=0.05, config=cfg, device=dev)
+                else:
+                    bfs(bad_layout, 0, config=cfg, device=dev)
+                raise AssertionError(f"[17c] {kind} {mode}: not refused")
+            except debug.SanitizerError as e:
+                if match not in str(e):
+                    raise AssertionError(f"[17c] {kind} {mode}: {e}")
+                said = str(e)
+            torch.cuda.synchronize()
+            if ops.launch_counts() != before:
+                raise AssertionError(f"[17c] {kind} {mode}: a kernel "
+                                     "launched on the corrupt copy")
+            refusals.append(f"{kind} {mode}: {said}")
+        del bad_layout
+    for r in refusals:
+        log(f"[17c] refused before any launch, counts unchanged: {r}")
+
+    # (d) a 2 x 2 gloo world, each case unsanitized then sanitized, and a
+    # corrupt shard under the sanitizer
+    t0 = time.perf_counter()
+    k10 = with_random_weights(kronecker(10, 8, seed=1), low=2 ** -8, high=1.0,
+                              seed=2)
+    k10_root = int(np.argmax(k10.deg))
+    k10_roots = [int(r) for r in np.random.default_rng(17).choice(
+        np.nonzero(k10.deg)[0], 12, replace=False)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_analysis_") as tmp:
+        good, bad_path = os.path.join(tmp, "good"), os.path.join(tmp, "bad")
+        part = partition_slimsell(k10, 2, 2, C=8, L=32, device=dev)
+        save_partition(part, good)
+        block = part.cols[0, 1].reshape(-1)
+        block[np.flatnonzero(block >= 0)[0]] = part.n_col + 3
+        save_partition(part, bad_path)
+        cases = [dict(factory=f, partition=good, args=args, kwargs=kw,
+                      sanitize=s)
+                 for f, args, kw in (
+                     ("bfs", [k10_root], {}),
+                     ("bfs", [k10_root], {"direction": "auto"}),
+                     ("multi_bfs", [k10_roots], {}),
+                     ("sssp", [k10_root, 0.25], {"slimwork": True}),
+                     ("cc", [], {"slimwork": True}))
+                 for s in (False, True)]
+        ranks = launch(run_cases, (2, 2), ("data", "model"), (cases,),
+                       backend="gloo", device=dev, timeout=DIST_TIMEOUT_S)
+        world_s = time.perf_counter() - t0
+        for i in range(0, len(cases), 2):
+            digests = {r[i]["digest"] for r in ranks} \
+                | {r[i + 1]["digest"] for r in ranks}
+            if len(digests) != 1:
+                raise AssertionError(f"[17d] {cases[i]['factory']} "
+                                     f"{cases[i]['kwargs']}: sanitized != "
+                                     "unsanitized or the ranks differ")
+        d_launches = {}
+        for r in ranks:
+            for c in r[1::2]:
+                for k, v in c["launches"].items():
+                    d_launches[k] = d_launches.get(k, 0) + v
+        missing = [k for k in ANALYSIS_17D_KERNELS if not d_launches.get(k)]
+        if missing:
+            raise AssertionError(f"[17d] kernels never ran: {missing}")
+        t1 = time.perf_counter()
+        try:
+            with debug.checked():
+                launch(run_cases, (2, 2), ("data", "model"),
+                       ([dict(factory="bfs", partition=bad_path,
+                              args=[k10_root], kwargs={})],),
+                       backend="gloo", device=dev, timeout=DIST_TIMEOUT_S)
+            raise AssertionError("[17d] the corrupt shard did not fail the "
+                                 "launch")
+        except RuntimeError as e:
+            if "SanitizerError: SlimSell cols contains out-of-bounds" \
+                    not in str(e):
+                raise AssertionError(f"[17d] the launch failed otherwise: "
+                                     f"{str(e)[-400:]}")
+            failed = str(e).splitlines()[0] + " " + str(e).strip() \
+                .splitlines()[-1]
+        bad_s = time.perf_counter() - t1
+    log(f"[17d] kronecker(10, 8) C=8 L=32, a 2 x 2 gloo world on the card: "
+        f"bfs push and auto, multi_bfs over 12 roots, sssp, cc, each "
+        f"sanitized == unsanitized on every rank ({world_s:.1f} s with the "
+        f"start; sanitized launches over the ranks {d_launches}); block "
+        f"(0, 1) with a column >= n_x under debug.checked(): {failed} "
+        f"({bad_s:.1f} s)")
+    for r in table:
+        if launches.get(r["name"]):
+            r["phase17c_launches"] = launches[r["name"]]
+        if d_launches.get(r["name"]):
+            r["phase17d_launches"] = d_launches[r["name"]]
+    return launches
 
 
 def main() -> int:
@@ -4014,16 +4399,31 @@ def main() -> int:
     # ---- 16: the 2D-distributed strategy, ranks as processes sharing the
     # card, at scale 20 before phase 11 frees the layout
     t16 = time.perf_counter()
-    dist_phase(dev=dev, card=card, csr=csr, tiled=tiled, root=root,
-               roots=[int(r) for r in roots], lane_boolean=lane_boolean,
-               push=push, sssp_root=fused, msssp=mf, workloads=workloads,
-               errs=errs, table=table)
-    del workloads
+    dist_out = dist_phase(dev=dev, card=card, csr=csr, tiled=tiled,
+                          root=root, roots=[int(r) for r in roots],
+                          lane_boolean=lane_boolean, push=push,
+                          sssp_root=fused, msssp=mf, workloads=workloads,
+                          errs=errs, table=table)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[16] phase 16 took {time.perf_counter() - t16:.1f} s (reserve "
         f"{DIST_RESERVE_S:.0f} s); the run {time.perf_counter() - t_start:.1f}"
         f" s so far")
+
+    # ---- 17: the analysis layer and the sanitizer, at scale 20 before phase
+    # 11 frees the layout
+    t17 = time.perf_counter()
+    analysis_phase(dev=dev, card=card, tiled=tiled, root=root,
+                   roots=[int(r) for r in roots], lane_boolean=lane_boolean,
+                   push=push, sssp_root=fused, msssp=mf, workloads=workloads,
+                   shards=dist_out["shards"], small=small, errs=errs,
+                   table=table)
+    del workloads, dist_out
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[17] phase 17 took {time.perf_counter() - t17:.1f} s (reserve "
+        f"{ANALYSIS_RESERVE_S:.0f} s); the run "
+        f"{time.perf_counter() - t_start:.1f} s so far")
 
     # ---- 11: DLRM inference (dlrm-mlperf widths) with the embedding bag (7)
     t11 = time.perf_counter()

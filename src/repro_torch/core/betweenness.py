@@ -205,18 +205,19 @@ def betweenness(tiled, sources: Optional[Sequence[int]] = None, *,
     run = eng.run_fused if config.mode == "fused" else eng.run_hostloop
     bc = np.zeros(n, np.float64)
     iters = 0
-    for _, batch, batch_p in _iter_batches(roots, batch_size):
-        fwd = run(BRANDES_FORWARD_SPEC, tiled, torch.from_numpy(batch_p),
-                  slimwork=slimwork, max_iters=cap)
-        d, sigma = fwd.state["d"], fwd.state["sigma"]
-        iters += fwd.iterations
-        del fwd   # f and visited are not needed past the forward run
-        levels0 = d.amax(dim=0)   # each column's eccentricity
-        bwd = run(brandes_backward_spec(d, sigma), tiled, levels0,
-                  slimwork=slimwork, max_iters=cap)
-        bc += brandes_accumulate(bwd.state["delta"], batch_p,
-                                 n_real=batch.size)
-        iters += bwd.iterations
+    with config.applied():
+        for _, batch, batch_p in _iter_batches(roots, batch_size):
+            fwd = run(BRANDES_FORWARD_SPEC, tiled, torch.from_numpy(batch_p),
+                      slimwork=slimwork, max_iters=cap)
+            d, sigma = fwd.state["d"], fwd.state["sigma"]
+            iters += fwd.iterations
+            del fwd   # f and visited are not needed past the forward run
+            levels0 = d.amax(dim=0)   # each column's eccentricity
+            bwd = run(brandes_backward_spec(d, sigma), tiled, levels0,
+                      slimwork=slimwork, max_iters=cap)
+            bc += brandes_accumulate(bwd.state["delta"], batch_p,
+                                     n_real=batch.size)
+            iters += bwd.iterations
     bc /= 2.0   # undirected: each unordered pair counted from both ends
     if normalized:
         bc *= 2.0 / ((n - 1) * (n - 2)) if n > 2 else 0.0

@@ -192,6 +192,7 @@ def packed_bfs_spec(n: int) -> eng.FixpointSpec:
         source_bits=lambda state, k: packing.unpack_bits(state["f"], n),
         update=update,
         host_bits=host_bits,
+        n_bits=n,
     )
 
 
@@ -305,14 +306,15 @@ def bfs(tiled, root: int, semiring: str = "tropical", *,
         raise ValueError(f"root {root} outside [0, {tiled.n})")
     max_iters = int(max_iters) if max_iters is not None else tiled.n
     spec = packed_bfs_spec(tiled.n) if packed else bfs_spec(semiring)
-    if config.mode == "fused":
-        res = eng.run_fused(spec, tiled, root, slimwork=slimwork,
-                            max_iters=max_iters, log_work=log_work,
-                            direction=config.direction)
-    else:
-        res = eng.run_hostloop(spec, tiled, root, slimwork=slimwork,
-                               max_iters=max_iters,
-                               direction=config.direction)
+    with config.applied():
+        if config.mode == "fused":
+            res = eng.run_fused(spec, tiled, root, slimwork=slimwork,
+                                max_iters=max_iters, log_work=log_work,
+                                direction=config.direction)
+        else:
+            res = eng.run_hostloop(spec, tiled, root, slimwork=slimwork,
+                                   max_iters=max_iters,
+                                   direction=config.direction)
     state = res.state
     parents = None
     if need_parents:

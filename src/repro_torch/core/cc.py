@@ -139,12 +139,13 @@ def cc(tiled, *, semiring: str = "selmax", slimwork: bool = True,
                         iterations=iters)
 
     cap = int(max_iters) if max_iters is not None else n + 1
-    if config.mode == "fused":
-        res = eng.run_fused(CC_SPEC, tiled, 0, slimwork=slimwork,
-                            max_iters=cap, log_work=log_work)
-    else:
-        res = eng.run_hostloop(CC_SPEC, tiled, 0, slimwork=slimwork,
-                               max_iters=cap)
+    with config.applied():
+        if config.mode == "fused":
+            res = eng.run_fused(CC_SPEC, tiled, 0, slimwork=slimwork,
+                                max_iters=cap, log_work=log_work)
+        else:
+            res = eng.run_hostloop(CC_SPEC, tiled, 0, slimwork=slimwork,
+                                   max_iters=cap)
     # 0-based ids; the labels are whole numbers up to 2^24, exact in float32
     labels = res.state["x"].cpu().numpy().astype(np.int32) - 1
     return CCResult(labels=labels, n_components=len(np.unique(labels)),

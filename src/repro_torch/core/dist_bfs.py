@@ -43,6 +43,7 @@ with the launches and collective time each took.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -54,6 +55,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from . import debug
 from . import engine as eng
 from .betweenness import BRANDES_FORWARD_SPEC, brandes_backward_spec
 from .bfs import bfs_spec, on_device
@@ -314,7 +316,10 @@ def make_dist_fixpoint(grid, meta, spec, *,
     the loop iterates while the update says so and ``k <= max_iters``
     from k = 1, as the single-device engine. ``slimwork=True`` masks push
     sweeps to the tiles holding a source column (the shard's push index)
-    and pull sweeps to the chunks holding a not-final row.
+    and pull sweeps to the chunks holding a not-final row. Under the
+    sanitizer (``debug.enabled()`` when ``fn`` is called) the shard is
+    checked once a call, its columns against ``n_x`` and its rows against
+    n, and every sweep as it ends (``engine.dist_step``).
     ``device``: None means the card, and raises at once when there is
     none.
     """
@@ -332,6 +337,7 @@ def make_dist_fixpoint(grid, meta, spec, *,
                              f"({grid.index(row_axes)}, "
                              f"{grid.index(col_axes)}), given "
                              f"({local.row}, {local.col})")
+        debug.check_layout(local)
         s = spec if isinstance(spec, eng.FixpointSpec) \
             else spec(local, *ctx_args)
         state = s.init_state(n, arg, dev)
@@ -594,6 +600,9 @@ def make_dist_bfs_sliced(grid, meta, *, row_axis: str = "data",
             frontier_dtype)
         pad = cols < 0
         safe = cols.clamp_min(0).long()
+        # the sanitizer's bounds of the two index operands below
+        debug.check_gather(safe, n_row)
+        debug.check_gather(row_block, cps)
         seg = row_block[:, None].expand(-1, C).contiguous()
         one = torch.ones((), dtype=frontier_dtype, device=dev)
         fill = torch.full((), inf, dtype=frontier_dtype, device=dev)
@@ -668,7 +677,9 @@ def run_cases(grid, cases: Sequence[dict]) -> list:
     every ``pods``-th tile from the pod's index). Shards are loaded once
     a partition and kept on the device. A case's optional ``signal`` is a
     path that rank 0 creates once every rank has ended the case, so that
-    the caller can start other work at that point.
+    the caller can start other work at that point. A case's optional
+    ``sanitize`` (True or False) runs its call with the sanitizer on or
+    off (``core.debug``), whatever the world's state.
     """
     from ..kernels import ops
     dev = grid.device
@@ -702,8 +713,11 @@ def run_cases(grid, cases: Sequence[dict]) -> list:
             torch.cuda.synchronize(dev)
         ops.reset_launches()
         grid.stats.reset()
+        sanitize = case.get("sanitize")
         t0 = time.perf_counter()
-        res = fn(*call_args, *case.get("args", ()))
+        with (contextlib.nullcontext() if sanitize is None else
+              debug.checked() if sanitize else debug.suspended()):
+            res = fn(*call_args, *case.get("args", ()))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0

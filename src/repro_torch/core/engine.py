@@ -26,6 +26,14 @@ through the same fused loop as ``run_fused``.
 strategy (``core.dist_bfs``): a sweep over the rank's ``ShardTiled`` and
 the semiring all-reduce of its partial result over the grid.
 
+Under the sanitizer (``core.debug``) each run checks its layout once
+before its first sweep (a shard of the distributed strategy against its
+``n_x``), and ``_sweep`` checks every sweep's result: the fused loop ORs
+each sweep's flag into a sticky flag on the device that it reads in the
+same copy as its continue flag (or once after its last sweep, when the
+update made that copy itself), the hostloop and the distributed step read
+it as each sweep ends.
+
 ``step`` is one iteration of either. Loop semantics match the JAX
 package's: iterate while ``cont and k <= max_iters`` from ``k = 1``;
 ``iterations = k - 1`` at exit; ``work_log[k-1]`` is the number of active
@@ -46,6 +54,9 @@ Spec callables (B = batch width for ``batched`` specs):
                     next sweep multiplies in, or None for the implicit
                     edge value; read without a copy to the host, so a spec
                     that switches between views keeps its switch there
+  ``n_bits``        a packed spec's live bits on its sweep's word axis (n
+                    for a bitmap, B for a batch's word planes), which the
+                    sanitizer's tail-word check reads
   ================= ======================================================
 
 A spec with ``weights`` sweeps push only: the stored-weight sweep is
@@ -72,6 +83,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from . import debug
 from . import direction as dm
 from . import semiring as sm
 from .options import DIRECTIONS, check_choice
@@ -94,6 +106,7 @@ class FixpointSpec:
     host_bits: Optional[Callable[..., tuple]] = None
     weights: Optional[Callable[..., Optional[torch.Tensor]]] = None
     batched: bool = False
+    n_bits: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -126,12 +139,31 @@ def _pull_tile_mask(tiled, nf_rows: torch.Tensor) -> torch.Tensor:
 def _sweep(spec: FixpointSpec, tiled, x: torch.Tensor,
            tile_mask: Optional[torch.Tensor],
            rows: Optional[torch.Tensor] = None,
-           weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+           weights: Optional[torch.Tensor] = None,
+           sticky: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One sweep: push without ``rows``, pull over the not-final ``rows``
     with them; the matrix form for batched specs, the packed sweeps under
     the "or" semiring (``slimsell_spmm`` routes the batched one), the
-    stored-weight SpMV or SpMM with ``weights``."""
+    stored-weight SpMV or SpMM with ``weights``.
+
+    Under the sanitizer the result is checked (``debug.sweep_flag``): the
+    flag is ORed into ``sticky``, the fused loop's device flag, or read
+    and raised at once without one."""
     sr = sm.get(spec.sr_name)
+    y = _sweep_once(spec, sr, tiled, x, tile_mask, rows, weights)
+    flag = debug.sweep_flag(sr, y, spec.n_bits)
+    if flag is not None:
+        if sticky is None:
+            debug.raise_sweep(sr, flag.item(), spec.n_bits)
+        else:
+            sticky.bitwise_or_(flag)
+    return y
+
+
+def _sweep_once(spec: FixpointSpec, sr, tiled, x: torch.Tensor,
+                tile_mask: Optional[torch.Tensor],
+                rows: Optional[torch.Tensor],
+                weights: Optional[torch.Tensor]) -> torch.Tensor:
     if weights is not None:
         if rows is not None:
             raise ValueError(f"{spec.name}: stored-weight sweeps are "
@@ -156,12 +188,14 @@ def _sweep(spec: FixpointSpec, tiled, x: torch.Tensor,
 def step(spec: FixpointSpec, tiled, state: dict, k: int, *,
          slimwork: bool = True, pull: bool = False,
          sb: Optional[torch.Tensor] = None,
-         nf: Optional[torch.Tensor] = None):
+         nf: Optional[torch.Tensor] = None,
+         sticky: Optional[torch.Tensor] = None):
     """Iteration ``k`` from ``state``: tile mask, sweep, update.
 
     Push masks the tiles holding a source column, pull the chunks holding
     a not-final row (a batch's union over its columns). ``sb`` / ``nf`` are
-    the source and not-final bits when the caller has them already.
+    the source and not-final bits when the caller has them already;
+    ``sticky`` the fused loop's sanitizer flag (``_sweep``).
     Returns ``(state, cont, used)``: the new state, the device bool
     "something changed", and the number of tiles swept (a device int32
     under SlimWork, else all tiles).
@@ -178,7 +212,7 @@ def step(spec: FixpointSpec, tiled, state: dict, k: int, *,
     if mask is not None:
         used = mask.sum(dtype=torch.int32)
     y = _sweep(spec, tiled, spec.frontier(state, k), mask, nf if pull else None,
-               _weights(spec, state))
+               _weights(spec, state), sticky)
     state, cont = spec.update(state, y, k)
     return state, cont, used
 
@@ -220,6 +254,7 @@ def run_fused(spec: FixpointSpec, tiled, arg, *, slimwork: bool = True,
     are 0 without SlimWork.
     """
     _check_direction(spec, direction)
+    debug.check_layout(tiled)
     state = spec.init_state(tiled.n, arg, tiled.cols.device)
     # a batched spec's arg is its roots, one per column
     return _fused_loop(spec, tiled, state, len(arg) if spec.batched else None,
@@ -243,6 +278,8 @@ def _fused_loop(spec: FixpointSpec, tiled, state: dict, B: Optional[int], *,
     dirs = np.full(WORK_LOG if log_work else 1, -1, np.int32)
     d = dm.PULL if direction == "pull" else dm.PUSH
     sb = nf = None
+    sticky = _sticky_flag(device)
+    deferred = False
     if direction == "auto":
         sb, nf, d_t = _auto_choice(spec, tiled, state, 1,
                                    torch.tensor(dm.PUSH, dtype=torch.int32,
@@ -251,20 +288,28 @@ def _fused_loop(spec: FixpointSpec, tiled, state: dict, B: Optional[int], *,
     k, cont = 1, True
     while cont and k <= max_iters:
         state, cont_t, used = step(spec, tiled, state, k, slimwork=slimwork,
-                                   pull=d == dm.PULL, sb=sb, nf=nf)
+                                   pull=d == dm.PULL, sb=sb, nf=nf,
+                                   sticky=sticky)
         if log_work:
             if slimwork:
                 work[min(k - 1, WORK_LOG - 1)] = used
             dirs[min(k - 1, WORK_LOG - 1)] = d
         if direction == "auto":
             # the next iteration's bits and direction, worked out now so
-            # that one copy brings the flag and the direction to the host
+            # that one copy brings the flags and the direction to the host
             sb, nf, d_t = _auto_choice(spec, tiled, state, k + 1, d_t)
-            cont, d = torch.stack([cont_t.to(torch.int32), d_t]).tolist()
+            vals = torch.stack([cont_t.to(torch.int32), d_t]
+                               + ([] if sticky is None else [sticky])).tolist()
+            cont, d = vals[:2]
+            if sticky is not None:
+                _raise_flag(spec, vals[2])
         else:
             # the one device sync per iteration (none if the update made it)
-            cont = bool(cont_t)
+            cont, waits = _read_cont(spec, cont_t, sticky)
+            deferred |= waits
         k += 1
+    if deferred:
+        _raise_flag(spec, sticky.item())
     iters = k - 1
     wl = dl = None
     if log_work:
@@ -288,6 +333,8 @@ def _run_fused_batched(spec: FixpointSpec, tiled, state: dict,
     dcur = torch.full((B,), dm.PULL if direction == "pull" else dm.PUSH,
                       dtype=torch.int32, device=device)
     plog = torch.zeros_like(work)
+    sticky = _sticky_flag(device)
+    deferred = False
     k, cont = 1, True
     while cont and k <= max_iters:
         if direction == "auto":
@@ -300,24 +347,57 @@ def _run_fused_batched(spec: FixpointSpec, tiled, state: dict,
                 mask = dm.push_tile_mask(tiled, push_rows) \
                     | _pull_tile_mask(tiled, pull_rows)
                 used = mask.sum(dtype=torch.int32)
-            y = _sweep(spec, tiled, spec.frontier(state, k), mask)
+            y = _sweep(spec, tiled, spec.frontier(state, k), mask,
+                       sticky=sticky)
             state, cont_t = spec.update(state, y, k)
         else:
             state, cont_t, used = step(spec, tiled, state, k,
                                        slimwork=slimwork,
-                                       pull=direction == "pull")
+                                       pull=direction == "pull",
+                                       sticky=sticky)
         if log_work:
             idx = min(k - 1, WORK_LOG - 1)
             if slimwork:
                 work[idx] = used
             plog[idx] = (dcur == dm.PULL).sum(dtype=torch.int32)
-        cont = bool(cont_t)  # the one device sync per iteration
+        cont, waits = _read_cont(spec, cont_t, sticky)  # the one device sync
+        deferred |= waits
         k += 1
+    if deferred:
+        _raise_flag(spec, sticky.item())
     wl = plog_out = None
     if log_work:
         wl, plog_out = work.cpu().numpy(), plog.cpu().numpy()
     return EngineResult(state=state, iterations=k - 1, work_log=wl,
                         pull_cols_log=plog_out)
+
+
+def _sticky_flag(device) -> Optional[torch.Tensor]:
+    """The fused loop's sanitizer flag: an int32 0 on the device that every
+    sweep's check ORs into, or None with the sanitizer off."""
+    if not debug.enabled():
+        return None
+    return torch.zeros((), dtype=torch.int32, device=device)
+
+
+def _raise_flag(spec: FixpointSpec, flag: int) -> None:
+    """Raise for the sanitizer's sticky flag as read on the host."""
+    if flag:
+        debug.raise_sweep(sm.get(spec.sr_name), flag, spec.n_bits)
+
+
+def _read_cont(spec: FixpointSpec, cont_t, sticky):
+    """The loop's read of an iteration: the continue flag, and in the same
+    copy the sanitizer's sticky flag (raised on). Returns ``(cont,
+    waits)``: an update that returned a Python bool made its copy itself,
+    so the sticky flag waits for one read after the loop (``waits``)."""
+    if not isinstance(cont_t, torch.Tensor):
+        return bool(cont_t), sticky is not None
+    if sticky is None:
+        return bool(cont_t), False
+    cont, flag = torch.stack([cont_t.to(torch.int32), sticky]).tolist()
+    _raise_flag(spec, flag)
+    return bool(cont), False
 
 
 # ---------------------------------------------------------- fixpoint handles
@@ -367,7 +447,9 @@ class FixpointHandle:
         return ctx.init_state(tiled.n, arg, tiled.cols.device)
 
     def run(self, tiled, ctx: FixpointSpec, state: dict):
-        """Drive ``state`` to the fixpoint: ``(state, iterations)``."""
+        """Drive ``state`` to the fixpoint: ``(state, iterations)``; under
+        the sanitizer the layout is checked first, once a run."""
+        debug.check_layout(tiled)
         res = _fused_loop(ctx, tiled, state, self.batch_width,
                           slimwork=self.slimwork, max_iters=self.max_iters,
                           log_work=False, direction=self.direction)
@@ -457,6 +539,7 @@ def run_hostloop(spec: FixpointSpec, tiled, arg, *, slimwork: bool = True,
     device = tiled.cols.device
     n, n_tiles = tiled.n, tiled.n_tiles
     sr = sm.get(spec.sr_name)
+    debug.check_layout(tiled)
     state = spec.init_state(n, arg, device)
     dcur = dm.PULL if direction == "pull" else dm.PUSH
     use_push = direction in ("push", "auto")

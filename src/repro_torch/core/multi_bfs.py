@@ -166,6 +166,7 @@ def packed_multi_bfs_spec(B: int) -> eng.FixpointSpec:
                                                          axis=1),
         update=update,
         host_bits=host_bits,
+        n_bits=B,
     )
 
 
@@ -210,14 +211,15 @@ def multi_source_bfs(tiled, roots: Sequence[int],
     for start, batch, batch_p in _iter_batches(roots, batch_size):
         spec = packed_multi_bfs_spec(batch_p.size) if packed \
             else multi_bfs_spec(semiring)
-        if config.mode == "fused":
-            res = eng.run_fused(spec, tiled, torch.from_numpy(batch_p),
-                                slimwork=slimwork, max_iters=max_iters,
-                                log_work=log_work, direction=config.direction)
-        else:
-            res = eng.run_hostloop(spec, tiled, torch.from_numpy(batch_p),
-                                   slimwork=slimwork, max_iters=max_iters,
-                                   direction=config.direction)
+        with config.applied():
+            if config.mode == "fused":
+                res = eng.run_fused(spec, tiled, torch.from_numpy(batch_p),
+                                    slimwork=slimwork, max_iters=max_iters,
+                                    log_work=log_work, direction=config.direction)
+            else:
+                res = eng.run_hostloop(spec, tiled, torch.from_numpy(batch_p),
+                                       slimwork=slimwork, max_iters=max_iters,
+                                       direction=config.direction)
         state = res.state
         d_out[start:start + batch.size] = _columns_to_host(state["d"], batch.size)
         if need_parents:

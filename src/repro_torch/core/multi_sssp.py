@@ -236,13 +236,14 @@ def multi_source_sssp(tiled, roots: Sequence[int], *,
     buckets = np.empty(roots.size, np.int32)
     iters, work_rows = [], []
     for start, batch, batch_p in _iter_batches(roots, batch_size):
-        if config.mode == "fused":
-            res = eng.run_fused(spec, tiled, torch.from_numpy(batch_p),
-                                slimwork=slimwork, max_iters=max_iters,
-                                log_work=log_work)
-        else:
-            res = eng.run_hostloop(spec, tiled, torch.from_numpy(batch_p),
-                                   slimwork=slimwork, max_iters=max_iters)
+        with config.applied():
+            if config.mode == "fused":
+                res = eng.run_fused(spec, tiled, torch.from_numpy(batch_p),
+                                    slimwork=slimwork, max_iters=max_iters,
+                                    log_work=log_work)
+            else:
+                res = eng.run_hostloop(spec, tiled, torch.from_numpy(batch_p),
+                                       slimwork=slimwork, max_iters=max_iters)
         state = res.state
         end = start + batch.size
         d_out[start:end] = _columns_to_host(state["dist"], batch.size)

@@ -8,6 +8,7 @@ version).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Sequence
 
@@ -64,14 +65,34 @@ class EngineConfig:
     mode: "fused" (the whole fixpoint on the device, one host sync per
     iteration) or "hostloop" (tile masks and the direction choice worked
     out in numpy on the host each iteration)
+    sanitize: run the engine calls under the sanitizer
+    (``core.debug.checked()``), entered by ``applied()`` in the thread that
+    runs the call
     """
     direction: str = "push"
     mode: str = "fused"
+    sanitize: bool = False
 
     def __post_init__(self):
         check_choice("direction", self.direction, DIRECTIONS)
         check_choice("mode", self.mode, MODES)
+        if not isinstance(self.sanitize, bool):
+            raise ValueError(f"sanitize must be bool, got {self.sanitize!r}")
 
     def signature(self) -> tuple:
-        """Hashable identity for handle-cache and bucket keys."""
+        """Hashable identity for handle-cache and bucket keys. ``sanitize``
+        is not in it: the port compiles nothing per signature (its checks
+        run eagerly around the same sweeps), so a handle built without the
+        sanitizer serves a sanitized call unchanged."""
         return (self.direction, self.mode)
+
+    @contextlib.contextmanager
+    def applied(self):
+        """Context manager applying the config's ambient knob, the
+        sanitizer, around an engine call (direction and mode are passed
+        explicitly by the front doors); a sanitizer already on stays on."""
+        from . import debug
+        with contextlib.ExitStack() as stack:
+            if self.sanitize and not debug.enabled():
+                stack.enter_context(debug.checked())
+            yield

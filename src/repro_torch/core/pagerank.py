@@ -123,11 +123,12 @@ def pagerank(tiled, *, damping: float = 0.85, tol: float = 1e-6,
     cap = int(max_iters) if max_iters is not None else PAGERANK_MAX_ITERS
     inv_deg, dangling = pagerank_views(tiled.deg)
     spec = pagerank_spec(tiled.n, damping, tol, inv_deg, dangling)
-    if config.mode == "fused":
-        res = eng.run_fused(spec, tiled, 0, slimwork=slimwork, max_iters=cap)
-    else:
-        res = eng.run_hostloop(spec, tiled, 0, slimwork=slimwork,
-                               max_iters=cap)
+    with config.applied():
+        if config.mode == "fused":
+            res = eng.run_fused(spec, tiled, 0, slimwork=slimwork, max_iters=cap)
+        else:
+            res = eng.run_hostloop(spec, tiled, 0, slimwork=slimwork,
+                                   max_iters=cap)
     resid = float(res.state["resid"])
     return PageRankResult(
         ranks=res.state["r"].cpu().numpy(), iterations=res.iterations,

@@ -303,12 +303,13 @@ def sssp(tiled, root: int, *, delta: Optional[float] = None,
     if not 0 <= root < n:
         raise ValueError(f"root {root} out of range for n={n}")
     spec = sssp_spec(tiled, delta)
-    if config.mode == "fused":
-        res = eng.run_fused(spec, tiled, root, slimwork=slimwork,
-                            max_iters=max_iters, log_work=log_work)
-    else:
-        res = eng.run_hostloop(spec, tiled, root, slimwork=slimwork,
-                               max_iters=max_iters)
+    with config.applied():
+        if config.mode == "fused":
+            res = eng.run_fused(spec, tiled, root, slimwork=slimwork,
+                                max_iters=max_iters, log_work=log_work)
+        else:
+            res = eng.run_hostloop(spec, tiled, root, slimwork=slimwork,
+                                   max_iters=max_iters)
     dist = res.state["dist"]
     parents = None
     if need_parents:

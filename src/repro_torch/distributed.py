@@ -40,7 +40,11 @@ directory for the rendezvous (no port to collide with another world),
 runs ``fn(grid, *args)`` in each (``fn`` importable by name, not a
 closure) and returns the ranks' results. Every rank is joined against one
 deadline; a rank that raises, dies or overruns fails the launch, and the
-others are stopped.
+others are stopped. A spawned rank inherits nothing of the caller's
+threads, so ``launch`` hands each rank the caller's sanitizer state
+(``core.debug.enabled()``): ``with debug.checked(): launch(...)``
+sanitizes every rank, and a rank's ``SanitizerError`` fails the launch
+with the rank's message.
 """
 from __future__ import annotations
 
@@ -61,11 +65,14 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from .core import packing
+from .core import debug, packing
 from .core.formats import resolve_device
+from .core.options import check_choice
 
 _OPS = {"min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX,
         "sum": dist.ReduceOp.SUM}
+# the process-group backends a world may take
+BACKENDS = ("gloo", "nccl")
 
 
 @dataclasses.dataclass
@@ -270,13 +277,25 @@ class Grid:
 
 
 def _rank_main(rank: int, world: int, tmp: str, backend: str, device: str,
-               shape, axis_names, fn, args, timeout_s: float) -> None:
-    """One rank: join the world, run ``fn(grid, *args)``, write its result
-    (or the traceback) under ``tmp``, leave the world. A rank runs its
-    PyTorch host work on one thread: the ranks of a world share the host's
-    cores."""
+               shape, axis_names, fn, args, timeout_s: float,
+               sanitize: bool) -> None:
+    """One rank: join the world, run ``fn(grid, *args)`` (sanitized when
+    the caller was), write its result (or the traceback) under ``tmp``,
+    leave the world. A rank runs its PyTorch host work on one thread: the
+    ranks of a world share the host's cores. The traceback is written
+    before the rank leaves the world: leaving closes its connections, which
+    fails its peers' next collective, and the launcher reports the error
+    written first."""
+    def failed():
+        with open(os.path.join(tmp, f"error-{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+
     try:
         torch.set_num_threads(1)
+        if sanitize:
+            debug.enable()
+        else:
+            debug.disable()
         dev = torch.device(device)
         if dev.type == "cuda":
             if not torch.cuda.is_available():
@@ -294,11 +313,14 @@ def _rank_main(rank: int, world: int, tmp: str, backend: str, device: str,
             with open(part, "wb") as f:
                 pickle.dump(out, f)
             os.replace(part, os.path.join(tmp, f"result-{rank}.pkl"))
+        except BaseException:
+            failed()
+            raise
         finally:
             dist.destroy_process_group()
     except BaseException:
-        with open(os.path.join(tmp, f"error-{rank}.txt"), "w") as f:
-            f.write(traceback.format_exc())
+        if not os.path.exists(os.path.join(tmp, f"error-{rank}.txt")):
+            failed()
         raise
 
 
@@ -316,6 +338,7 @@ def launch(fn: Callable, shape: Sequence[int], axis_names: Sequence[str],
     ``TimeoutError`` when a rank outlives ``timeout`` seconds and
     ``RuntimeError`` when one fails; either way every rank is stopped.
     """
+    check_choice("backend", backend, BACKENDS)
     dev = resolve_device(device)
     world = math.prod(int(s) for s in shape)
     if backend == "nccl" and dev.type == "cuda" \
@@ -327,7 +350,7 @@ def launch(fn: Callable, shape: Sequence[int], axis_names: Sequence[str],
         procs = [ctx.Process(target=_rank_main,
                              args=(r, world, tmp, backend, str(dev),
                                    tuple(shape), tuple(axis_names), fn, args,
-                                   timeout))
+                                   timeout, debug.enabled()))
                  for r in range(world)]
         for p in procs:
             p.start()
@@ -359,11 +382,21 @@ def _join(procs, tmp: str, deadline: float) -> None:
             p.join()
             live.remove(p)
             if p.exitcode != 0:
-                rank = procs.index(p)
-                err = os.path.join(tmp, f"error-{rank}.txt")
-                text = ""
-                if os.path.exists(err):
-                    with open(err) as f:
-                        text = f.read()
+                rank, text = _first_error(tmp, procs.index(p))
+                procs[rank].join(10)   # it wrote its error and is leaving
                 raise RuntimeError(f"rank {rank} exited with code "
-                                   f"{p.exitcode}:\n{text}")
+                                   f"{procs[rank].exitcode}:\n{text}")
+
+
+def _first_error(tmp: str, rank: int):
+    """The rank whose error was written first, and its traceback: a rank
+    that fails makes its peers fail in their next collective, and the
+    first error is the cause (``rank``, the one seen exiting, when none
+    was written)."""
+    errs = [os.path.join(tmp, f) for f in os.listdir(tmp)
+            if f.startswith("error-")]
+    if not errs:
+        return rank, ""
+    first = min(errs, key=os.path.getmtime)
+    with open(first) as f:
+        return int(first.rsplit("-", 1)[1].split(".")[0]), f.read()

@@ -26,7 +26,7 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("slimsell_spmv", "slimsell_spmm", "slimsell_pull",
            "slimsell_pull_mm", "slimsell_spmv_packed", "slimsell_spmm_packed",
-           "embedding_bag")
+           "embedding_bag", "semiring_probe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 # held by build() and by ops.Kernel's first load (re-entrant: a load builds)

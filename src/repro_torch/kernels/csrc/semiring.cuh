@@ -5,20 +5,27 @@
 //   2 boolean  (max, x,   zero 0)      int32
 //   3 selmax   (max, x,   zero 0)      float
 //   5 minplus  (min, w+x, zero +inf)   float, stored weights only
-// (code 4, boolean_packed, has no case here: the packed sweeps have
-// kernels of their own, slimsell_spmv_packed.cu and slimsell_spmm_packed.cu)
+// (code 4, boolean_packed, is named in the enum but has no struct and no
+// case here: the packed sweeps have kernels of their own,
+// slimsell_spmv_packed.cu and slimsell_spmm_packed.cu)
 // minplus multiplies the gathered value by a stored slot weight (`mul`),
 // never by the implicit edge value, so `dispatch_semiring` (the implicit
 // sweeps' switch) has no case for it.
 // `edge` is mul(implicit edge value 1, x): the value is worked out here and
 // never loaded (SlimSell stores no `val`). A padding slot (col < 0) is
 // skipped, which is the same as contributing `zero`.
+// repro_torch/analysis/laws.py reads this file: it parses the enum, the
+// structs and the cases of `dispatch_semiring` and holds them to the
+// port's table, and semiring_probe.cu evaluates the structs on the card.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-enum SemiringCode { TROPICAL = 0, REAL = 1, BOOLEAN = 2, SELMAX = 3, MINPLUS = 5 };
+enum SemiringCode {
+  TROPICAL = 0, REAL = 1, BOOLEAN = 2, SELMAX = 3, BOOLEAN_PACKED = 4,
+  MINPLUS = 5
+};
 
 template <int SR> struct Semiring;
 

@@ -50,6 +50,13 @@ too: its operand has ``tiled.n_x`` rows (its column range, localized
 column ids), its result n rows in vertex space, and the wrappers start
 the rows its chunks do not hold at the semiring zero (``_out``).
 
+Each wrapper that launches a kernel registers its launch contract
+(``@kernel_contract``, ``analysis.registry``): its work list, built by the
+builder it calls over the registry's demo layouts, which
+``python -m repro_torch.analysis.contracts`` proves in bounds, covering
+and race-free. ``SEMIRING_PROBE`` is no sweep: ``analysis.laws`` launches
+it to hold the CUDA semiring table to ``core.semiring`` on the card.
+
 The kernels take the SlimWork mask as the bool ``tile_mask`` itself and
 write straight into vertex space through ``row_vertex``, so neither the
 TPU wrapper's tile-id compaction nor its chunk-row scatter epilogue is
@@ -66,6 +73,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..analysis.registry import (KernelCase, demo_layouts, demo_tables,
+                                 kernel_contract)
 from ..core import packing
 from ..core.options import check_choice
 from ..core.semiring import BOOLEAN_PACKED, Semiring
@@ -143,8 +152,11 @@ SPMM_PACKED = Kernel("slimsell_spmm_packed",
 EMBEDDING_BAG_GROUPED = Kernel("embedding_bag_grouped",
                                [_P, _P, _I, _P, _L, _L, _L, _P, _L, _L, _I, _I,
                                 _I, _I, _P], source="embedding_bag")
+# the CUDA semiring table evaluated on the card: no sweep, the analysis
+# layer's check that it agrees with core.semiring (analysis.laws)
+SEMIRING_PROBE = Kernel("semiring_probe", [_I, _P, _I, _P, _P, _P, _P, _P])
 KERNELS = (SPMV, SPMV_WTS, SPMM, SPMM_WTS, SPMM_GCN, PULL, PULL_MM,
-           SPMV_PACKED, SPMM_PACKED, EMBEDDING_BAG_GROUPED)
+           SPMV_PACKED, SPMM_PACKED, EMBEDDING_BAG_GROUPED, SEMIRING_PROBE)
 # the most tables of one embedding-bag launch (their pointers and row
 # counts are the launch's parameters, csrc/embedding_bag.cu)
 MAX_TABLES = 128
@@ -394,6 +406,38 @@ def _spmv_work_on_device(tiled):
     return _work_on_device(tiled, "spmv_work", make)
 
 
+# ------------------------------------------------------------ contract cases
+# Each wrapper's contract (analysis.registry): its work list built by the
+# builder it calls, over the demo layouts, at 2 tiles a piece (which
+# splits their long chunks) and at the wrapper's own piece size.
+
+
+def _sweep_cases(kind: str):
+    """The cases of a wrapper that reads ``spmm_work`` ("spmm") or
+    ``spmv_work`` ("spmv")."""
+    build_list, own = ((spmm_work, piece_tiles) if kind == "spmm"
+                       else (spmv_work, spmv_piece_tiles))
+
+    def cases():
+        return [KernelCase(name=f"{name} per_piece={per_piece}", kind=kind,
+                           work=build_list(lay.tile_ptr, lay.cl, lay.L,
+                                           per_piece),
+                           layout=lay, per_piece=per_piece)
+                for name, lay in demo_layouts().items()
+                for per_piece in (2, own(lay.L))]
+    return cases
+
+
+def _table_cases():
+    """Kernel 7's launch parameters (``_table_args``) for the demo tables:
+    all of them in one launch, and one alone (``embedding_bag``)."""
+    tables = demo_tables()
+    return [KernelCase(name=f"{len(ts)} tables", kind="tables",
+                       work=_table_args(ts, ts[0].device), tables=ts)
+            for ts in (tables, tables[1:2])]
+
+
+@kernel_contract(_sweep_cases("spmv"))
 def spmv(sr: Semiring, tiled, x: torch.Tensor, *,
          tile_mask: Optional[torch.Tensor] = None,
          weights: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -423,6 +467,7 @@ def spmv(sr: Semiring, tiled, x: torch.Tensor, *,
     return y
 
 
+@kernel_contract(_sweep_cases("spmm"))
 def spmm(sr: Semiring, tiled, X: torch.Tensor, *,
          tile_mask: Optional[torch.Tensor] = None,
          weights: Optional[torch.Tensor] = None,
@@ -470,6 +515,7 @@ def spmm(sr: Semiring, tiled, X: torch.Tensor, *,
     return Y
 
 
+@kernel_contract(_sweep_cases("spmv"))
 def pull(sr: Semiring, tiled, x: torch.Tensor, row_mask: torch.Tensor, *,
          tile_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """SlimSell pull sweep: x [n], row_mask bool[n] -> y [n] in vertex
@@ -493,6 +539,7 @@ def pull(sr: Semiring, tiled, x: torch.Tensor, row_mask: torch.Tensor, *,
     return y
 
 
+@kernel_contract(_sweep_cases("spmv"))
 def pull_mm(sr: Semiring, tiled, X: torch.Tensor, row_mask: torch.Tensor, *,
             tile_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Batched SlimSell pull sweep: X [n, B], row_mask bool[n, B] ->
@@ -517,6 +564,7 @@ def pull_mm(sr: Semiring, tiled, X: torch.Tensor, row_mask: torch.Tensor, *,
     return Y
 
 
+@kernel_contract(_sweep_cases("spmv"))
 def spmv_packed(tiled, x_words: torch.Tensor, *,
                 tile_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """SlimSell-B SpMV: the packed frontier bitmap int32[ceil(n/32)] ->
@@ -536,6 +584,7 @@ def spmv_packed(tiled, x_words: torch.Tensor, *,
     return y
 
 
+@kernel_contract(_sweep_cases("spmv"))
 def spmm_packed(tiled, X_words: torch.Tensor, *,
                 tile_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """SlimSell-B packed-plane SpMM: X int32[n, ceil(B/32)] (32 roots per
@@ -559,6 +608,7 @@ def spmm_packed(tiled, X_words: torch.Tensor, *,
     return Y
 
 
+@kernel_contract(_table_cases)
 def embedding_bag(table: torch.Tensor, bags: torch.Tensor,
                   mode: str = "sum") -> torch.Tensor:
     """Embedding bag: table float32 [V, d], bags int32 [B, K] (-1 pads) ->
@@ -605,6 +655,7 @@ def _table_args(tables: Sequence[torch.Tensor], dev: torch.device):
     return ptrs, rows
 
 
+@kernel_contract(_table_cases)
 def embedding_bag_grouped(tables: Sequence[torch.Tensor], bags: torch.Tensor,
                           mode: str = "sum", *,
                           out: Optional[torch.Tensor] = None) -> torch.Tensor:

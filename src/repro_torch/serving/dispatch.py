@@ -260,40 +260,44 @@ class Dispatcher:
             self._dispatch_sync(slot)
             return
 
-        if alg == "cc":
-            handle = self._handle(CC_SPEC.name, CC_SPEC, max_iters=n + 1,
-                                  direction="push", batch_width=None)
-            ctx = handle.setup(tiled)
-            state = handle.init_state(tiled, 0, ctx)
-        elif alg == "pagerank":
-            handle = self._handle("pagerank", _pagerank_bound,
-                                  max_iters=PAGERANK_MAX_ITERS,
-                                  direction="push", batch_width=None)
-            ctx = handle.setup(tiled, (slot.key.damping, slot.key.tol,
-                                       *self._pagerank_views()))
-            state = handle.init_state(tiled, 0, ctx)
-        elif alg in ("khop", "bfs"):
-            # a k-hop batch is the boolean multi-BFS batch whose iteration
-            # cap is the bucket's depth k; packed slots ride the SlimSell-B
-            # word planes, whose distances land in the same [n, width] int32
-            sem = "boolean" if alg == "khop" else slot.key.semiring
-            spec = (packed_multi_bfs_spec(slot.width) if slot.key.packed
-                    else multi_bfs_spec(sem))
-            handle = self._handle(
-                spec.name, spec,
-                max_iters=int(slot.key.k) if alg == "khop" else n,
-                direction=cfg.direction, batch_width=slot.width)
-            ctx = handle.setup(tiled)
-            state = handle.init_state(tiled, torch.from_numpy(slot.roots()),
-                                      ctx)
-        else:  # sssp
-            handle = self._handle("multi_sssp", multi_sssp_spec,
-                                  max_iters=4 * n + 16, direction="push",
-                                  batch_width=slot.width)
-            ctx = handle.setup(tiled, (slot.key.delta,))
-            state = handle.init_state(tiled, torch.from_numpy(slot.roots()),
-                                      ctx)
-        state, iters = handle.run(tiled, ctx, state)
+        # the sanitizer (config.sanitize) is entered here, in the thread
+        # that runs the slot: a session's flush thread, or the caller
+        with cfg.applied():
+            if alg == "cc":
+                handle = self._handle(CC_SPEC.name, CC_SPEC, max_iters=n + 1,
+                                      direction="push", batch_width=None)
+                ctx = handle.setup(tiled)
+                state = handle.init_state(tiled, 0, ctx)
+            elif alg == "pagerank":
+                handle = self._handle("pagerank", _pagerank_bound,
+                                      max_iters=PAGERANK_MAX_ITERS,
+                                      direction="push", batch_width=None)
+                ctx = handle.setup(tiled, (slot.key.damping, slot.key.tol,
+                                           *self._pagerank_views()))
+                state = handle.init_state(tiled, 0, ctx)
+            elif alg in ("khop", "bfs"):
+                # a k-hop batch is the boolean multi-BFS batch whose
+                # iteration cap is the bucket's depth k; packed slots ride
+                # the SlimSell-B word planes, whose distances land in the
+                # same [n, width] int32
+                sem = "boolean" if alg == "khop" else slot.key.semiring
+                spec = (packed_multi_bfs_spec(slot.width) if slot.key.packed
+                        else multi_bfs_spec(sem))
+                handle = self._handle(
+                    spec.name, spec,
+                    max_iters=int(slot.key.k) if alg == "khop" else n,
+                    direction=cfg.direction, batch_width=slot.width)
+                ctx = handle.setup(tiled)
+                state = handle.init_state(
+                    tiled, torch.from_numpy(slot.roots()), ctx)
+            else:  # sssp
+                handle = self._handle("multi_sssp", multi_sssp_spec,
+                                      max_iters=4 * n + 16, direction="push",
+                                      batch_width=slot.width)
+                ctx = handle.setup(tiled, (slot.key.delta,))
+                state = handle.init_state(
+                    tiled, torch.from_numpy(slot.roots()), ctx)
+            state, iters = handle.run(tiled, ctx, state)
         self._inflight.append(_Inflight(slot=slot, state=state, iters=iters))
         while len(self._inflight) > self.max_inflight:
             self._harvest_one()

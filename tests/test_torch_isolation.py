@@ -51,7 +51,15 @@ def test_port_imports_no_jax_and_no_jax_package():
             "src/repro_torch/serving/session.py",
             "src/repro_torch/serving/router.py",
             "src/repro_torch/core/dist_bfs.py",
-            "src/repro_torch/distributed.py"} <= names
+            "src/repro_torch/distributed.py",
+            "src/repro_torch/core/debug.py",
+            "src/repro_torch/analysis/__init__.py",
+            "src/repro_torch/analysis/contracts.py",
+            "src/repro_torch/analysis/laws.py",
+            "src/repro_torch/analysis/lint.py",
+            "src/repro_torch/analysis/registry.py"} <= names
+    assert (REPO / "src/repro_torch/analysis/lint_allow.txt").is_file()
+    assert (REPO / "src/repro_torch/kernels/csrc/semiring_probe.cu").is_file()
     bad = {str(p.relative_to(REPO)): sorted(set(_imported_roots(p)) & {"jax", "repro"})
            for p in PORT_FILES}
     assert not {k: v for k, v in bad.items() if v}

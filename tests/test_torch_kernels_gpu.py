@@ -1139,3 +1139,107 @@ def test_dist_world_on_card_equals_single_device(cuda, tmp_path):
     np.testing.assert_array_equal(out[8][2], ms.sweeps)
     for rank in ranks:
         assert all(o["launches"] for o in rank)   # the kernels ran
+
+
+# The analysis layer on the card: the semiring probe against the port's
+# table, each kernel's sweep under the sanitizer (its layout checked, its
+# result read for NaN, poison infinities and tail bits) equal to its plain
+# version, and a corrupt layout refused before any launch
+def test_analysis_probe_equals_the_table(cuda):
+    from repro_torch.analysis import laws
+    dev, _ = cuda
+    assert laws.cross_check_kernel_tables() == []
+    assert laws.cross_check_probe(dev) == []
+
+
+ANALYSIS_KERNELS = ["slimsell_spmv", "slimsell_spmv_wts", "slimsell_spmm",
+                    "slimsell_spmm_wts", "slimsell_spmm_gcn", "slimsell_pull",
+                    "slimsell_pull_mm", "slimsell_spmv_packed",
+                    "slimsell_spmm_packed", "embedding_bag_grouped"]
+
+
+@pytest.mark.parametrize("kernel", ANALYSIS_KERNELS)
+def test_analysis_sanitized_sweep_of_each_kernel(cuda_weighted, kernel):
+    from repro_torch.core import debug
+    from repro_torch.kernels.ref import embedding_bag_ref
+    dev, t = cuda_weighted
+    rng = np.random.default_rng(30)
+    trop, real, mp = psr.TROPICAL, psr.REAL, psr.MINPLUS
+    x = _operand(trop, (t.n,), rng, dev)
+    X = _operand(trop, (t.n, 5), rng, dev)
+    nf = torch.from_numpy(rng.random(t.n) < 0.5).to(dev)
+    NF = torch.from_numpy(rng.random((t.n, 5)) < 0.5).to(dev)
+    F = torch.from_numpy(rng.standard_normal((t.n, 5)).astype(
+        np.float32)).to(dev)
+    words = packing.pack_bits(torch.from_numpy(rng.random(t.n) < 0.1)
+                              .to(dev))
+    planes = packing.pack_bits(torch.from_numpy(rng.random((t.n, 40)) < 0.1)
+                               .to(dev), axis=1)
+    deg = t.deg.float()
+    tab = torch.from_numpy(rng.standard_normal((300, 16)).astype(
+        np.float32)).to(dev)
+    bags = torch.from_numpy(rng.integers(-1, 300, (64, 3)).astype(
+        np.int32)).to(dev)
+    sweeps = {
+        "slimsell_spmv": (trop, None, lambda: ops.spmv(trop, t, x),
+                          lambda: spmv_plain(trop, t, x, None)),
+        "slimsell_spmv_wts": (mp, None,
+                              lambda: ops.spmv(mp, t, x, weights=t.wts),
+                              lambda: spmv_plain(mp, t, x, None, t.wts)),
+        "slimsell_spmm": (trop, None, lambda: ops.spmm(trop, t, X),
+                          lambda: spmm_plain(trop, t, X, None)),
+        "slimsell_spmm_wts": (mp, None,
+                              lambda: ops.spmm(mp, t, X, weights=t.wts),
+                              lambda: spmm_plain(mp, t, X, None, t.wts)),
+        "slimsell_spmm_gcn": (real, None,
+                              lambda: ops.spmm(real, t, F, deg=deg),
+                              lambda: spmm_plain(real, t, F, None, deg=deg)),
+        "slimsell_pull": (trop, None, lambda: ops.pull(trop, t, x, nf),
+                          lambda: pull_plain(trop, t, x, nf, None)),
+        "slimsell_pull_mm": (trop, None, lambda: ops.pull_mm(trop, t, X, NF),
+                             lambda: pull_mm_plain(trop, t, X, NF, None)),
+        "slimsell_spmv_packed": (psr.BOOLEAN_PACKED, t.n,
+                                 lambda: ops.spmv_packed(t, words),
+                                 lambda: spmv_packed_plain(t, words, None)),
+        "slimsell_spmm_packed": (psr.BOOLEAN_PACKED, 40,
+                                 lambda: ops.spmm_packed(t, planes),
+                                 lambda: spmm_packed_plain(t, planes, None)),
+        "embedding_bag_grouped": (real, None,
+                                  lambda: ops.embedding_bag(tab, bags),
+                                  lambda: embedding_bag_ref(tab, bags)),
+    }
+    sr, n_bits, kern, plain = sweeps[kernel]
+    before = ops.launch_counts()[kernel]
+    with debug.checked():
+        if kernel == "embedding_bag_grouped":
+            debug.check_gather(bags[bags >= 0], tab.shape[0])
+        else:
+            debug.check_layout(t)
+        got = kern()
+        debug.check_sweep(sr, got, n_bits)
+    assert ops.launch_counts()[kernel] == before + 1
+    want = plain()
+    if kernel == "slimsell_spmm_gcn":
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert torch.equal(got, want)
+
+
+def test_analysis_corrupt_layout_refused_before_any_launch(cuda_weighted):
+    import dataclasses
+    from repro_torch.core import debug
+    from repro_torch.core.bfs import bfs
+    from repro_torch.core.options import EngineConfig
+    dev, t = cuda_weighted
+    cols = t.cols.clone()
+    cols.view(-1)[int(torch.nonzero(cols.reshape(-1) >= 0)[0])] = t.n + 7
+    bad = dataclasses.replace(t, cols=cols)
+    for mode in ("fused", "hostloop"):
+        torch.cuda.synchronize()
+        before = ops.launch_counts()
+        with pytest.raises(debug.SanitizerError,
+                           match="out-of-bounds vertex ids"):
+            bfs(bad, 0, config=EngineConfig(mode=mode, sanitize=True),
+                device=dev)
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == before

@@ -245,7 +245,8 @@ def test_cpu_pull_launches_no_kernel(kron):
                            "slimsell_spmm", "slimsell_spmm_wts",
                            "slimsell_spmm_gcn", "slimsell_pull",
                            "slimsell_pull_mm", "slimsell_spmv_packed",
-                           "slimsell_spmm_packed", "embedding_bag_grouped"}
+                           "slimsell_spmm_packed", "embedding_bag_grouped",
+                           "semiring_probe"}
     rows = torch.ones(pt.n, dtype=torch.bool)
     pspmv.slimsell_pull(psr.REAL, pt, torch.zeros(pt.n), row_mask=rows)
     pspmv.slimsell_pull_mm(psr.REAL, pt, torch.zeros(pt.n, 3),
