@@ -150,8 +150,8 @@ exit and no result line):
    ``khop_many`` over 12 roots, lane and packed, masks, distances and
    iterations equal; ``pagerank`` fused and hostloop within the bounds
    ``PR_*`` of the CPU's (sweep counts equal, or one apart where the
-   plain residual lies within ``PR_RESID_ULPS * n * ulp(max rank)`` of
-   tol); (b) at scale 20, each run warm, median of 3:
+   plain residual lies within ``PR_RESID_ULPS * sum_i ulp(r_i)`` of tol);
+   (b) at scale 20, each run warm, median of 3:
    ``cc`` sel-max fused and hostloop, equal to each other and to scipy's
    canonical labels; boolean lane push and auto and packed, equal to
    sel-max's; ``khop`` from the phase-4b root at k = 1, 2, 3, None equal
@@ -291,7 +291,37 @@ exit and no result line):
    plain version, ``F.embedding_bag`` and its bound; then the launch over
    all 26 tables at both shapes, K = 1 and K = 3 with pads, beside its
    plain version, 26 launches of one table, 26 ``F.embedding_bag`` calls
-   and its bound (the bytes of each distinct row read once).
+   and its bound (the bytes of each distinct row read once);
+18. training (``optim``, ``train.make_train_step``, ``checkpoint``, kernels
+   7 and 2g under autograd, ``kernels.autograd``); (a) and (b) run after
+   phase 10, while the scale-20 layout stands, (c) and (d) after phase 11:
+   (a) 2g's X gradient (the same sweep over the output's gradient) against
+   autograd of its plain version on the card within 1e-5 on phase 10a's
+   three layouts at B = 1/16/33, one launch forward and one backward, a
+   ``deg`` that requires grad refused; kernel 7's table gradients
+   (``index_add_``) within ``TRAIN_BAG_TOL`` of autograd of its plain
+   version over ``BAG_CASES`` (sum and mean, pads) and five tables in one
+   launch with an id past its table, the forward bit-equal; one Muon step
+   of a stacked [3, 64, 32] leaf against the CPU; (b) gcn-cora (1433 ->
+   16 -> 16) trained at scale 20 on phase 10b's features, labels uniform
+   on [0, 16) and a seeded 5% of the vertices in ``train_mask``, AdamW,
+   clip 1.0: 5 SlimSell steps, 2g launched exactly 4 times a step and no
+   other kernel, losses finite, step 1's loss, gradient norm and weights
+   within ``TRAIN_GCN_TOL`` of the same step on the segment aggregation,
+   the warm step's median time, nodes/s and TFLOP/s
+   (``gcn_model_flops``); (c) DLRM at ``train_batch`` (B = 65,536) on
+   ``capped_config(2**22)`` initialised on the card, ``CriteoPipeline``
+   batches, AdamW, clip 1.0: step 1's loss and gradient norm with the
+   plain lookups first, then 5 steps, kernel 7 launched exactly once a
+   step and no other kernel, step 1 within ``TRAIN_DLRM_*`` of the plain
+   lookups', the warm step's median time, samples/s, TFLOP/s
+   (``train_flops``), peak memory, and 3 more steps split by CUDA events
+   (forward, backward, clip, optimiser); (d) a gcn-cora GCN on a graph of
+   Cora's shape and a DLRM at the MLPerf widths with 1,000-row tables:
+   saved after 2 steps, restored with ``device="cuda"`` (every tensor
+   bit-equal to the one saved), 2 more steps, against 4 uninterrupted
+   steps: the GCN bit-equal, the DLRM within ``TRAIN_DLRM_*`` (the
+   gradients' ``index_add_`` adds in no fixed order on the card).
 
 The graphs carry the Graph500 SSSP weights (uniform on [2^-8, 1]); one
 weighted layout per scale serves every phase (the BFS phases never read
@@ -309,7 +339,9 @@ over phase 16b's calls and those and 4 over 16c's, summed over the ranks
 6 over phase 17c's sanitized runs, 1, 1w and 2 over 17d's, and the probe
 over 17a; kernel 4 over phase 5's pull
 harness batch and kernel 2w over phase 8b's per-root harness; the
-embedding bag over phase 11b, exactly once a forward.
+embedding bag over phase 11b, exactly once a forward; the GCN SpMM over
+phase 18b, exactly four times a training step, and the embedding bag over
+phase 18c, exactly once a training step.
 The last lines are the kernel table, the card, and ``{"ok": true,
 "device": {...}}``.
 """
@@ -340,8 +372,8 @@ SEMIRINGS = ("tropical", "real", "boolean", "selmax")
 SCALE, EDGE_FACTOR, SMALL_SCALE = 20, 16, 14
 # the whole run must end within 1200 s; phase 8b validates 64 SSSP trees
 # only if that still ends by this mark, else the first 16; phase 9c the
-# same by its own mark; both leave phases 10, 12, 13, 14, 15, 16, 17 and
-# 11 their reserves
+# same by its own mark; both leave phases 10, 12, 13, 14, 15, 16, 17, 11
+# and 18 their reserves
 GCN_RESERVE_S = 60.0
 DLRM_RESERVE_S = 90.0
 GRAPH_RESERVE_S = 90.0
@@ -350,22 +382,25 @@ SERVE_RESERVE_S = 60.0
 SESSION_RESERVE_S = 60.0
 DIST_RESERVE_S = 120.0
 ANALYSIS_RESERVE_S = 60.0
+TRAIN_RESERVE_S = 60.0
 VALIDATE_ALL_BY_S = 900.0 - GCN_RESERVE_S - DLRM_RESERVE_S \
     - GRAPH_RESERVE_S - BC_RESERVE_S - SERVE_RESERVE_S - SESSION_RESERVE_S \
-    - DIST_RESERVE_S - ANALYSIS_RESERVE_S
+    - DIST_RESERVE_S - ANALYSIS_RESERVE_S - TRAIN_RESERVE_S
 VALIDATE_BATCH_BY_S = 1000.0 - GCN_RESERVE_S - DLRM_RESERVE_S \
     - GRAPH_RESERVE_S - BC_RESERVE_S - SERVE_RESERVE_S - SESSION_RESERVE_S \
-    - DIST_RESERVE_S - ANALYSIS_RESERVE_S
+    - DIST_RESERVE_S - ANALYSIS_RESERVE_S - TRAIN_RESERVE_S
 # PageRank with the kernels against the same call with the plain sweeps
 # (phase 12): kernel 1 adds a row in another order than the plain version,
 # so the ranks are held to bounds fixed before the first card run
 PR_RTOL, PR_ATOL = 1e-4, 1e-9  # ranks, per vertex
 PR_L1 = 1e-5                   # L1 between the two runs
 # sweeps one apart only where the plain run's residual at the shorter run's
-# last sweep lies within PR_RESID_ULPS * n * ulp(max rank) of tol, else the
-# run fails: the residual is a float32 sum of n differences of ranks, each
-# of which another order of adds moves by an ulp or two (star(64): 2 * 64 *
-# ulp(0.46) = 3.8e-6, above tol itself)
+# last sweep lies within PR_RESID_ULPS * sum_i ulp(r_i) of tol (in float64
+# over the plain ranks), else the run fails: the residual is a float32 sum
+# of n differences of ranks, each of which another order of adds moves by
+# an ulp or two of its own rank (star(64): 1.77e-7; the looser 2 n ulp(max
+# rank) it replaced, 3.8e-6 there and 1.221e-4 at scale 20, is printed
+# beside it)
 PR_RESID_ULPS = 2
 PR_L1_F64 = 2e-5               # L1 to a float64 power iteration
 # betweenness with the kernels against the same call on the plain path
@@ -610,10 +645,27 @@ def pagerank_f64(csr, damping: float, tol: float = 1e-12) -> np.ndarray:
 
 
 def pagerank_resid_bound(ref) -> float:
-    """``PR_RESID_ULPS * n * ulp(max rank)`` of a PageRank result: how far
-    its float32 residual may move under another order of adds."""
+    """``PR_RESID_ULPS * sum_i ulp(r_i)`` of a PageRank result, summed in
+    float64 over its float32 ranks: how far its float32 residual, a sum of
+    n differences of ranks each of which another order of adds moves by an
+    ulp or two of its own rank, may move."""
+    ranks = np.abs(np.asarray(ref.ranks, dtype=np.float32))
+    return PR_RESID_ULPS * float(np.spacing(ranks).astype(np.float64).sum())
+
+
+def pagerank_resid_bound_max(ref) -> float:
+    """The looser bound the sweep rule used before,
+    ``PR_RESID_ULPS * n * ulp(max rank)``, printed beside the one it
+    uses."""
     return PR_RESID_ULPS * ref.ranks.size * float(
         np.spacing(np.float32(ref.ranks.max())))
+
+
+def pagerank_gap(got, ref, tol: float) -> float:
+    """How far the plain run's residual at the shorter run's last sweep
+    lies from ``tol``."""
+    k = min(got.iterations, ref.iterations)
+    return abs(float(ref.residuals[k - 1]) - tol)
 
 
 def pagerank_close(got, ref, tol: float, what: str):
@@ -634,11 +686,12 @@ def pagerank_close(got, ref, tol: float, what: str):
     if got.iterations == ref.iterations:
         return l1, None
     k = min(got.iterations, ref.iterations)
-    gap = abs(float(ref.residuals[k - 1]) - tol)
+    gap = pagerank_gap(got, ref, tol)
     bound = pagerank_resid_bound(ref)
     said = (f"{got.iterations} sweeps, plain {ref.iterations}; the plain "
             f"residual at sweep {k} {float(ref.residuals[k - 1])!r} is "
-            f"{gap:.3e} from tol, bound {bound:.3e}")
+            f"{gap:.3e} from tol, bound {bound:.3e} (2 n ulp(max rank): "
+            f"{pagerank_resid_bound_max(ref):.3e})")
     if abs(got.iterations - ref.iterations) > 1 or gap > bound:
         raise AssertionError(f"pagerank {what}: {said}")
     return l1, f"{what}: {said}"
@@ -885,7 +938,11 @@ def graph_workloads(*, dev, card, csr, tiled, root, lane_boolean, roots,
             f"{med * 1e3 / res.iterations:.2f} ms a sweep; three runs "
             f"bit-equal; L1 to the plain sweeps {l1:.3e}, to float64 "
             f"{l1_64:.3e} (bound {PR_L1_F64}); sweeps one apart: "
-            f"{one_apart}; residual bound {pagerank_resid_bound(ref):.3e}; "
+            f"{one_apart}; the plain residual at sweep "
+            f"{min(res.iterations, ref.iterations)} "
+            f"{pagerank_gap(res, ref, tol):.3e} from tol, residual bound "
+            f"2 sum ulp(r_i) {pagerank_resid_bound(ref):.3e}, 2 n ulp(max "
+            f"rank) {pagerank_resid_bound_max(ref):.3e}; "
             f"mass - 1 = {mass - 1.0:.3e}; "
             f"slimsell_spmv launches {k1} on {card}")
     same_fields(pr["fused"], pr["hostloop"], pr_fields,
@@ -2944,6 +3001,525 @@ def analysis_phase(*, dev, card, tiled, root, roots, lane_boolean, push,
     return launches
 
 
+# ---------------------------------------------------------------- phase 18
+
+# training's bounds, fixed before the first card run. 18a: kernel 7's
+# table gradients under autograd against autograd of its plain version on
+# the card (both scatter with index_add_, whose atomics add in no fixed
+# order), relative to the sum of the magnitudes a row receives, to which a
+# float32 sum's rounding scales (rows here take up to 12,288 bag gradients
+# and their sum may cancel); 2g's X gradients within phase 10's 1e-5; a
+# Muon step of a stacked leaf: its orthogonalised update (the weights' step
+# over lr * scale) within the CPU test's bound on _newton_schulz (the
+# bfloat16 products' float32 sums the card adds in another order, and one
+# bfloat16 rounding that lands the other way moves the update by ~1e-2
+# after five iterations), the momentum bit-equal. 18b: step 1 of the SlimSell GCN against
+# the same step on the segment aggregation. 18c / 18d: a DLRM step with
+# kernel 7 against the same step with the plain lookups (the forward adds
+# in the same order, so the loss differs only by the atomics of neither;
+# the gradient's norm by index_add_'s order), and a resumed DLRM run
+# against an uninterrupted one
+TRAIN_BAG_TOL = 1e-5
+TRAIN_GCN_TOL = 1e-4
+TRAIN_MUON_TOL = dict(rtol=2e-2, atol=2e-2)
+TRAIN_DLRM_LOSS_RTOL = 1e-6
+TRAIN_DLRM_NORM_RTOL = 1e-4
+TRAIN_STEPS = 5
+TRAIN_SPLIT_STEPS = 3
+
+
+def step_times(step, params, state, batches, n: int):
+    """``n`` steps of ``step``, each timed by the host clock around a
+    synchronised call: the weights, the state, each step's metrics (loss
+    and grad norm as floats) and seconds."""
+    metrics, secs = [], []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batches[i % len(batches)])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    return params, state, metrics, secs
+
+
+def check_trees_close(got, want, what: str, tol: float) -> float:
+    """Every leaf within rtol = atol = ``tol``; returns the max abs err."""
+    from repro_torch import pytree
+    err = 0.0
+    for a, b in zip(pytree.leaves(got), pytree.leaves(want)):
+        a, b = a.detach(), b.detach()
+        err = max(err, max_abs_err(a, b))
+        if not torch.allclose(a.double(), b.double(), rtol=tol, atol=tol):
+            raise AssertionError(f"{what}: not within {tol} (max abs err "
+                                 f"{max_abs_err(a, b)})")
+    return err
+
+
+def bag_grads_close(got, want, magnitude, what: str) -> float:
+    """Table gradients: ``|got - want| <= TRAIN_BAG_TOL * magnitude``, the
+    magnitude the sum of ``|bag gradient|`` each element received (the
+    plain version's gradient for the absolute output gradients). Returns
+    the largest error over that magnitude."""
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"bag_lookup gradient not finite: {what}")
+    rel = float(((got - want).abs() / magnitude.clamp_min(1e-30)).max())
+    if rel > TRAIN_BAG_TOL:
+        raise AssertionError(f"bag_lookup gradient: {what}: error {rel:.3e} "
+                             f"of the magnitude, bound {TRAIN_BAG_TOL}")
+    return rel
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape or a.device != b.device:
+        return False
+    if a.dtype == torch.bfloat16:
+        return torch.equal(a.view(torch.int16), b.view(torch.int16))
+    return torch.equal(a, b)
+
+
+def train_gcn_phase(*, dev, card, csr, tiled, gcn_layouts, errs, table):
+    """Phase 18a and 18b: the two kernels' autograd routes and a Muon step
+    on the card, then gcn-cora trained at scale 20 on phase 10b's
+    features."""
+    from repro_torch import optim, pytree
+    from repro_torch.configs.gcn_cora import gcn_model_flops, make_config
+    from repro_torch.core.formats import is_symmetric
+    from repro_torch.core.semiring import REAL
+    from repro_torch.core.spmv import spmm_plain
+    from repro_torch.kernels import autograd, ops
+    from repro_torch.kernels.ref import embedding_bag_grouped_ref
+    from repro_torch.models.gnn import gcn_init, gcn_loss
+    from repro_torch.train import make_train_step
+
+    # (a) 2g's X gradient: the same sweep over the output's gradient
+    gen = torch.Generator(device=dev).manual_seed(18)
+    n_2g = 0
+    for lname, t in gcn_layouts.items():
+        deg = t.deg.float()
+        if not is_symmetric(t):
+            raise AssertionError(f"{lname}: the layout is not symmetric")
+        for width in (1, 16, 33):
+            X = torch.randn((t.n, width), generator=gen, device=dev)
+            R = torch.randn((t.n, width), generator=gen, device=dev)
+            before = ops.SPMM_GCN.launches
+            Xa = X.clone().requires_grad_(True)
+            got, = torch.autograd.grad(
+                (autograd.gcn_aggregate(t, Xa, deg) * R).sum(), [Xa])
+            if ops.SPMM_GCN.launches != before + 2:
+                raise AssertionError("gcn_aggregate: not one launch forward "
+                                     "and one backward")
+            Xb = X.clone().requires_grad_(True)
+            want, = torch.autograd.grad(
+                (spmm_plain(REAL, t, Xb, deg=deg) * R).sum(), [Xb])
+            check_close("slimsell_spmm_gcn", got, want, errs,
+                        f"X gradient, {lname} B={width}", 1e-5)
+            n_2g += 1
+    t = next(iter(gcn_layouts.values()))
+    try:
+        autograd.gcn_aggregate(t, torch.ones((t.n, 1), device=dev,
+                                             requires_grad=True),
+                               t.deg.float().requires_grad_(True))
+        raise AssertionError("gcn_aggregate took a deg that requires grad")
+    except ValueError as e:
+        deg_refused = str(e)
+    # kernel 7's table gradients: index_add_ of the bags' gradients
+    g18 = np.random.default_rng(18)
+    bag_err, n_bag = 0.0, 0
+    for V, d, B, K in BAG_CASES:
+        tab = torch.from_numpy(g18.standard_normal((V, d)).astype(
+            np.float32)).to(dev)
+        for mode in ("sum", "mean"):
+            ids = bag_ids(V, (B, 1, K), 0.3, g18)
+            ids[0, 0, :] = -1
+            bags = torch.from_numpy(ids).to(dev)
+            R = torch.randn((B, 1, d), generator=gen, device=dev)
+            ta = [tab.clone().requires_grad_(True)]
+            before = ops.EMBEDDING_BAG_GROUPED.launches
+            out = autograd.bag_lookup(ta, bags, mode)
+            got, = torch.autograd.grad(out, ta, grad_outputs=R)
+            if ops.EMBEDDING_BAG_GROUPED.launches != before + 1:
+                raise AssertionError("bag_lookup: not one launch")
+            tb = [tab.clone().requires_grad_(True)]
+            ref = embedding_bag_grouped_ref(tb, bags, mode)
+            want, mag = (torch.autograd.grad(ref, tb, grad_outputs=r,
+                                             retain_graph=True)[0]
+                         for r in (R, R.abs()))
+            check_equal("embedding_bag_grouped", out.detach(), ref.detach(),
+                        errs, f"bag_lookup forward V={V} {mode}")
+            bag_err = max(bag_err, bag_grads_close(
+                got, want, mag, f"V={V} d={d} B={B} K={K} {mode}"))
+            n_bag += 1
+    vocabs = (100, 3, 1000, 17, 50)
+    tabs = [torch.from_numpy(g18.standard_normal((v, 128)).astype(
+        np.float32)).to(dev) for v in vocabs]
+    ids = np.stack([bag_ids(v, (4096, 3), 0.2, g18) for v in vocabs], 1)
+    ids[7, 4, 1] = vocabs[4]                      # an id past its table
+    bags = torch.from_numpy(ids).to(dev)
+    for mode in ("sum", "mean"):
+        R = torch.randn((4096, len(vocabs), 128), generator=gen, device=dev)
+        ta = [x.clone().requires_grad_(True) for x in tabs]
+        got = torch.autograd.grad(autograd.bag_lookup(ta, bags, mode), ta,
+                                  grad_outputs=R)
+        tb = [x.clone().requires_grad_(True) for x in tabs]
+        ref = embedding_bag_grouped_ref(tb, bags, mode)
+        want = torch.autograd.grad(ref, tb, grad_outputs=R, retain_graph=True)
+        mag = torch.autograd.grad(ref, tb, grad_outputs=R.abs())
+        for i, (a, b, m) in enumerate(zip(got, want, mag)):
+            bag_err = max(bag_err, bag_grads_close(
+                a, b, m, f"5 tables, table {i}, {mode}"))
+        n_bag += 1
+    # one Muon step of a stacked leaf, the card against the CPU: the
+    # orthogonalised update, o = (p - p') / (lr * scale)
+    p0 = g18.standard_normal((3, 64, 32)).astype(np.float32) * 0.1
+    gr = g18.standard_normal((3, 64, 32)).astype(np.float32)
+    muon_out = {}
+    step_scale = 0.02 * (64 / 32) ** 0.5         # muon()'s lr, the shape's
+    for d in ("cpu", dev):
+        p = {"w": torch.tensor(p0, device=d)}
+        opt = optim.muon()
+        st = opt.init(p)
+        opt.update({"w": torch.tensor(gr, device=d)}, st, p,
+                   torch.zeros((), dtype=torch.int32, device=d))
+        muon_out[str(d)] = ((torch.tensor(p0) - p["w"].cpu()) / step_scale,
+                            st["w"]["mom"].cpu(), p["w"].cpu())
+    muon_err = max_abs_err(muon_out[str(dev)][0], muon_out["cpu"][0])
+    muon_w_err = max_abs_err(muon_out[str(dev)][2], muon_out["cpu"][2])
+    if not torch.allclose(muon_out[str(dev)][0], muon_out["cpu"][0],
+                          **TRAIN_MUON_TOL) or not bits_equal(
+            muon_out[str(dev)][1], muon_out["cpu"][1]):
+        raise AssertionError(f"muon step: card != CPU (update max abs err "
+                             f"{muon_err})")
+    torch.cuda.synchronize()
+    log(f"[18a] gcn_aggregate (2g under autograd): X gradient == autograd "
+        f"of the plain version within 1e-5 on {n_2g} cases ({', '.join(gcn_layouts)}; "
+        f"B=1/16/33), one launch forward and one backward; deg requiring "
+        f"grad refused ({deg_refused!r}); bag_lookup (7 under autograd): "
+        f"forward == plain bit for bit, table gradients within "
+        f"{TRAIN_BAG_TOL} of the summed magnitudes of autograd of the plain "
+        f"version on {n_bag} cases (BAG_CASES sum and mean with pads; 5 "
+        f"tables, an id past its table), largest {bag_err:.3e}; muon step of a [3, 64, 32] leaf card == "
+        f"CPU, its orthogonalised update within rtol = atol = 2e-2 (max "
+        f"abs err {muon_err:.3e}; the weights' {muon_w_err:.3e}), "
+        f"bfloat16 momentum bit-equal")
+
+    # (b) gcn-cora trained at scale 20 on phase 10b's features
+    cfg = make_config()
+    slim = dataclasses.replace(cfg, aggregation="slimsell")
+    seg = dataclasses.replace(cfg, aggregation="segment")
+    n = tiled.n
+    t0 = time.perf_counter()
+    symmetric = is_symmetric(tiled)
+    sym_s = time.perf_counter() - t0
+    if not symmetric:
+        raise AssertionError(f"the scale-{SCALE} layout is not symmetric")
+    feat = torch.randn((n, cfg.d_in), generator=torch.Generator(
+        device=dev).manual_seed(10), device=dev)
+    batch = gcn_batch(csr, feat, tiled, dev)
+    gl = torch.Generator(device=dev).manual_seed(18)
+    batch["labels"] = torch.randint(0, cfg.n_classes, (n,), generator=gl,
+                                    device=dev, dtype=torch.int32)
+    n_train = round(0.05 * n)
+    mask = torch.zeros(n, device=dev)
+    mask[torch.randperm(n, generator=gl, device=dev)[:n_train]] = 1.0
+    batch["train_mask"] = mask
+    params = gcn_init(cfg, generator=torch.Generator().manual_seed(11),
+                      device=dev)
+    seg_params = {"w": [w.clone() for w in params["w"]]}
+    steps = {}
+    for name, c in (("slimsell", slim), ("segment", seg)):
+        steps[name] = make_train_step(
+            lambda p, b, c=c: gcn_loss(p, b, c, device=dev), optim.adamw(),
+            grad_clip=1.0)
+    seg_step, seg_init = steps["segment"]
+    seg_params, _, seg_m, _ = step_times(seg_step, seg_params,
+                                         seg_init(seg_params), [batch], 1)
+    slim_step, slim_init = steps["slimsell"]
+    state = slim_init(params)
+    ops.reset_launches()
+    params, state, metrics, secs = step_times(slim_step, params, state, [batch],
+                                              1)
+    step1 = {"w": [w.detach().clone() for w in params["w"]]}
+    params, state, more, more_s = step_times(slim_step, params, state, [batch],
+                                             TRAIN_STEPS - 1)
+    metrics += more
+    secs += more_s
+    counts = ops.launch_counts()
+    if counts["slimsell_spmm_gcn"] != 4 * TRAIN_STEPS or any(
+            v for k, v in counts.items() if k != "slimsell_spmm_gcn"):
+        raise AssertionError(f"GCN training: launches {counts} over "
+                             f"{TRAIN_STEPS} steps, want slimsell_spmm_gcn "
+                             f"four a step and nothing else")
+    if not all(np.isfinite(m).all() for m in metrics):
+        raise AssertionError(f"GCN training: metrics not finite: {metrics}")
+    loss_err = abs(metrics[0][0] - seg_m[0][0])
+    norm_err = abs(metrics[0][1] - seg_m[0][1])
+    for what, a, b in (("loss", metrics[0][0], seg_m[0][0]),
+                       ("grad norm", metrics[0][1], seg_m[0][1])):
+        if abs(a - b) > TRAIN_GCN_TOL * (1 + abs(b)):
+            raise AssertionError(f"GCN step 1 {what}: slimsell {a!r}, "
+                                 f"segment {b!r}")
+    w_err = check_trees_close(step1, seg_params, "GCN step 1 weights, "
+                              "slimsell vs segment", TRAIN_GCN_TOL)
+    med = float(np.median(secs[1:]))
+    flops = gcn_model_flops(cfg, n, int(csr.indices.size), cfg.d_in)
+    gcn_row = {"steps": TRAIN_STEPS, "step_ms": 1e3 * med,
+               "step_ms_each": [1e3 * s for s in secs],
+               "nodes_per_s": n / med, "tflops": flops / med / 1e12,
+               "model_flops": flops, "losses": [m[0] for m in metrics],
+               "grad_norms": [m[1] for m in metrics],
+               "step1_vs_segment_max_abs_err": {"loss": loss_err,
+                                                "grad_norm": norm_err,
+                                                "weights": w_err},
+               "symmetric_check_s": sym_s}
+    log(f"[18b] gcn-cora trained at scale {SCALE} (n={n}, nnz="
+        f"{int(csr.indices.size)}, d_in {cfg.d_in} -> {cfg.d_hidden} -> "
+        f"{cfg.n_classes}; labels uniform on [0, {cfg.n_classes}), "
+        f"train_mask {n_train} vertices; AdamW, clip 1.0): {TRAIN_STEPS} "
+        f"slimsell steps, losses {[round(m[0], 6) for m in metrics]}, grad "
+        f"norms {[round(m[1], 6) for m in metrics]}; launches "
+        f"slimsell_spmm_gcn={counts['slimsell_spmm_gcn']} (4 a step); "
+        f"step 1 == segment within {TRAIN_GCN_TOL} (loss {loss_err:.3e}, "
+        f"grad norm {norm_err:.3e}, weights {w_err:.3e}); layout symmetric "
+        f"(checked in {sym_s:.3f} s)")
+    log(f"[18b] warm step, median of {len(secs) - 1}: {med * 1e3:.4f} ms "
+        f"({[round(s * 1e3, 4) for s in secs]}), {n / med:.6e} nodes/s, "
+        f"{flops / med / 1e12:.4f} TFLOP/s ({flops:.6e} FLOPs a step, "
+        f"gcn_model_flops) on {card}")
+    for r in table:
+        if r["name"] == "slimsell_spmm_gcn":
+            r["phase18b_launches"] = counts["slimsell_spmm_gcn"]
+            r["training"] = gcn_row
+    return gcn_row
+
+
+def train_dlrm_phase(*, dev, card, errs, table):
+    """Phase 18c: DLRM at ``train_batch`` on ``capped_config(2**22)``."""
+    from repro_torch import convert, optim, pytree
+    from repro_torch.configs.dlrm_mlperf import (RECSYS_SHAPES, capped_config,
+                                                 train_flops)
+    from repro_torch.data.pipeline import CriteoPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import embedding_bag_grouped_ref
+    from repro_torch.models import dlrm
+    from repro_torch.train import make_train_step
+
+    cfg = capped_config(2 ** 22)
+    B = RECSYS_SHAPES["train_batch"]["batch"]
+    held = torch.cuda.memory_allocated()   # what the earlier phases keep
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = dlrm.dlrm_init(cfg, generator=torch.Generator(
+        device=dev).manual_seed(18), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    table_bytes = sum(t.numel() * t.element_size() for t in params["tables"])
+    t0 = time.perf_counter()
+    pipe = CriteoPipeline(cfg.vocabs, B, cfg.multi_hot, seed=18)
+    batches = [convert.dlrm_batch_from_arrays(pipe.get_batch(i), device=dev)
+               for i in range(TRAIN_STEPS + TRAIN_SPLIT_STEPS)]
+    batch_s = time.perf_counter() - t0
+    leaves, treedef = pytree.flatten(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    # step 1's loss and gradient norm with the plain lookups, before the
+    # optimiser's state exists (its moments would not fit beside a second
+    # gradient)
+    with plain_lookups(dlrm, embedding_bag_grouped_ref):
+        before = ops.launch_counts()
+        loss_ref = dlrm.dlrm_loss(params, batches[0], cfg, device=dev)
+        grads = torch.autograd.grad(loss_ref, leaves)
+        norm_ref = float(optim.global_norm(list(grads)))
+        loss_ref = float(loss_ref.detach())
+        if ops.launch_counts() != before:
+            raise AssertionError("the plain reference step launched a kernel")
+    del grads
+    torch.cuda.empty_cache()
+    opt = optim.adamw()
+    step, init = make_train_step(
+        lambda p, b: dlrm.dlrm_loss(p, b, cfg, device=dev), opt, grad_clip=1.0)
+    state = init(params)
+    ops.reset_launches()
+    params, state, metrics, secs = step_times(step, params, state, batches,
+                                              TRAIN_STEPS)
+    counts = ops.launch_counts()
+    if counts["embedding_bag_grouped"] != TRAIN_STEPS or any(
+            v for k, v in counts.items() if k != "embedding_bag_grouped"):
+        raise AssertionError(f"DLRM training: launches {counts} over "
+                             f"{TRAIN_STEPS} steps, want embedding_bag_grouped "
+                             f"once a step and nothing else")
+    if not all(np.isfinite(m).all() for m in metrics):
+        raise AssertionError(f"DLRM training: metrics not finite: {metrics}")
+    loss_rel = abs(metrics[0][0] - loss_ref) / abs(loss_ref)
+    norm_rel = abs(metrics[0][1] - norm_ref) / abs(norm_ref)
+    if loss_rel > TRAIN_DLRM_LOSS_RTOL or norm_rel > TRAIN_DLRM_NORM_RTOL:
+        raise AssertionError(f"DLRM step 1 against the plain lookups: loss "
+                             f"{metrics[0][0]!r} vs {loss_ref!r}, grad norm "
+                             f"{metrics[0][1]!r} vs {norm_ref!r}")
+    peak = torch.cuda.max_memory_allocated()
+
+    def split_step(batch):
+        """One step by parts, CUDA events between them: forward, backward,
+        clip, optimiser."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        loss = dlrm.dlrm_loss(params, batch, cfg, device=dev)
+        ev[1].record()
+        grads = pytree.unflatten(treedef, list(torch.autograd.grad(loss, leaves)))
+        ev[2].record()
+        optim.clip_by_global_norm(grads, 1.0)
+        ev[3].record()
+        opt.update(grads, state["opt"], params, state["step"])
+        state["step"] = state["step"] + 1
+        ev[4].record()
+        ev[4].synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+
+    before = ops.EMBEDDING_BAG_GROUPED.launches
+    parts = np.median([split_step(batches[TRAIN_STEPS + i])
+                       for i in range(TRAIN_SPLIT_STEPS)], axis=0)
+    if ops.EMBEDDING_BAG_GROUPED.launches != before + TRAIN_SPLIT_STEPS:
+        raise AssertionError("the split steps did not launch kernel 7 once each")
+    med = float(np.median(secs[1:]))
+    flops = train_flops(cfg, B)
+    row = {"batch": B, "rows": sum(cfg.vocabs), "table_bytes": table_bytes,
+           "steps": TRAIN_STEPS, "step_ms": 1e3 * med,
+           "step_ms_each": [1e3 * s for s in secs],
+           "samples_per_s": B / med, "tflops": flops / med / 1e12,
+           "model_flops": flops, "peak_bytes": peak, "held_before_bytes": held,
+           "losses": [m[0] for m in metrics],
+           "grad_norms": [m[1] for m in metrics],
+           "step1_vs_plain_rel": {"loss": loss_rel, "grad_norm": norm_rel},
+           "forward_ms": parts[0], "backward_ms": parts[1],
+           "clip_ms": parts[2], "optimiser_ms": parts[3],
+           "init_s": init_s, "batches_s": batch_s}
+    log(f"[18c] {cfg.name} capped at 2^22 rows a table: {sum(cfg.vocabs)} "
+        f"rows, tables {table_bytes} bytes, initialised on the card in "
+        f"{init_s:.2f} s; {len(batches)} CriteoPipeline batches of {B} made "
+        f"in {batch_s:.2f} s; {TRAIN_STEPS} steps (AdamW, clip 1.0): losses "
+        f"{[round(m[0], 6) for m in metrics]}, grad norms "
+        f"{[round(m[1], 6) for m in metrics]}; launches "
+        f"embedding_bag_grouped={counts['embedding_bag_grouped']} (one a "
+        f"step); step 1 against the plain lookups: loss rel err "
+        f"{loss_rel:.3e} (bound {TRAIN_DLRM_LOSS_RTOL}), grad norm rel err "
+        f"{norm_rel:.3e} (bound {TRAIN_DLRM_NORM_RTOL})")
+    log(f"[18c] warm step, median of {len(secs) - 1}: {med * 1e3:.4f} ms "
+        f"({[round(s * 1e3, 4) for s in secs]}), {B / med:.6e} samples/s, "
+        f"{flops / med / 1e12:.4f} TFLOP/s ({flops:.6e} FLOPs a step, "
+        f"3 B flops_mlp); CUDA events (median of {TRAIN_SPLIT_STEPS}): "
+        f"forward {parts[0]:.4f} ms, backward {parts[1]:.4f} ms, clip "
+        f"{parts[2]:.4f} ms, optimiser {parts[3]:.4f} ms (sum "
+        f"{parts.sum():.4f}); peak device memory {peak / 2**30:.2f} GiB "
+        f"({peak} bytes; {held} of them held by the earlier phases) on "
+        f"{card}")
+    for r in table:
+        if r["name"] == "embedding_bag_grouped":
+            r["phase18c_launches"] = counts["embedding_bag_grouped"]
+            r["training"] = row
+    del params, state, batches, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_checkpoint_phase(*, dev, card):
+    """Phase 18d: save after 2 steps, restore on the card, 2 more steps,
+    against 4 uninterrupted steps: a gcn-cora GCN on a graph of Cora's
+    shape (bit-equal) and a DLRM at the MLPerf widths with 1,000-row tables
+    (within 18c's bounds)."""
+    import shutil
+    import tempfile
+
+    from repro_torch import convert, optim, pytree
+    from repro_torch.checkpoint import store
+    from repro_torch.configs.dlrm_mlperf import capped_config
+    from repro_torch.configs.gcn_cora import make_config
+    from repro_torch.core.formats import build_slimsell
+    from repro_torch.data.pipeline import CriteoPipeline
+    from repro_torch.graphs.generators import erdos_renyi
+    from repro_torch.kernels import ops
+    from repro_torch.models import dlrm
+    from repro_torch.models.gnn import gcn_init, gcn_loss
+    from repro_torch.train import make_train_step
+
+    gcfg = dataclasses.replace(make_config(), aggregation="slimsell")
+    csr = erdos_renyi(2708, 3.9, seed=18)
+    g = torch.Generator(device=dev).manual_seed(19)
+    feat = torch.randn((csr.n, gcfg.d_in), generator=g, device=dev)
+    gbatch = gcn_batch(csr, feat, build_slimsell(csr, C=8, L=16).to_torch(dev),
+                       dev)
+    gbatch["labels"] = torch.randint(0, gcfg.n_classes, (csr.n,), generator=g,
+                                     device=dev, dtype=torch.int32)
+    gbatch["train_mask"] = (torch.rand(csr.n, generator=g, device=dev)
+                            < 0.05).float()
+    dcfg = capped_config(1000)
+    pipe = CriteoPipeline(dcfg.vocabs, 4096, dcfg.multi_hot, seed=19)
+    dbatches = [convert.dlrm_batch_from_arrays(pipe.get_batch(i), device=dev)
+                for i in range(4)]
+    models = {
+        "gcn": (lambda: gcn_init(gcfg, generator=torch.Generator().manual_seed(
+                    19), device=dev),
+                lambda p, b: gcn_loss(p, b, gcfg, device=dev), [gbatch]),
+        "dlrm": (lambda: dlrm.dlrm_init(dcfg, generator=torch.Generator(
+                     device=dev).manual_seed(19), device=dev),
+                 lambda p, b: dlrm.dlrm_loss(p, b, dcfg, device=dev),
+                 dbatches)}
+    ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    said = []
+    ops.reset_launches()
+    try:
+        for name, (init_params, loss, batches) in models.items():
+            step, init = make_train_step(loss, optim.adamw(), grad_clip=1.0)
+            p = init_params()
+            p, s, whole, _ = step_times(step, p, init(p), batches, 4)
+            q = init_params()
+            q, t, first, _ = step_times(step, q, init(q), batches, 2)
+            ckpt = os.path.join(ckpt_root, name)
+            t0 = time.perf_counter()
+            store.save(ckpt, 2, (q, t), metadata={"model": name})
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            (q2, t2), meta = store.restore(ckpt, store.latest_step(ckpt),
+                                           (q, t), device=dev)
+            restore_s = time.perf_counter() - t0
+            saved, restored = pytree.leaves((q, t)), pytree.leaves((q2, t2))
+            if meta != {"model": name} or len(saved) != len(restored) or not all(
+                    bits_equal(a.detach(), b) for a, b in zip(saved, restored)):
+                raise AssertionError(f"{name}: a restored tensor differs from "
+                                     "the one saved")
+            rest = batches[2:] if len(batches) > 1 else batches
+            q2, t2, resumed, _ = step_times(step, q2, t2, rest, 2)
+            if name == "gcn":
+                if resumed != whole[2:] or not all(
+                        bits_equal(a.detach(), b.detach()) for a, b in zip(
+                            pytree.leaves((q2, t2)), pytree.leaves((p, s)))):
+                    raise AssertionError(f"gcn: the resumed run differs from "
+                                         f"4 uninterrupted steps: {resumed} "
+                                         f"vs {whole[2:]}")
+                held = "bit-equal (losses, grad norms, weights, state)"
+            else:
+                for (l1, n1), (l2, n2) in zip(resumed, whole[2:]):
+                    if abs(l1 - l2) > TRAIN_DLRM_LOSS_RTOL * abs(l2) or \
+                            abs(n1 - n2) > TRAIN_DLRM_NORM_RTOL * abs(n2):
+                        raise AssertionError(f"dlrm: the resumed run's steps "
+                                             f"{resumed} vs {whole[2:]}")
+                held = (f"losses within rtol {TRAIN_DLRM_LOSS_RTOL}, grad "
+                        f"norms within {TRAIN_DLRM_NORM_RTOL}")
+            n_bytes = sum(a.numel() * a.element_size() for a in saved)
+            said.append(f"{name}: {len(saved)} tensors ({n_bytes} bytes) "
+                        f"saved in {save_s:.3f} s, restored in {restore_s:.3f} "
+                        f"s bit-equal; steps 3-4 after the restore {held} "
+                        f"({[round(x, 6) for x, _ in resumed]} vs "
+                        f"{[round(x, 6) for x, _ in whole[2:]]})")
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    log(f"[18d] checkpoints (save after 2 steps, restore with device='cuda', "
+        f"2 more steps, against 4 uninterrupted): " + "; ".join(said)
+        + f"; launches {counts}")
+    return counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4348,6 +4924,17 @@ def main() -> int:
         f"{GCN_RESERVE_S:.0f} s); the run {time.perf_counter() - t_start:.1f} "
         f"s so far")
 
+    # ---- 18a-b: the kernels' autograd routes, and gcn-cora trained at scale
+    # 20 on phase 10b's features, while the layout stands
+    t18 = time.perf_counter()
+    train_gcn_phase(dev=dev, card=card, csr=csr, tiled=tiled,
+                    gcn_layouts=gcn_layouts, errs=errs, table=table)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t18_ab = time.perf_counter() - t18
+    log(f"[18] phase 18a-b took {t18_ab:.1f} s; the run "
+        f"{time.perf_counter() - t_start:.1f} s so far")
+
     # ---- 12: CC, k-hop and PageRank on the ported sweeps, at scale 20
     # before phase 11 frees the layout
     t12 = time.perf_counter()
@@ -4814,6 +5401,15 @@ def main() -> int:
     log(f"[11] phase 11 took {time.perf_counter() - t11:.1f} s (reserve "
         f"{DLRM_RESERVE_S:.0f} s); the run {time.perf_counter() - t_start:.1f} "
         f"s so far")
+
+    # ---- 18c-d: DLRM trained at train_batch on the 2^22-row tables, once
+    # phase 11 has freed its own; checkpoints
+    t18 = time.perf_counter()
+    train_dlrm_phase(dev=dev, card=card, errs=errs, table=table)
+    train_checkpoint_phase(dev=dev, card=card)
+    log(f"[18] phase 18 took {t18_ab + time.perf_counter() - t18:.1f} s "
+        f"(reserve {TRAIN_RESERVE_S:.0f} s); the run "
+        f"{time.perf_counter() - t_start:.1f} s so far")
 
     print(json.dumps({"kernels": table}))
     print(card)

@@ -6,7 +6,7 @@ The mesh and sharding of ``build_cell`` are not ported.
 """
 import dataclasses
 
-from ..models.dlrm import DLRMConfig
+from ..models.dlrm import DLRMConfig, top_sizes
 
 ARCH_ID = "dlrm-mlperf"
 FAMILY = "recsys"
@@ -23,6 +23,25 @@ RECSYS_SHAPES = {
                               dp_all=True),
 }
 SHAPES = list(RECSYS_SHAPES)
+
+
+def mlp_flops(cfg: DLRMConfig) -> int:
+    """FLOPs a sample of the forward's dense part: the bottom and top MLPs
+    and the dot interaction of the (n_sparse + 1) vectors, as the JAX
+    package counts them for its DLRM cells (``repro/configs/cells.py``,
+    whose count writes 27 for n_sparse + 1, the MLPerf widths')."""
+    bot, top = list(cfg.bot_mlp), top_sizes(cfg)
+    f = cfg.n_sparse + 1
+    return (sum(2 * a * b for a, b in zip(bot[:-1], bot[1:]))
+            + sum(2 * a * b for a, b in zip(top[:-1], top[1:]))
+            + 2 * f * f * cfg.embed_dim)
+
+
+def train_flops(cfg: DLRMConfig, batch: int) -> int:
+    """FLOPs of a training step at ``batch`` samples: 3x the forward's
+    dense part (``3 * B * flops_mlp`` of the JAX package's ``train_batch``
+    cell; the lookups and their scatter are bytes, not counted)."""
+    return 3 * batch * mlp_flops(cfg)
 
 
 def make_config() -> DLRMConfig:

@@ -25,6 +25,18 @@ GNN_SHAPES = {
 SHAPES = list(GNN_SHAPES)
 
 
+def gcn_model_flops(cfg: GCNConfig, n_nodes: int, n_edges: int,
+                    d_feat: int) -> float:
+    """Forward and backward FLOPs of a GCN training step (3x the forward):
+    per layer ``x @ w`` and the aggregation's multiply-add an edge and
+    column. The GCN branch of the JAX package's ``gnn_model_flops``
+    (``repro/configs/cells.py``)."""
+    sizes = [d_feat] + [cfg.d_hidden] * (cfg.n_layers - 1) + [cfg.n_classes]
+    f = sum(2 * n_nodes * a * b + 2 * n_edges * b
+            for a, b in zip(sizes[:-1], sizes[1:]))
+    return 3.0 * f
+
+
 def make_config() -> GCNConfig:
     return GCNConfig(name=ARCH_ID, n_layers=2, d_hidden=16, n_classes=16)
 

@@ -4,9 +4,10 @@
 a layout the JAX package built; ``state_from_arrays`` does the same for a
 BFS state dict. ``gcn_params_from_arrays`` and ``gcn_batch_from_arrays``
 carry a GCN's weights and its input batch, ``dlrm_params_from_arrays`` and
-``dlrm_batch_from_arrays`` a DLRM's. With these, one layout, one state and
-one model go through both packages unchanged. Nothing here
-imports the JAX package: the caller hands over plain arrays.
+``dlrm_batch_from_arrays`` a DLRM's, and ``opt_state_from_arrays`` an
+optimiser's or a train step's state. With these, one layout, one state and
+one model go through both packages unchanged, in training too. Nothing
+here imports the JAX package: the caller hands over plain arrays.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from typing import Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import pytree
 from .core.formats import SlimSellTiled, chunk_tile_ptr, resolve_device
 from .models.dlrm import DLRMConfig, top_sizes
 from .models.gnn import GCNConfig, layer_shapes
@@ -204,3 +206,32 @@ def dlrm_batch_from_arrays(arrays: Mapping[str, np.ndarray], device=None) -> dic
             raise ValueError(f"label must be [{dense.shape[0]}], got {label.shape}")
         batch["label"] = _tensor(label, np.int32, dev)
     return batch
+
+
+# the dtypes of an optimiser's or a train step's state, by numpy name
+_STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "int32": torch.int32}
+
+
+def _state_leaf(a, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    name = str(a.dtype)
+    if name not in _STATE_DTYPES:
+        raise ValueError(f"optimiser state leaves are float32, bfloat16 or "
+                         f"int32, got {name}")
+    if name == "bfloat16":  # ml_dtypes' type: carried as its bits
+        bits = np.ascontiguousarray(a).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+
+def opt_state_from_arrays(state, device=None):
+    """An optimiser's state (AdamW ``{"m", "v"}``, SGD's momentum tree,
+    Muon's ``{"mom", "m", "v"}`` a weight) or a train step's (``{"opt",
+    "step"[, "ef"]}``) from the JAX package's, its leaves numpy arrays
+    (``jax.tree.map(np.asarray, state)``), as tensors on ``device``
+    (default: the card; raises when there is none), the structure kept.
+    float32, bfloat16 (Muon's momentum) and int32 (the step) leaves keep
+    their dtype; any other is refused."""
+    dev = resolve_device(device)
+    return pytree.tree_map(lambda a: _state_leaf(a, dev), state)

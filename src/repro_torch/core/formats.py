@@ -175,6 +175,10 @@ class SlimSellTiled:
                                                    compare=False)
     spmv_work: Optional[tuple] = dataclasses.field(default=None, repr=False,
                                                    compare=False)
+    # whether the adjacency is symmetric (``is_symmetric``), with the cols,
+    # row_block and row_vertex it was worked out from
+    symmetric: Optional[tuple] = dataclasses.field(default=None, repr=False,
+                                                   compare=False)
 
     @property
     def n_x(self) -> int:
@@ -206,6 +210,38 @@ def layout_to_torch(layout, device=None):
                  device=dev, dtype=dtype)
              for name, dtype in _TENSOR_FIELDS.items() if hasattr(layout, name)}
     return dataclasses.replace(layout, device=dev, **moved)
+
+
+def is_symmetric(tiled) -> bool:
+    """Whether the layout's adjacency is symmetric: for every edge (v, u),
+    a slot of v's row holding u, there is an edge (u, v), as often. Then the
+    GCN-normalised operator ``rsqrt(deg[v]) rsqrt(deg[u])`` is symmetric
+    too, whatever ``deg`` holds, and the backward of the GCN aggregation is
+    the same sweep (``kernels.autograd.gcn_aggregate``). ``build_csr``'s
+    undirected default gives such a layout; a directed one does not. Worked
+    out from the layout's own arrays (slots holding a column, in rows of a
+    vertex) once and kept on the layout (``tiled.symmetric``, beside the
+    arrays it was worked out from); a layout whose operand is not its
+    vertex set (a shard of the 2D partition) is never symmetric."""
+    arrays = (tiled.cols, tiled.row_block, tiled.row_vertex)
+    memo = getattr(tiled, "symmetric", None)
+    if memo is not None and all(a is b for a, b in zip(memo[:3], arrays)):
+        return memo[3]
+    if tiled.n_x != tiled.n:
+        result = False
+    else:
+        cols = torch.as_tensor(tiled.cols)
+        rows = torch.as_tensor(tiled.row_vertex).index_select(
+            0, torch.as_tensor(tiled.row_block).long())         # [T, C]
+        rows = rows[:, :, None].expand(cols.shape)
+        keep = (cols >= 0) & (rows >= 0)
+        v, u = rows[keep].long(), cols[keep].long()
+        n = int(tiled.n)
+        result = bool(torch.equal(torch.sort(v * n + u).values,
+                                  torch.sort(u * n + v).values))
+    if hasattr(tiled, "symmetric"):
+        tiled.symmetric = (*arrays, result)
+    return result
 
 
 def layout_signature(tiled: SlimSellTiled) -> tuple:

@@ -15,7 +15,9 @@ SpMV and SpMM sources with launch counts of their own, so a run shows
 SSSP's sweeps apart from BFS's. ``spmm(..., deg=)`` is the GCN
 aggregation under ``real``: its kernel, ``slimsell_spmm_gcn``, works the
 symmetric-normalised weight out of the degrees and has no backward, so on
-CUDA it refuses an X that autograd would have to see through.
+CUDA it refuses an X that autograd would have to see through; a training
+step reaches it through ``kernels.autograd.gcn_aggregate``, whose backward
+is the same sweep.
 
 The packed kernels (SlimSell-B) sweep int32 words that hold 32 bits each
 (``core.packing``): ``spmv_packed`` a frontier bitmap of ``ceil(n/32)``
@@ -478,7 +480,8 @@ def spmm(sr: Semiring, tiled, X: torch.Tensor, *,
     every column, the stored-weight kernel. With ``deg`` (float32 [n],
     under ``real``): Y[v, b] = sum over the kept slots of
     ``rsqrt(max(deg[v], 1)) * rsqrt(max(deg[col], 1)) * X[col, b]``, the
-    GCN kernel, which has no backward."""
+    GCN kernel, which has no backward (under autograd:
+    ``kernels.autograd.gcn_aggregate``)."""
     _check(sr, tiled, X, 2, tile_mask)
     if deg is not None:
         _check_deg(sr, tiled, X, deg, weights)
@@ -491,7 +494,8 @@ def spmm(sr: Semiring, tiled, X: torch.Tensor, *,
     if deg is not None and torch.is_grad_enabled() and X.requires_grad:
         raise RuntimeError("the GCN SpMM kernel has no backward: run the "
                            "forward under torch.no_grad() or "
-                           "torch.inference_mode()")
+                           "torch.inference_mode(), or train through "
+                           "kernels.autograd.gcn_aggregate")
     cols, tile_ptr, row_vertex, cl, mask = _cuda_operands(tiled, X, tile_mask)
     pieces, folds, slots = _spmm_work_on_device(tiled)
     B = X.shape[1]
@@ -618,7 +622,8 @@ def embedding_bag(table: torch.Tensor, bags: torch.Tensor,
     version does. On CUDA the table must be contiguous; ``bags`` may be any
     strided view (one field of a [B, F, K] id tensor), read in place
     without a copy. The kernel has no backward, so on CUDA a table that
-    requires grad is refused while grad mode is on."""
+    requires grad is refused while grad mode is on (under autograd:
+    ``kernels.autograd.bag_lookup``)."""
     check_choice("embedding_bag mode", mode, BAG_MODES)
     if table.dtype != torch.float32:
         raise TypeError(f"embedding_bag takes a float32 table, got {table.dtype}")
@@ -696,7 +701,8 @@ def embedding_bag_grouped(tables: Sequence[torch.Tensor], bags: torch.Tensor,
     if torch.is_grad_enabled() and any(t.requires_grad for t in tables):
         raise RuntimeError("the embedding-bag kernel has no backward: run the "
                            "forward under torch.no_grad() or "
-                           "torch.inference_mode()")
+                           "torch.inference_mode(), or train through "
+                           "kernels.autograd.bag_lookup")
     if out is None:
         out = torch.empty((B, T, d), dtype=torch.float32, device=dev)
     if B == 0 or d == 0:

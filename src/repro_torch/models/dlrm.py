@@ -1,6 +1,6 @@
-"""DLRM inference (Naumov et al., arXiv:1906.00091), the port of the JAX
-package's ``repro/models/dlrm.py``: embedding bags, a bottom MLP over the
-dense features, the dot interaction and a top MLP.
+"""DLRM (Naumov et al., arXiv:1906.00091), the port of the JAX package's
+``repro/models/dlrm.py``: embedding bags, a bottom MLP over the dense
+features, the dot interaction and a top MLP; inference and training.
 
 The sparse lookup is the hot path. ``_lookup_all`` sends all of a
 forward's fields at once to ``kernels.ops.embedding_bag_grouped``: CUDA
@@ -11,16 +11,21 @@ table). There is no ``use_kernel`` switch:
 ``repro``'s ``use_kernel=True`` (the Pallas kernel) is the card here,
 ``use_kernel=False`` (its jnp oracle) is ``device="cpu"``. Both sum a bag
 in slot order, so on the card the kernel and the plain version give the
-same bits. ``dlrm_forward`` has the bags written straight into the
-[B, 1 + n_sparse, d] tensor the interaction multiplies, beside the bottom
-MLP's output, so no stack copies them again.
+same bits. Outside grad mode ``dlrm_forward`` has the bags written
+straight into the [B, 1 + n_sparse, d] tensor the interaction multiplies,
+beside the bottom MLP's output, so no stack copies them again.
+
+Under grad mode (``dlrm_loss`` in a train step) the lookups go through
+``kernels.autograd.bag_lookup``: the same launch, into a new tensor, with
+a backward that scatters the bags' gradients into dense table gradients
+(``index_add_``, in no fixed order on the card). The interaction's tensor
+is then the bottom output and the bags joined by ``torch.cat``, not a
+write into a view of it, so autograd sees every part.
 
 The MLPs and the interaction are plain float32 products, as ``repro``
 leaves them to XLA outside any kernel: ``torch.matmul`` and ``torch.bmm``,
-in full float32 (PyTorch's default, ``allow_tf32`` False). Inference only:
-the kernel has no backward, so on the card the forward runs under
-``torch.no_grad()`` or ``torch.inference_mode()`` when the tables require
-grad. ``retrieval_scores`` scores one user against many candidates as one
+in full float32 (PyTorch's default, ``allow_tf32`` False).
+``retrieval_scores`` scores one user against many candidates as one
 matrix-vector product.
 """
 from __future__ import annotations
@@ -33,7 +38,7 @@ import torch
 from torch import nn
 
 from ..core.formats import resolve_device
-from ..kernels import ops
+from ..kernels import autograd, ops
 from .gnn import _placed, mlp_apply, mlp_init
 
 # MLPerf Criteo-1TB per-table cardinalities (public benchmark config)
@@ -100,7 +105,14 @@ def _lookup_all(tables: Sequence[torch.Tensor], sparse: torch.Tensor,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """sparse int32[B, n_sparse, K] (-1 pads) -> [B, n_sparse, d] (into
     ``out`` when given), each bag summed in slot order: one kernel launch
-    for CUDA tables, the plain version for CPU tables."""
+    for CUDA tables, the plain version for CPU tables. Under grad mode the
+    launch goes through ``autograd.bag_lookup`` into a new tensor, and
+    ``out`` is refused."""
+    if torch.is_grad_enabled():
+        if out is not None:
+            raise ValueError("under grad mode the lookups write a new tensor; "
+                             "out= is for inference")
+        return autograd.bag_lookup(tables, sparse, "sum")
     return ops.embedding_bag_grouped(tables, sparse, "sum", out=out)
 
 
@@ -158,16 +170,21 @@ def dlrm_forward(params: dict, batch: dict, cfg: DLRMConfig, *,
     _check_placement(params, batch, dev, ("dense", "sparse"))
     dense = bottom(params, batch["dense"], cfg)                 # [B, d]
     tables = params["tables"]
-    Z = dense.new_empty((dense.shape[0], 1 + len(tables), dense.shape[1]))
-    Z[:, 0] = dense
-    _lookup_all(tables, batch["sparse"], Z[:, 1:])
+    if torch.is_grad_enabled():
+        Z = torch.cat([dense[:, None], _lookup_all(tables, batch["sparse"])],
+                      dim=1)
+    else:
+        Z = dense.new_empty((dense.shape[0], 1 + len(tables), dense.shape[1]))
+        Z[:, 0] = dense
+        _lookup_all(tables, batch["sparse"], Z[:, 1:])
     return top(params, _interact(Z))
 
 
 def dlrm_loss(params: dict, batch: dict, cfg: DLRMConfig, *,
               device=None) -> torch.Tensor:
     """Mean binary cross-entropy of the logits against ``batch["label"]``,
-    in the JAX package's stable form. Forward only."""
+    in the JAX package's stable form ``max(z, 0) - z y + log1p(exp(-|z|))``;
+    differentiable (the loss of ``repro``'s ``train_batch`` cell)."""
     z = dlrm_forward(params, batch, cfg, device=device).to(torch.float32)
     y = batch["label"].to(torch.float32)
     return torch.mean(z.clamp_min(0) - z * y + torch.log1p(torch.exp(-z.abs())))
@@ -190,8 +207,7 @@ def dlrm_user_tower(params: dict, batch: dict, cfg: DLRMConfig, *,
 class DLRM(nn.Module):
     """DLRM as a module: its tables and MLP weights ``ParameterList``s,
     ``forward`` the same function as ``dlrm_forward`` on the weights'
-    device. On the card, call it under ``torch.inference_mode()``: the
-    embedding-bag kernel refuses tables that require grad in grad mode."""
+    device (under grad mode, through the lookups' autograd route)."""
 
     def __init__(self, cfg: DLRMConfig, params: Optional[dict] = None, *,
                  generator: Optional[torch.Generator] = None, device=None):

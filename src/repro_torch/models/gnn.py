@@ -1,6 +1,8 @@
-"""GCN inference (Kipf & Welling, arXiv:1609.02907), the port of the GCN of
-the JAX package's ``repro/models/gnn.py``, and that module's MLP helpers
-(``mlp_init``, ``mlp_apply``), which DLRM (``models.dlrm``) builds on.
+"""GCN (Kipf & Welling, arXiv:1609.02907), the port of the GCN of the JAX
+package's ``repro/models/gnn.py``, its training loss (``gcn_loss``, the GCN
+branch of ``repro/configs/cells.py::_gnn_loss``), and that module's MLP
+helpers (``mlp_init``, ``mlp_apply``), which DLRM (``models.dlrm``) builds
+on.
 
 A layer is ``aggregate(x @ w)``, with ReLU between layers. The aggregation
 is the symmetric-normalised neighbourhood sum: an edge (v, u) carries
@@ -11,13 +13,15 @@ backends compute it:
   ``index_add_`` (-1-padded edges are dropped); on the card the atomics
   make the summation order vary from run to run;
 * ``"slimsell"``: the SlimSell SpMM under ``real`` with the GCN weight
-  derived from ``deg`` (``core.spmv.slimsell_spmm(..., deg=)``), the
-  hand-written kernel ``slimsell_spmm_gcn`` on the card.
+  derived from ``deg`` (``ops.spmm(..., deg=)``), the hand-written kernel
+  ``slimsell_spmm_gcn`` on the card, through
+  ``kernels.autograd.gcn_aggregate``: its backward is the same sweep over
+  the output's gradient (the layout must be symmetric), so a training step
+  runs the kernel twice a layer forward and backward, four times for
+  gcn-cora.
 
 ``x @ w`` stays a float32 ``torch.matmul`` (no TF32), as the JAX package
-leaves it to XLA outside any kernel. Inference only: the GCN kernel has no
-backward, so on the card the SlimSell forward runs under
-``torch.no_grad()`` or ``torch.inference_mode()``.
+leaves it to XLA outside any kernel.
 """
 from __future__ import annotations
 
@@ -29,8 +33,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..core.formats import resolve_device
-from ..core.semiring import REAL
-from ..core.spmv import slimsell_spmm
+from ..kernels.autograd import gcn_aggregate
 
 AGGREGATIONS = ("segment", "slimsell")
 
@@ -115,8 +118,8 @@ def _placed(t: torch.Tensor, dev: torch.device, what: str) -> None:
 def _gcn_aggregate(x: torch.Tensor, batch: dict, n: int,
                    aggregation: str) -> torch.Tensor:
     if aggregation == "slimsell":
-        return slimsell_spmm(REAL, batch["tiled"], x,
-                             deg=batch["deg"].to(torch.float32))
+        return gcn_aggregate(batch["tiled"], x,
+                             batch["deg"].to(torch.float32))
     src, dst = batch["edge_index"]
     deg = batch["deg"].to(torch.float32).clamp_min(1.0)
     w = torch.rsqrt(gather_nodes(deg, src)) * torch.rsqrt(gather_nodes(deg, dst))
@@ -153,6 +156,22 @@ def gcn_forward(params: dict, batch: dict, cfg: GCNConfig, *,
         if i < len(params["w"]) - 1:
             x = torch.relu(x)
     return x
+
+
+def gcn_loss(params: dict, batch: dict, cfg: GCNConfig, *,
+             device=None) -> torch.Tensor:
+    """The node-classification loss of the JAX package's GCN cells
+    (``_gnn_loss``'s GCN branch): the log-softmax NLL of the logits against
+    one-hot ``batch["labels"]`` (int [N], -1 for none), averaged over the
+    nodes of ``(labels >= 0) * batch["train_mask"]`` (float [N]), the sum
+    divided by ``max(mask.sum(), 1)``."""
+    logits = gcn_forward(params, batch, cfg, device=device)
+    labels = batch["labels"]
+    oh = F.one_hot(labels.clamp_min(0).long(), logits.shape[-1]).to(
+        logits.dtype)
+    nll = -torch.sum(F.log_softmax(logits, dim=-1) * oh, dim=-1)
+    mask = (labels >= 0).to(torch.float32) * batch["train_mask"]
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 class GCN(nn.Module):

@@ -1,5 +1,6 @@
 """The card checks of ``chip_smoke.py`` that decide a run, on synthetic
-results here: the PageRank sweep-count rule (``pagerank_close``), the
+results here: the PageRank sweep-count rule (``pagerank_close``, its
+bound ``2 sum_i ulp(r_i)`` over the plain ranks), the
 betweenness bounds (``bc_close``), and the float64 Brandes the card's
 betweenness is held to (``brandes_f64``) against the plain-python oracle
 of ``tests/oracles.py``.
@@ -57,18 +58,34 @@ PR_CASES = {
     "star64-89-vs-90": (89, 90, 1.0347e-6, star_ranks(), True),
     "star64-90-vs-89": (90, 89, 8.866e-7, star_ranks(), True),
     "equal": (16, 16, 6.5e-7, star_ranks(), True),
-    # one apart, the residual 1.1e-5 from tol: far outside 3.8e-6
+    # one apart, the residual 1.1e-5 from tol: far outside 1.77e-7
     "one-apart-far": (40, 41, 1.2e-5, star_ranks(), False),
     # 1000 vertices of rank 1e-3: bound 2.3e-7, the residual 5e-7 from tol
     "one-apart-many-small-ranks": (20, 21, 1.5e-6,
                                    np.full(1000, 1e-3, np.float32), False),
     "two-apart": (88, 90, TOL, star_ranks(), False),
+    # 1e-6 from tol: inside the old 2 n ulp(max rank) (3.8e-6), outside
+    # 2 sum ulp(r_i) (1.77e-7)
+    "star64-old-bound-only": (89, 90, 2e-6, star_ranks(), False),
+    # a scale-20-like result: n = 2^20, a hub at 1e-3, the rest near 1/n;
+    # 2 sum ulp(r_i) 1.2e-7, while 2 n ulp(max rank) is 2.4e-4
+    "scale20-inside": (17, 18, TOL + 1e-7, None, True),
+    "scale20-old-bound-only": (17, 18, TOL + 5e-6, None, False),
 }
+
+
+def scale20_ranks():
+    n = 2 ** 20
+    r = np.full(n, (1.0 - 1e-3) / (n - 1), np.float32)
+    r[0] = 1e-3
+    return r
 
 
 @pytest.mark.parametrize("case", sorted(PR_CASES))
 def test_pagerank_close_sweep_rule(smoke, case):
     got_k, ref_k, resid, ranks, passes = PR_CASES[case]
+    if ranks is None:
+        ranks = scale20_ranks()
     k = min(got_k, ref_k)
     got = pr_result(ranks, got_k, 1e-6, k)
     ref = pr_result(ranks, ref_k, resid, k)
@@ -83,10 +100,20 @@ def test_pagerank_close_sweep_rule(smoke, case):
 
 def test_pagerank_close_ranks_and_bound(smoke):
     ref = pr_result(star_ranks(), 90, 1.0347e-6, 89)
-    # the worked example: 2 * 64 * ulp(0.46) = 2 * 64 * 2.98e-8
+    # the worked example: 2 * (ulp(0.46) + 63 * ulp(0.54 / 63))
+    # = 2 * (2^-25 + 63 * 2^-30); the looser 2 * 64 * ulp(0.46) beside it
     assert smoke.PR_RESID_ULPS == 2
-    assert smoke.pagerank_resid_bound(ref) == pytest.approx(3.815e-6,
+    assert smoke.pagerank_resid_bound(ref) == pytest.approx(
+        2 * (2.0 ** -25 + 63 * 2.0 ** -30), rel=1e-12)
+    assert smoke.pagerank_resid_bound(ref) == pytest.approx(1.769e-7,
                                                             rel=1e-3)
+    assert smoke.pagerank_resid_bound_max(ref) == pytest.approx(3.815e-6,
+                                                                rel=1e-3)
+    big = pr_result(scale20_ranks(), 18, TOL, 17)
+    assert smoke.pagerank_resid_bound(big) < 2e-7
+    assert smoke.pagerank_resid_bound_max(big) > 1e-4
+    assert smoke.pagerank_gap(pr_result(star_ranks(), 89, TOL, 89), ref,
+                              TOL) == pytest.approx(3.47e-8, rel=1e-3)
     off = star_ranks()
     off[1] *= 1.01   # outside rtol 1e-4: the ranks' bounds still raise
     with pytest.raises(AssertionError, match="ranks not within"):

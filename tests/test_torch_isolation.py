@@ -57,7 +57,16 @@ def test_port_imports_no_jax_and_no_jax_package():
             "src/repro_torch/analysis/contracts.py",
             "src/repro_torch/analysis/laws.py",
             "src/repro_torch/analysis/lint.py",
-            "src/repro_torch/analysis/registry.py"} <= names
+            "src/repro_torch/analysis/registry.py",
+            "src/repro_torch/pytree.py",
+            "src/repro_torch/optim/__init__.py",
+            "src/repro_torch/optim/optimizers.py",
+            "src/repro_torch/optim/compress.py",
+            "src/repro_torch/train/__init__.py",
+            "src/repro_torch/train/step.py",
+            "src/repro_torch/checkpoint/__init__.py",
+            "src/repro_torch/checkpoint/store.py",
+            "src/repro_torch/kernels/autograd.py"} <= names
     assert (REPO / "src/repro_torch/analysis/lint_allow.txt").is_file()
     assert (REPO / "src/repro_torch/kernels/csrc/semiring_probe.cu").is_file()
     bad = {str(p.relative_to(REPO)): sorted(set(_imported_roots(p)) & {"jax", "repro"})
@@ -283,3 +292,18 @@ def test_dist_factories_and_launcher_without_card_raise(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         distributed.launch(dist_bfs.run_cases, (2, 2), ("data", "model"),
                            ([],))
+
+
+def test_training_entry_points_without_card_raise(no_card, tmp_path):
+    """The checkpoint restore and the state converter want the card unless
+    told otherwise; the optimisers and the train step run where their
+    tensors lie."""
+    import torch as _torch
+    from repro_torch.checkpoint import store
+    store.save(str(tmp_path), 1, {"w": _torch.ones(2)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        store.restore(str(tmp_path), 1, {"w": 0})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.opt_state_from_arrays({"m": np.zeros(2, np.float32)})
+    got, _ = store.restore(str(tmp_path), 1, {"w": 0}, device="cpu")
+    assert got["w"].device == _torch.device("cpu")

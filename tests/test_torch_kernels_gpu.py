@@ -1243,3 +1243,162 @@ def test_analysis_corrupt_layout_refused_before_any_launch(cuda_weighted):
                 device=dev)
         torch.cuda.synchronize()
         assert ops.launch_counts() == before
+
+
+# ------------------------------------------------------------- training
+
+
+@pytest.mark.parametrize("width", [1, 16, 33])
+def test_train_gcn_aggregate_grad_equals_plain(cuda, width):
+    """Kernel 2g under autograd: the gradient of X is the same sweep over
+    the output's gradient, held within 1e-5 of autograd of the plain
+    version on the card; two launches (forward, backward)."""
+    from repro_torch.kernels import autograd
+    dev, tiled = cuda
+    g = torch.Generator(device=dev).manual_seed(width)
+    X = torch.randn((tiled.n, width), generator=g, device=dev)
+    R = torch.randn((tiled.n, width), generator=g, device=dev)
+    deg = tiled.deg.float()
+    before = ops.SPMM_GCN.launches
+    Xa = X.clone().requires_grad_(True)
+    got, = torch.autograd.grad((autograd.gcn_aggregate(tiled, Xa, deg) * R).sum(),
+                               [Xa])
+    assert ops.SPMM_GCN.launches == before + 2
+    Xb = X.clone().requires_grad_(True)
+    want, = torch.autograd.grad((spmm_plain(psr.REAL, tiled, Xb, deg=deg) * R).sum(),
+                                [Xb])
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_train_bag_lookup_grad_equals_plain(cuda, mode):
+    """Kernel 7 under autograd: one launch forward, the tables' gradients
+    by index_add_ within 1e-5 of autograd of the plain version on the
+    card, relative to the summed magnitudes each element receives (atomics
+    add in no fixed order, and a row's sum may cancel); pads and ids past
+    a table add nothing."""
+    from repro_torch.kernels import autograd
+    from repro_torch.kernels.ref import embedding_bag_grouped_ref
+    dev, _ = cuda
+    rng = np.random.default_rng(len(mode))
+    vocabs, d, B, K = (7, 1000, 1, 50), 128, 256, 3
+    tables = [torch.from_numpy(rng.standard_normal((v, d)).astype(np.float32)).to(dev)
+              for v in vocabs]
+    ids = np.stack([rng.integers(-1, v, (B, K)) for v in vocabs], 1).astype(np.int32)
+    ids[5, 1, 0] = vocabs[1]
+    bags = torch.from_numpy(ids).to(dev)
+    R = torch.randn((B, len(vocabs), d), device=dev)
+    ta = [t.clone().requires_grad_(True) for t in tables]
+    before = ops.EMBEDDING_BAG_GROUPED.launches
+    got = torch.autograd.grad(autograd.bag_lookup(ta, bags, mode), ta,
+                              grad_outputs=R)
+    assert ops.EMBEDDING_BAG_GROUPED.launches == before + 1
+    tb = [t.clone().requires_grad_(True) for t in tables]
+    ref = embedding_bag_grouped_ref(tb, bags, mode)
+    want = torch.autograd.grad(ref, tb, grad_outputs=R, retain_graph=True)
+    mag = torch.autograd.grad(ref, tb, grad_outputs=R.abs())
+    for a, b, m in zip(got, want, mag):
+        assert torch.isfinite(a).all()
+        assert ((a - b).abs() <= 1e-5 * m + 1e-30).all()
+
+
+def test_train_steps_card_equal_cpu(cuda):
+    """Three AdamW steps of the reduced DLRM and of a gcn-cora GCN on the
+    card against the CPU: losses and grad norms within 1e-4, weights
+    within 1e-4; kernel 7 once a DLRM step, 2g four times a GCN step."""
+    import dataclasses
+
+    from repro_torch import convert, optim
+    from repro_torch.configs.dlrm_mlperf import reduced_config
+    from repro_torch.configs.gcn_cora import make_config
+    from repro_torch.data.pipeline import CriteoPipeline
+    from repro_torch.models import dlrm, gnn
+    from repro_torch.train import make_train_step
+    dev, _ = cuda
+    cfg = reduced_config()
+    gcfg = dataclasses.replace(make_config(), aggregation="slimsell")
+    csr = erdos_renyi(2708, 3.9, seed=6)
+    host = build_slimsell(csr, C=8, L=16)
+    rng = np.random.default_rng(6)
+    gbatch = {"node_feat": torch.from_numpy(rng.standard_normal(
+                  (csr.n, gcfg.d_in)).astype(np.float32)),
+              "deg": torch.from_numpy(csr.deg.astype(np.int32)),
+              "labels": torch.from_numpy(rng.integers(0, 16, csr.n).astype(np.int32)),
+              "train_mask": torch.from_numpy((rng.random(csr.n) < 0.05).astype(
+                  np.float32))}
+    arrays = CriteoPipeline(cfg.vocabs, 256, 1, seed=4).get_batch(0)
+    out = {}
+    for d in ("cpu", dev):
+        dp = dlrm.dlrm_init(cfg, generator=torch.Generator().manual_seed(4),
+                            device="cpu")
+        dp = {"tables": [t.to(d) for t in dp["tables"]],
+              **{k: [{n: v.to(d) for n, v in l.items()} for l in dp[k]]
+                 for k in ("bot", "top")}}
+        db = convert.dlrm_batch_from_arrays(arrays, device=d)
+        gp = {"w": [w.to(d) for w in gnn.gcn_init(gcfg, device="cpu")["w"]]}
+        gb = {k: v.to(d) for k, v in gbatch.items()}
+        gb["tiled"] = host.to_torch(d)
+        runs = []
+        for loss, p, b, kernel in (
+                (lambda p, b: dlrm.dlrm_loss(p, b, cfg, device=d), dp, db,
+                 ops.EMBEDDING_BAG_GROUPED),
+                (lambda p, b: gnn.gcn_loss(p, b, gcfg, device=d), gp, gb,
+                 ops.SPMM_GCN)):
+            step, init = make_train_step(loss, optim.adamw())
+            s = init(p)
+            before = kernel.launches
+            metrics = []
+            for _ in range(3):
+                p, s, m = step(p, s, b)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            runs.append((metrics, p, kernel.launches - before))
+        out[str(d)] = runs
+    (dl_cpu, dp_cpu, _), (gl_cpu, gp_cpu, _) = out["cpu"]
+    (dl_dev, dp_dev, k7), (gl_dev, gp_dev, k2g) = out[str(dev)]
+    assert k7 == 3 and k2g == 12
+    np.testing.assert_allclose(dl_dev, dl_cpu, rtol=1e-4)
+    np.testing.assert_allclose(gl_dev, gl_cpu, rtol=1e-4)
+    from repro_torch import pytree
+    for a, b in zip(pytree.leaves(dp_dev) + pytree.leaves(gp_dev),
+                    pytree.leaves(dp_cpu) + pytree.leaves(gp_cpu)):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_train_muon_step_card_equals_cpu(cuda):
+    """One Muon step of a stacked [3, 64, 32] leaf (bfloat16 Newton-Schulz)
+    on the card against the CPU: the orthogonalised update, the weights'
+    step over lr * scale, within the CPU test's bound on Newton-Schulz
+    (rtol = atol = 2e-2), the bfloat16 momentum bit-equal."""
+    from repro_torch import optim
+    dev, _ = cuda
+    rng = np.random.default_rng(3)
+    p0 = rng.standard_normal((3, 64, 32)).astype(np.float32) * 0.1
+    g0 = rng.standard_normal((3, 64, 32)).astype(np.float32)
+    out = {}
+    for d in ("cpu", dev):
+        p = {"w": torch.tensor(p0, device=d)}
+        opt = optim.muon()
+        st = opt.init(p)
+        opt.update({"w": torch.tensor(g0, device=d)}, st, p,
+                   torch.zeros((), dtype=torch.int32, device=d))
+        out[str(d)] = ((torch.tensor(p0) - p["w"].cpu()) / (0.02 * 2 ** 0.5),
+                       st["w"]["mom"].cpu())
+    torch.testing.assert_close(out[str(dev)][0], out["cpu"][0], rtol=2e-2,
+                               atol=2e-2)
+    assert torch.equal(out[str(dev)][1].view(torch.int16),
+                       out["cpu"][1].view(torch.int16))
+
+
+def test_train_checkpoint_restores_on_card(cuda, tmp_path):
+    """A state saved from the card restores onto it bit for bit."""
+    from repro_torch.checkpoint import store
+    dev, _ = cuda
+    tree = {"w": [torch.randn(5, 3, device=dev)],
+            "mom": torch.randn(4, device=dev).to(torch.bfloat16),
+            "step": torch.tensor(7, dtype=torch.int32, device=dev)}
+    store.save(str(tmp_path), 7, tree)
+    got, _ = store.restore(str(tmp_path), 7, tree, device=dev)
+    assert got["w"][0].is_cuda and torch.equal(got["w"][0], tree["w"][0])
+    assert torch.equal(got["mom"].view(torch.int16), tree["mom"].view(torch.int16))
+    assert got["step"].dtype == torch.int32 and int(got["step"]) == 7
