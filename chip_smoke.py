@@ -321,7 +321,39 @@ exit and no result line):
    saved after 2 steps, restored with ``device="cuda"`` (every tensor
    bit-equal to the one saved), 2 more steps, against 4 uninterrupted
    steps: the GCN bit-equal, the DLRM within ``TRAIN_DLRM_*`` (the
-   gradients' ``index_add_`` adds in no fixed order on the card).
+   gradients' ``index_add_`` adds in no fixed order on the card);
+19. (run after phase 18a-b and before 12, while the scale-20 layout
+   stands) GIN, EGNN and NequIP (``models.gnn``, ``graphs.sampler``,
+   ``kernels.autograd.spmm_aggregate``), each bound relative to the
+   largest magnitude of the output it holds: (a) kernel 2's real mode at
+   B = 100 and 602 against its plain version on phase 3's hub graph
+   within ``GNN_KERNEL_TOL``; ``spmm_aggregate``'s X gradient at scale 14
+   against autograd of the plain version, one launch forward and one
+   backward; ``ops.spmm`` refusing an X that requires grad; (b) gin-tu (5
+   layers of 64, 8 classes) at d_in 100 (ogb_products' width) on the
+   scale-20 graph, N(0, 1) features seeded on the host, one graph: eight
+   forwards (three requests, five timed) bit-equal, kernel 2 launched
+   exactly 5 times a forward and no other kernel, the logits within
+   ``GNN_SEG_TOL`` of the segment aggregation's; each layer's sum (kernel
+   2 at B = 100, then 64) against its plain version within
+   ``GNN_KERNEL_TOL`` of its largest magnitude and, on every row of at
+   most ``GNN_SHORT_ROW`` slots, of each element's sum of magnitudes;
+   each layer's largest magnitude; the warm forward's median, nodes/s and
+   TFLOP/s (``gnn_model_flops / 3``); kernel 2 at B = 100 timed beside its
+   plain version, ``torch.sparse.mm`` (the same function, held within
+   ``GNN_KERNEL_TOL``) and its bound; (c) a ``minibatch_lg`` block sampled
+   from the scale-20 CSR (1024 seeds, fanouts (15, 10), padded to
+   ``expected_block_sizes``), its layout built from the reversed edges
+   (nnz == the block's edges, not symmetric), and gin-tu at d_in 602 on it
+   as in (b), its rates over the nodes and edges drawn, not the padding
+   (sampling and build times); (d)
+   egnn and nequip on the ``molecule`` cell (128 molecules of 30 atoms,
+   ``generators.molecules``): the card against the CPU within
+   ``GNN_CARD_TOL``, the energies invariant under a seeded rotation and
+   translation (and EGNN's coordinates co-rotating) at the JAX package's
+   test bounds, no kernel launched, the warm forward at 128 and 4,096
+   molecules, its six requests at each within ``GNN_CARD_TOL`` of the
+   first (``index_add_`` sums in no fixed order there).
 
 The graphs carry the Graph500 SSSP weights (uniform on [2^-8, 1]); one
 weighted layout per scale serves every phase (the BFS phases never read
@@ -341,7 +373,8 @@ over 17a; kernel 4 over phase 5's pull
 harness batch and kernel 2w over phase 8b's per-root harness; the
 embedding bag over phase 11b, exactly once a forward; the GCN SpMM over
 phase 18b, exactly four times a training step, and the embedding bag over
-phase 18c, exactly once a training step.
+phase 18c, exactly once a training step; kernel 2 over phases 19b and
+19c, each counted from zero, exactly five times a GIN forward.
 The last lines are the kernel table, the card, and ``{"ok": true,
 "device": {...}}``.
 """
@@ -372,8 +405,8 @@ SEMIRINGS = ("tropical", "real", "boolean", "selmax")
 SCALE, EDGE_FACTOR, SMALL_SCALE = 20, 16, 14
 # the whole run must end within 1200 s; phase 8b validates 64 SSSP trees
 # only if that still ends by this mark, else the first 16; phase 9c the
-# same by its own mark; both leave phases 10, 12, 13, 14, 15, 16, 17, 11
-# and 18 their reserves
+# same by its own mark; both leave phases 10, 12, 13, 14, 15, 16, 17, 11,
+# 18 and 19 their reserves
 GCN_RESERVE_S = 60.0
 DLRM_RESERVE_S = 90.0
 GRAPH_RESERVE_S = 90.0
@@ -383,12 +416,13 @@ SESSION_RESERVE_S = 60.0
 DIST_RESERVE_S = 120.0
 ANALYSIS_RESERVE_S = 60.0
 TRAIN_RESERVE_S = 60.0
+GNN_RESERVE_S = 30.0
 VALIDATE_ALL_BY_S = 900.0 - GCN_RESERVE_S - DLRM_RESERVE_S \
     - GRAPH_RESERVE_S - BC_RESERVE_S - SERVE_RESERVE_S - SESSION_RESERVE_S \
-    - DIST_RESERVE_S - ANALYSIS_RESERVE_S - TRAIN_RESERVE_S
+    - DIST_RESERVE_S - ANALYSIS_RESERVE_S - TRAIN_RESERVE_S - GNN_RESERVE_S
 VALIDATE_BATCH_BY_S = 1000.0 - GCN_RESERVE_S - DLRM_RESERVE_S \
     - GRAPH_RESERVE_S - BC_RESERVE_S - SERVE_RESERVE_S - SESSION_RESERVE_S \
-    - DIST_RESERVE_S - ANALYSIS_RESERVE_S - TRAIN_RESERVE_S
+    - DIST_RESERVE_S - ANALYSIS_RESERVE_S - TRAIN_RESERVE_S - GNN_RESERVE_S
 # PageRank with the kernels against the same call with the plain sweeps
 # (phase 12): kernel 1 adds a row in another order than the plain version,
 # so the ranks are held to bounds fixed before the first card run
@@ -935,8 +969,8 @@ def graph_workloads(*, dev, card, csr, tiled, root, lane_boolean, roots,
             f"sweeps={res.iterations} (plain sweeps {ref.iterations}) "
             f"residuals={[float(f'{x:.4g}') for x in res.residuals]}; median "
             f"{med * 1e3:.1f} ms of {[round(s * 1e3, 1) for s in secs]}, "
-            f"{med * 1e3 / res.iterations:.2f} ms a sweep; three runs "
-            f"bit-equal; L1 to the plain sweeps {l1:.3e}, to float64 "
+            f"{med * 1e3 / res.iterations:.2f} ms a sweep; {len(runs)} "
+            f"run(s) bit-equal; L1 to the plain sweeps {l1:.3e}, to float64 "
             f"{l1_64:.3e} (bound {PR_L1_F64}); sweeps one apart: "
             f"{one_apart}; the plain residual at sweep "
             f"{min(res.iterations, ref.iterations)} "
@@ -3520,6 +3554,394 @@ def train_checkpoint_phase(*, dev, card):
     return counts
 
 
+# GIN, EGNN and NequIP (phase 19): bounds fixed before the first card run,
+# each relative to the largest magnitude of the output it bounds
+GNN_KERNEL_TOL = 1e-5   # kernel 2 and its autograd route against plain
+# a row of at most this many slots: two float32 sums of its terms in any
+# two orders lie within 2 (64 - 1) 2^-24 = 7.5e-6 < GNN_KERNEL_TOL of the
+# sum of the terms' magnitudes
+GNN_SHORT_ROW = 64
+GNN_SEG_TOL = 1e-4      # GIN slimsell against segment (repro's GIN bound)
+GNN_CARD_TOL = 1e-4     # EGNN and NequIP on the card against the CPU
+GNN_TIMED = 5           # warm forwards timed, median taken
+GNN_SEEDS, GNN_FANOUTS = 1024, (15, 10)   # minibatch_lg's sampled block
+GNN_MOLECULES = (128, 4096)
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over the largest magnitude of ``b``."""
+    scale = float(b.double().abs().max()) if b.numel() else 0.0
+    return float((a.double() - b.double()).abs().max()) / max(scale, 1e-30)
+
+
+def check_rel(got, want, tol: float, what: str) -> float:
+    """``got`` within ``tol`` of ``want``'s largest magnitude, both finite."""
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{what}: not finite")
+    err = rel_err(got, want)
+    if err > tol:
+        raise AssertionError(f"{what}: {err:.3e} of the largest magnitude, "
+                             f"over {tol}")
+    return err
+
+
+def check_rows(got, want, scale, rows, tol: float, what: str) -> float:
+    """On the rows ``rows`` (a bool mask), every element of ``got`` within
+    ``tol`` times the same element of ``scale`` (the sum of the magnitudes
+    it adds) of ``want``: a bound on each row of its own, so the hubs'
+    magnitudes hide no fault of a short row. The largest ratio."""
+    diff = (got.double() - want.double()).abs()[rows]
+    scale = scale.double()[rows]
+    if bool((diff > tol * scale).any()):
+        raise AssertionError(f"{what}: an element of a short row is over "
+                             f"{tol} of its row's sum of magnitudes")
+    return float((diff / scale.clamp_min(1e-300)).max()) if diff.numel() \
+        else 0.0
+
+
+def counted_forwards(fn, n: int):
+    """``n`` forwards of ``fn`` under ``torch.inference_mode()``, the launch
+    counts set to 0 just before and read just after: the outputs, each
+    one's host seconds around a synchronised call, the counts."""
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    out, secs = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out.append(fn())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return out, secs, ops.launch_counts()
+
+
+def only_kernel_2(counts: dict, forwards: int, what: str) -> int:
+    """Kernel 2 launched exactly 5 times a GIN forward, no other kernel."""
+    want = {"slimsell_spmm": 5 * forwards}
+    got = {k: v for k, v in counts.items() if v}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got} over {forwards} "
+                             f"forwards, want {want}")
+    return want["slimsell_spmm"]
+
+
+def gnn_phase(*, dev, card, csr, tiled, small, hub, adj, layout_bytes,
+              table):
+    """Phase 19: GIN on kernel 2's real mode at scale 20 and on a sampled
+    ``minibatch_lg`` block, and EGNN and NequIP on the ``molecule`` cell."""
+    from repro_torch import convert, pytree
+    from repro_torch.configs import egnn as egnn_cfg
+    from repro_torch.configs import gin_tu
+    from repro_torch.configs import nequip as nequip_cfg
+    from repro_torch.configs.cells import GNN_SHAPES, gnn_model_flops
+    from repro_torch.core.formats import build_slimsell, is_symmetric
+    from repro_torch.core.semiring import REAL
+    from repro_torch.core.spmv import spmm_plain
+    from repro_torch.graphs.generators import molecules
+    from repro_torch.graphs.sampler import (block_csr, expected_block_sizes,
+                                            sample_block)
+    from repro_torch.kernels import autograd, ops
+    from repro_torch.models import gnn
+    from repro_torch.profile_spmm import time_ms
+
+    # (a) kernel 2's real mode at GIN's widths, its autograd route, and the
+    # refusal of the wrapper under grad
+    gen = torch.Generator(device=dev).manual_seed(19)
+    width_err = {}
+    for width in (100, 602):
+        X = torch.randn((hub.n, width), generator=gen, device=dev)
+        width_err[width] = check_rel(ops.spmm(REAL, hub, X),
+                                     spmm_plain(REAL, hub, X), GNN_KERNEL_TOL,
+                                     f"kernel 2 real, hub graph B={width}")
+    X = torch.randn((small.n, 64), generator=gen, device=dev)
+    R = torch.randn((small.n, 64), generator=gen, device=dev)
+    before = ops.SPMM.launches
+    Xa = X.clone().requires_grad_(True)
+    got, = torch.autograd.grad(
+        (autograd.spmm_aggregate(small, Xa) * R).sum(), [Xa])
+    if ops.SPMM.launches != before + 2:
+        raise AssertionError("spmm_aggregate: not one launch forward and one "
+                             "backward")
+    Xb = X.clone().requires_grad_(True)
+    want, = torch.autograd.grad((spmm_plain(REAL, small, Xb) * R).sum(), [Xb])
+    grad_err = check_rel(got, want, GNN_KERNEL_TOL,
+                         f"spmm_aggregate X gradient, scale {SMALL_SCALE}")
+    before = ops.SPMM.launches
+    try:
+        ops.spmm(REAL, small, Xa)
+        raise AssertionError("ops.spmm took an X that requires grad")
+    except RuntimeError as e:
+        refusal = str(e)
+    if ops.SPMM.launches != before or "spmm_aggregate" not in refusal:
+        raise AssertionError(f"the refusal launched or named no route: "
+                             f"{refusal!r}")
+    del X, R, Xa, Xb, got, want
+    log(f"[19a] kernel 2 real == plain within {GNN_KERNEL_TOL} of the largest "
+        f"magnitude on the hub graph (n={hub.n}): B=100 {width_err[100]:.3e}, "
+        f"B=602 {width_err[602]:.3e}; spmm_aggregate's X gradient at scale "
+        f"{SMALL_SCALE}, B=64, == autograd of plain ({grad_err:.3e}), one "
+        f"launch forward and one backward; ops.spmm under grad refused: "
+        f"{refusal!r}")
+
+    # (b) gin-tu at d_in 100 (ogb_products' width) on the resident graph
+    d_in = GNN_SHAPES["ogb_products"]["d_feat"]
+    cfg = dataclasses.replace(gin_tu.make_config(), d_in=d_in,
+                              aggregation="slimsell")
+    seg_cfg = dataclasses.replace(cfg, aggregation="segment")
+    params = gnn.gin_init(cfg, generator=torch.Generator().manual_seed(19),
+                          device=dev)
+    n = tiled.n
+    feat = torch.randn((n, d_in), generator=torch.Generator().manual_seed(20))
+    batch = {"node_feat": feat.to(dev), "tiled": tiled, "n_graphs": 1,
+             "graph_ids": torch.zeros(n, dtype=torch.int32, device=dev)}
+    del feat
+    outs, secs, counts = counted_forwards(
+        lambda: gnn.gin_forward(params, batch, cfg), 3 + GNN_TIMED)
+    launches_b = only_kernel_2(counts, len(outs), f"gin-tu at scale {SCALE}")
+    y = outs[0]
+    if y.shape != (1, cfg.n_classes) or not torch.isfinite(y).all():
+        raise AssertionError(f"GIN logits: shape {tuple(y.shape)}, or not "
+                             "finite")
+    if not all(torch.equal(o, y) for o in outs):
+        raise AssertionError("the GIN requests gave different logits")
+    src = np.repeat(np.arange(n, dtype=np.int32), np.diff(csr.indptr))
+    batch["edge_index"] = torch.from_numpy(
+        np.stack([csr.indices.astype(np.int32), src])).to(dev)
+    del src
+    seg_out, seg_secs, _ = counted_forwards(
+        lambda: gnn.gin_forward(params, batch, seg_cfg), 3)
+    seg_err = check_rel(y, seg_out[0], GNN_SEG_TOL,
+                        f"gin-tu slimsell vs segment at scale {SCALE}")
+    del batch["edge_index"], seg_out
+    # the forward's layers one by one: each layer's sum (kernel 2 at B =
+    # d_in, then 64, on the layer's own input) against the plain version,
+    # within GNN_KERNEL_TOL of its largest magnitude and, on every row of
+    # at most GNN_SHORT_ROW slots, of each element's sum of magnitudes;
+    # each layer's largest magnitude
+    short = torch.from_numpy(np.diff(csr.indptr) <= GNN_SHORT_ROW).to(dev)
+    mags, layer_err, row_err = [], [], []
+    with torch.inference_mode():
+        x = batch["node_feat"]
+        for i, lp in enumerate(params["layers"]):
+            agg = autograd.spmm_aggregate(tiled, x)
+            want = spmm_plain(REAL, tiled, x)
+            what = f"kernel 2 real, GIN layer {i + 1} at scale {SCALE}"
+            layer_err.append(check_rel(agg, want, GNN_KERNEL_TOL, what))
+            # a layer past the first sums ReLU outputs, all >= 0
+            scale = spmm_plain(REAL, tiled, x.abs()) if i == 0 else want
+            row_err.append(check_rows(agg, want, scale, short,
+                                      GNN_KERNEL_TOL, what))
+            x = gnn.mlp_apply(lp["mlp"], (1.0 + lp["eps"]) * x + agg,
+                              act=torch.relu, final_act=True)
+            mags.append(float(x.abs().max()))
+            del agg, want, scale
+    del x
+    med = float(np.median(secs[3:]))
+    seg_med = float(np.median(seg_secs))
+    edges = int((tiled.cols >= 0).sum())
+    flops = gnn_model_flops("gin", cfg, n, edges, d_in)
+    # kernel 2 at B = 100 with no mask, as GIN calls it
+    X100 = batch["node_feat"]
+    lib_err = check_rel(ops.spmm(REAL, tiled, X100),
+                        torch.sparse.mm(adj, X100), GNN_KERNEL_TOL,
+                        f"kernel 2 real against torch.sparse.mm, B={d_in}")
+    ms = time_ms(lambda: ops.spmm(REAL, tiled, X100), 20)
+    plain_ms = time_ms(lambda: spmm_plain(REAL, tiled, X100), 2)
+    library_ms = time_ms(lambda: torch.sparse.mm(adj, X100), 20)
+    mask_bytes = tiled.n_tiles  # layout_bytes counts the bool mask; none here
+    moved = layout_bytes - mask_bytes + 2 * 4 * n * d_in
+    adds = edges * d_in
+    bound_ms = 1e3 * max(moved / HBM_BYTES_PER_S, adds / F32_OPS_PER_S)
+    del batch, X100, outs, y
+    gin_row = {"n": n, "edges": edges, "d_in": d_in, "forwards": len(secs),
+               "forward_ms": 1e3 * med, "forward_ms_each": [1e3 * s for s in secs],
+               "nodes_per_s": n / med, "tflops": flops / 3 / med / 1e12,
+               "segment_forward_ms": 1e3 * seg_med,
+               "slimsell_vs_segment_rel": seg_err, "layer_max_abs": mags,
+               "kernel_vs_plain_rel": layer_err,
+               "kernel_vs_plain_short_rows": row_err,
+               "short_rows": int(short.sum()),
+               "kernel_b100": {"ms": ms, "plain_ms": plain_ms,
+                               "library_ms": library_ms, "bound_ms": bound_ms,
+                               "bound_by": "bytes" if moved / HBM_BYTES_PER_S
+                               >= adds / F32_OPS_PER_S else "operations",
+                               "bytes": moved, "library_rel_err": lib_err,
+                               "library_call": "torch.sparse.mm (real; the "
+                               "same function)"}}
+    log(f"[19b] gin-tu (5 x 64, 8 classes, d_in {d_in}) at scale {SCALE} "
+        f"(n={n}, {edges} edges): {len(secs)} slimsell forwards bit-equal, "
+        f"launches slimsell_spmm={launches_b} (5 a forward, no other "
+        f"kernel); slimsell == segment within {GNN_SEG_TOL} of the largest "
+        f"logit ({seg_err:.3e}); each layer's sum == plain within "
+        f"{GNN_KERNEL_TOL} of its largest magnitude "
+        f"{[f'{e:.3e}' for e in layer_err]} and, on the {int(short.sum())} "
+        f"rows of at most {GNN_SHORT_ROW} slots, of each element's sum of "
+        f"magnitudes {[f'{e:.3e}' for e in row_err]}; each layer's largest "
+        f"magnitude {[f'{m:.3e}' for m in mags]}")
+    log(f"[19b] warm forward, median of {GNN_TIMED}: {med * 1e3:.4f} ms "
+        f"({[round(s * 1e3, 4) for s in secs]}), {n / med:.6e} nodes/s, "
+        f"{flops / 3 / med / 1e12:.4f} TFLOP/s (gnn_model_flops / 3 = "
+        f"{flops / 3:.6e}); segment forward {seg_med * 1e3:.4f} ms; kernel 2 "
+        f"B={d_in}: {ms:.4f} ms, plain {plain_ms:.3f} ms, torch.sparse.mm "
+        f"{library_ms:.4f} ms (rel err {lib_err:.3e}, within "
+        f"{GNN_KERNEL_TOL}), bound {bound_ms:.4f} "
+        f"ms ({moved / 1e9:.4f} GB) on {card}")
+
+    # (c) gin-tu at d_in 602 on a sampled minibatch_lg block
+    sh = GNN_SHAPES["minibatch_lg"]
+    pads = expected_block_sizes(GNN_SEEDS, GNN_FANOUTS)
+    if pads != (sh["n_nodes"], sh["n_edges"]):
+        raise AssertionError(f"expected_block_sizes {pads} != minibatch_lg")
+    rng = np.random.default_rng(19)
+    t0 = time.perf_counter()
+    seeds = rng.choice(csr.n, GNN_SEEDS, replace=False)
+    block = sample_block(csr, seeds, GNN_FANOUTS, rng=rng,
+                         n_nodes_pad=pads[0], n_edges_pad=pads[1])
+    sample_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bcsr = block_csr(block)
+    bhost = build_slimsell(bcsr, C=8, L=128)
+    btiled = bhost.to_torch(dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    b_nnz = int((btiled.cols >= 0).sum())
+    if b_nnz != block.n_edges or bcsr.nnz != block.n_edges:
+        raise AssertionError(f"the block's layout holds {b_nnz} slots, the "
+                             f"block {block.n_edges} edges")
+    if is_symmetric(btiled):
+        raise AssertionError("the block's layout is symmetric")
+    bcfg = dataclasses.replace(cfg, d_in=sh["d_feat"])
+    bparams = gnn.gin_init(bcfg, generator=torch.Generator().manual_seed(21),
+                           device=dev)
+    nb = pads[0]   # the padded node slots the forward runs over
+    bfeat = torch.randn((nb, sh["d_feat"]),
+                        generator=torch.Generator().manual_seed(22))
+    bbatch = {"node_feat": bfeat.to(dev), "tiled": btiled, "n_graphs": 1,
+              "graph_ids": torch.from_numpy(np.where(
+                  block.node_ids >= 0, 0, -1).astype(np.int32)).to(dev),
+              "edge_index": torch.from_numpy(block.edge_index).to(dev)}
+    del bfeat
+    outs, bsecs, counts = counted_forwards(
+        lambda: gnn.gin_forward(bparams, bbatch, bcfg), 3 + GNN_TIMED)
+    launches_c = only_kernel_2(counts, len(outs), "gin-tu on the block")
+    if not all(torch.equal(o, outs[0]) for o in outs):
+        raise AssertionError("the block's GIN requests gave different logits")
+    with torch.inference_mode():
+        bseg = gnn.gin_forward(bparams, bbatch, dataclasses.replace(
+            bcfg, aggregation="segment"))
+    bseg_err = check_rel(outs[0], bseg, GNN_SEG_TOL,
+                         "gin-tu slimsell vs segment on the block")
+    bmed = float(np.median(bsecs[3:]))
+    # the rates count the nodes and edges drawn, not the padding
+    bflops = gnn_model_flops("gin", bcfg, block.n_nodes, block.n_edges,
+                             sh["d_feat"])
+    block_row = {"seeds": GNN_SEEDS, "fanouts": list(GNN_FANOUTS),
+                 "n_nodes": block.n_nodes, "n_edges": block.n_edges,
+                 "pads": list(pads), "sample_s": sample_s, "build_s": build_s,
+                 "tiles": btiled.n_tiles, "forward_ms": 1e3 * bmed,
+                 "forward_ms_each": [1e3 * s for s in bsecs],
+                 "nodes_per_s": block.n_nodes / bmed,
+                 "padded_slots_per_s": nb / bmed,
+                 "tflops": bflops / 3 / bmed / 1e12,
+                 "slimsell_vs_segment_rel": bseg_err}
+    del bbatch, btiled, outs, bseg
+    log(f"[19c] minibatch_lg block from {GNN_SEEDS} seeds at fanouts "
+        f"{GNN_FANOUTS}: {block.n_nodes} nodes and {block.n_edges} edges "
+        f"drawn (pads {pads[0]} / {pads[1]}), sampled in {sample_s:.3f} s; "
+        f"layout of the reversed edges (C=8, L=128, {bhost.n_tiles} tiles, "
+        f"nnz == n_edges, not symmetric) built and moved in {build_s:.3f} s; "
+        f"gin-tu at d_in {sh['d_feat']}: {len(bsecs)} forwards bit-equal, "
+        f"launches slimsell_spmm={launches_c} (5 a forward, no other "
+        f"kernel), slimsell == segment within {GNN_SEG_TOL} ({bseg_err:.3e}); "
+        f"warm forward, median of {GNN_TIMED}: {bmed * 1e3:.4f} ms, "
+        f"{block.n_nodes / bmed:.6e} nodes/s and "
+        f"{bflops / 3 / bmed / 1e12:.4f} TFLOP/s of the drawn nodes and "
+        f"edges ({nb / bmed:.6e} padded node slots/s) on {card}")
+
+    # (d) egnn and nequip on the molecule cell
+    mol_rows = {}
+    Q = torch.from_numpy(np.linalg.qr(np.random.default_rng(23).standard_normal(
+        (3, 3)))[0].astype(np.float32))
+    shift = torch.tensor([1.0, -2.0, 0.5])
+    for name, mod, init, forward in (
+            ("egnn", egnn_cfg, gnn.egnn_init, gnn.egnn_forward),
+            ("nequip", nequip_cfg, gnn.nequip_init, gnn.nequip_forward)):
+        mcfg = mod.make_config()
+        cpu_params = init(mcfg, generator=torch.Generator().manual_seed(24),
+                          device="cpu")
+        dev_params = pytree.tree_map(lambda t: t.to(dev), cpu_params)
+        arrays = molecules(GNN_MOLECULES[0], seed=25)
+        cpu_b = convert.gnn_batch_from_arrays(arrays, device="cpu")
+        dev_b = convert.gnn_batch_from_arrays(arrays, device=dev)
+        with torch.inference_mode():
+            want = pytree.leaves(forward(cpu_params, cpu_b, mcfg, device="cpu"))
+        outs, _, counts = counted_forwards(
+            lambda: forward(dev_params, dev_b, mcfg), 1)
+        if any(counts.values()):
+            raise AssertionError(f"{name}: launched {counts}, want no kernel")
+        errs_ = [check_rel(a.cpu(), b, GNN_CARD_TOL, f"{name} card vs CPU")
+                 for a, b in zip(pytree.leaves(outs[0]), want)]
+        moved_b = dict(dev_b, pos=dev_b["pos"] @ Q.to(dev).T + shift.to(dev))
+        with torch.inference_mode():
+            rot = pytree.leaves(forward(dev_params, moved_b, mcfg))
+        e1, e2 = pytree.leaves(outs[0])[0], rot[0]
+        atol = 1e-3 if name == "egnn" else 1e-4
+        if not torch.allclose(e2, e1, rtol=1e-3, atol=atol):
+            raise AssertionError(f"{name}: energies not invariant")
+        inv = max_abs_err(e2, e1)
+        if name == "egnn":
+            x1, x2 = pytree.leaves(outs[0])[1], rot[1]
+            if not torch.allclose(x2, x1 @ Q.to(dev).T + shift.to(dev),
+                                  rtol=1e-3, atol=1e-3):
+                raise AssertionError("egnn: coordinates do not co-rotate")
+        times = {}
+        for n_mol in GNN_MOLECULES:
+            b = dev_b if n_mol == GNN_MOLECULES[0] else \
+                convert.gnn_batch_from_arrays(molecules(n_mol, seed=26),
+                                              device=dev)
+            mouts, msecs, _ = counted_forwards(
+                lambda: forward(dev_params, b, mcfg), 1 + GNN_TIMED)
+            # index_add_ sums in no fixed order on the card: the requests
+            # agree within a bound, not bit for bit
+            repeat_err = max(
+                check_rel(a, w, GNN_CARD_TOL, f"{name} request at {n_mol} "
+                          "molecules against the first")
+                for o in mouts[1:] for a, w in zip(pytree.leaves(o),
+                                                   pytree.leaves(mouts[0])))
+            del mouts
+            mmed = float(np.median(msecs[1:]))
+            times[n_mol] = {"forward_ms": 1e3 * mmed,
+                            "molecules_per_s": n_mol / mmed,
+                            "atoms": 30 * n_mol,
+                            "requests_rel": repeat_err,
+                            "edges": int(b["edge_index"].shape[1])}
+        mol_rows[name] = {"card_vs_cpu_rel": errs_, "invariance_max_abs": inv,
+                          "largest_energy": float(want[0].abs().max()),
+                          "times": times}
+        log(f"[19d] {name} ({mod.ARCH_ID} widths) on {GNN_MOLECULES[0]} "
+            f"molecules: card == CPU within {GNN_CARD_TOL} of the largest "
+            f"magnitude ({', '.join(f'{e:.3e}' for e in errs_)}; largest "
+            f"energy {mol_rows[name]['largest_energy']:.4e}); energies "
+            f"invariant under a rotation and translation (max abs "
+            f"{inv:.3e}){', coordinates co-rotate' if name == 'egnn' else ''};"
+            f" no kernel launched; warm forward, median of {GNN_TIMED}: "
+            + "; ".join(f"{k} molecules {v['forward_ms']:.4f} ms "
+                        f"({v['molecules_per_s']:.6e} molecules/s; requests "
+                        f"within {v['requests_rel']:.3e} of the first)"
+                        for k, v in times.items()) + f" on {card}")
+    for r in table:
+        if r["name"] == "slimsell_spmm":
+            r["phase19b_launches"] = launches_b
+            r["phase19c_launches"] = launches_c
+            r["gin"] = {"scale20": gin_row, "block": block_row,
+                        "kernel_rel_err_b100": width_err[100],
+                        "kernel_rel_err_b602": width_err[602],
+                        "autograd_rel_err": grad_err}
+            r["molecules"] = mol_rows
+    return launches_b + launches_c
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3817,7 +4239,7 @@ def main() -> int:
     log(f"[3] slimsell_spmm_packed == plain on {n_cases} cases of the hub "
         f"graph (C=8 L=128 and C=3 L=1, the hub's chunk in {spmv_pieces} "
         f"pieces; B=1/5/33/64/97/160 x 5 masks x 2 densities)")
-    del hub, hub_masks, hub_deg, Xh
+    del hub_masks, hub_deg, Xh  # the hub layout stays for phase 19a
 
     # ---- 4a: the kernel path against the plain path at scale 14
     small_roots = sample_roots(small_csr, 64)
@@ -4934,6 +5356,17 @@ def main() -> int:
     t18_ab = time.perf_counter() - t18
     log(f"[18] phase 18a-b took {t18_ab:.1f} s; the run "
         f"{time.perf_counter() - t_start:.1f} s so far")
+
+    # ---- 19: GIN on kernel 2's real mode at scale 20 and on a sampled
+    # block, EGNN and NequIP on the molecule cell, while the layout stands
+    t19 = time.perf_counter()
+    gnn_phase(dev=dev, card=card, csr=csr, tiled=tiled, small=small, hub=hub,
+              adj=adj, layout_bytes=layout_bytes, table=table)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[19] phase 19 took {time.perf_counter() - t19:.1f} s (reserve "
+        f"{GNN_RESERVE_S:.0f} s); the run {time.perf_counter() - t_start:.1f}"
+        f" s so far")
 
     # ---- 12: CC, k-hop and PageRank on the ported sweeps, at scale 20
     # before phase 11 frees the layout

@@ -8,8 +8,11 @@ The port of the JAX package ``repro``: the tiled SlimSell layout
 neighbourhoods (``core.khop``: ``khop``, ``khop_many``), PageRank
 (``core.pagerank``) and Brandes betweenness (``core.betweenness``), the
 Graph500 BFS and SSSP harnesses
-(``graph500``), and GCN inference on the SlimSell aggregation
-(``models.gnn``; the gcn-cora configuration in ``configs.gcn_cora``), and
+(``graph500``), the GNNs (``models.gnn``): GCN on the SlimSell
+aggregation (the gcn-cora configuration in ``configs.gcn_cora``), GIN on
+kernel 2's real SpMM (``configs.gin_tu``), EGNN and NequIP
+(``configs.egnn``, ``configs.nequip``), their losses in ``configs.cells``
+and the neighbour sampler (``graphs.sampler``), and
 DLRM inference with the embedding-bag kernel (``models.dlrm``; the
 dlrm-mlperf configuration in ``configs.dlrm_mlperf``), and the serving
 layer (``serving``: ``GraphSession`` and ``Router`` over the ``Batcher``,
@@ -37,11 +40,16 @@ from .core.pagerank import pagerank
 from .core.sssp import sssp
 from .graph500 import run_graph500, run_graph500_sssp
 from .models.dlrm import DLRMConfig, dlrm_forward, dlrm_init
-from .models.gnn import GCNConfig, gcn_forward, gcn_init
+from .models.gnn import (EGNNConfig, GCNConfig, GINConfig, NequIPConfig,
+                         egnn_forward, egnn_init, gcn_forward, gcn_init,
+                         gin_forward, gin_init, nequip_forward, nequip_init)
 from .serving import GraphSession, Router, session
 
-__all__ = ["DLRMConfig", "EngineConfig", "GCNConfig", "GraphSession", "Router",
+__all__ = ["DLRMConfig", "EGNNConfig", "EngineConfig", "GCNConfig",
+           "GINConfig", "GraphSession", "NequIPConfig", "Router",
            "betweenness", "bfs", "build_csr", "build_slimsell",
-           "cc", "dlrm_forward", "dlrm_init", "gcn_forward", "gcn_init",
+           "cc", "dlrm_forward", "dlrm_init", "egnn_forward", "egnn_init",
+           "gcn_forward", "gcn_init", "gin_forward", "gin_init",
            "khop", "khop_many", "multi_source_bfs", "multi_source_sssp",
-           "pagerank", "run_graph500", "run_graph500_sssp", "session", "sssp"]
+           "nequip_forward", "nequip_init", "pagerank", "run_graph500",
+           "run_graph500_sssp", "session", "sssp"]

@@ -1,0 +1,85 @@
+"""The GNN part of the JAX package's ``repro/configs/cells.py``: the graph
+shapes of its GNN cells (``GNN_SHAPES``), the training loss of each of the
+four GNNs (``gnn_loss``, its ``_gnn_loss``) and their analytic training
+FLOPs (``gnn_model_flops``). ``build_gnn_cell``, which lays a cell out
+over a device mesh, is not ported.
+"""
+from __future__ import annotations
+
+import torch
+from torch.nn import functional as F
+
+from ..models import gnn
+
+GNN_SHAPES = {
+    "full_graph_sm": dict(kind="train", n_nodes=2708, n_edges=10556,
+                          d_feat=1433, n_graphs=1),
+    # the block the neighbour sampler draws for 1024 seeds at fanouts
+    # (15, 10): graphs.sampler.expected_block_sizes(1024, (15, 10))
+    "minibatch_lg": dict(kind="train", n_nodes=169984, n_edges=168960,
+                         d_feat=602, n_graphs=1, sampled=True),
+    "ogb_products": dict(kind="train", n_nodes=2449029, n_edges=61859140,
+                         d_feat=100, n_graphs=1),
+    "molecule": dict(kind="train", n_nodes=30 * 128, n_edges=64 * 128,
+                     d_feat=16, n_graphs=128),
+}
+KINDS = ("gcn", "gin", "egnn", "nequip")
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-row log-softmax NLL against one-hot ``labels`` (a -1 label reads
+    class 0, as the JAX package's ``one_hot(max(labels, 0))`` does)."""
+    oh = F.one_hot(labels.clamp_min(0).long(), logits.shape[-1]).to(
+        logits.dtype)
+    return -torch.sum(F.log_softmax(logits, dim=-1) * oh, dim=-1)
+
+
+def gnn_loss(kind: str, params: dict, batch: dict, cfg, *,
+             device=None) -> torch.Tensor:
+    """The training loss of the JAX package's GNN cells: ``"gcn"`` the
+    masked node-classification NLL (``models.gnn.gcn_loss``), ``"gin"``
+    the mean NLL of the graph logits against ``batch["graph_labels"]``,
+    ``"egnn"`` and ``"nequip"`` the mean squared error of the energies
+    against ``batch["energy"]``."""
+    if kind == "gcn":
+        return gnn.gcn_loss(params, batch, cfg, device=device)
+    if kind == "gin":
+        logits = gnn.gin_forward(params, batch, cfg, device=device)
+        return _nll(logits, batch["graph_labels"]).mean()
+    if kind == "egnn":
+        e, _ = gnn.egnn_forward(params, batch, cfg, device=device)
+        return torch.mean((e - batch["energy"]) ** 2)
+    if kind == "nequip":
+        e = gnn.nequip_forward(params, batch, cfg, device=device)
+        return torch.mean((e - batch["energy"]) ** 2)
+    raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
+
+
+def gnn_model_flops(kind: str, cfg, n_nodes: int, n_edges: int,
+                    d_feat: int) -> float:
+    """Analytic FLOPs of a training step, 3x the forward, as the JAX
+    package counts them: GCN ``x @ w`` and the aggregation's multiply-add
+    an edge and column; GIN the aggregation and the two-layer MLP at
+    ``d_hidden`` (its first layer's ``d_feat`` is not counted); EGNN the
+    edge, coordinate and node MLPs; NequIP the radial MLP, the tensor
+    products and the three channel mixers."""
+    if kind == "gcn":
+        sizes = [d_feat] + [cfg.d_hidden] * (cfg.n_layers - 1) + [cfg.n_classes]
+        f = sum(2 * n_nodes * a * b + 2 * n_edges * b
+                for a, b in zip(sizes[:-1], sizes[1:]))
+    elif kind == "gin":
+        h = cfg.d_hidden
+        f = cfg.n_layers * (2 * n_edges * h + 2 * n_nodes * (h * h * 2))
+    elif kind == "egnn":
+        h = cfg.d_hidden
+        f = cfg.n_layers * (2 * n_edges * (2 * h + 1) * h
+                            + 2 * n_edges * h * h * 2
+                            + 2 * n_nodes * 2 * h * h * 2)
+    elif kind == "nequip":
+        c = cfg.d_hidden
+        f = cfg.n_layers * (2 * n_edges * (cfg.n_rbf * 32 + 32 * 9 * c)
+                            + n_edges * c * (1 + 3 + 9 + 9 + 27)
+                            + 2 * n_nodes * 3 * 2 * c * c)
+    else:
+        raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
+    return 3.0 * f

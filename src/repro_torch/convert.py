@@ -2,11 +2,13 @@
 
 ``tiled_from_arrays`` builds the port's ``SlimSellTiled`` from the fields of
 a layout the JAX package built; ``state_from_arrays`` does the same for a
-BFS state dict. ``gcn_params_from_arrays`` and ``gcn_batch_from_arrays``
-carry a GCN's weights and its input batch, ``dlrm_params_from_arrays`` and
-``dlrm_batch_from_arrays`` a DLRM's, and ``opt_state_from_arrays`` an
-optimiser's or a train step's state. With these, one layout, one state and
-one model go through both packages unchanged, in training too. Nothing
+BFS state dict. ``gnn_params_from_arrays`` and ``gnn_batch_from_arrays``
+carry the weights and the input batch of any of the four GNNs (GCN, GIN,
+EGNN, NequIP; ``gcn_params_from_arrays`` is the GCN's weights),
+``dlrm_params_from_arrays`` and ``dlrm_batch_from_arrays`` a DLRM's, and
+``opt_state_from_arrays`` an optimiser's or a train step's state. With
+these, one layout, one state and one model go through both packages
+unchanged, in training too. Nothing
 here imports the JAX package: the caller hands over plain arrays.
 """
 from __future__ import annotations
@@ -19,7 +21,8 @@ import torch
 from . import pytree
 from .core.formats import SlimSellTiled, chunk_tile_ptr, resolve_device
 from .models.dlrm import DLRMConfig, top_sizes
-from .models.gnn import GCNConfig, layer_shapes
+from .models.gnn import (GCNConfig, egnn_init, gin_init, layer_shapes,
+                         nequip_init)
 
 REQUIRED_ARRAYS = ("cols", "row_block", "row_vertex", "cl", "deg")
 LAYOUT_ARRAYS = REQUIRED_ARRAYS + ("inc_src", "inc_tile", "inc_ptr", "wts")
@@ -109,38 +112,116 @@ def gcn_params_from_arrays(params: Mapping[str, Sequence[np.ndarray]],
         device=dev, dtype=dtype) for w in ws]}
 
 
-def gcn_batch_from_arrays(arrays: Mapping[str, np.ndarray],
-                          layout: Optional[Tuple[Mapping, Mapping]] = None,
+# the arrays of a GNN batch: dtype and shape, N the nodes, G the graphs
+_BATCH_ARRAYS = {
+    "node_feat": (np.float32, ("N", None)),
+    "pos": (np.float32, ("N", 3)),
+    "species": (np.int32, ("N",)),
+    "deg": (np.int32, ("N",)),
+    "graph_ids": (np.int32, ("N",)),
+    "labels": (np.int32, ("N",)),
+    "train_mask": (np.float32, ("N",)),
+    "edge_index": (np.int32, (2, None)),
+    "graph_labels": (np.int32, ("G",)),
+    "energy": (np.float32, ("G",)),
+}
+_SHAPE_NAMES = {"node_feat": "[N, F]", "edge_index": "[2, E]"}
+
+
+def gnn_batch_from_arrays(arrays: Mapping, layout: Optional[Tuple[Mapping,
+                                                                  Mapping]] = None,
                           device=None) -> dict:
-    """A GCN input batch on ``device`` (default: the card) from numpy
-    arrays: ``node_feat`` [N, F] (float32), ``edge_index`` int[2, E] (-1
-    pads; int32), ``deg`` [N] (int32). ``layout``, the ``(fields, meta)`` of
-    a SlimSell layout of the same graph (``tiled_from_arrays``), adds
-    ``tiled`` for the ``"slimsell"`` aggregation."""
-    feat = np.asarray(arrays["node_feat"])
-    edge_index = np.asarray(arrays["edge_index"])
-    deg = np.asarray(arrays["deg"])
-    if feat.ndim != 2:
-        raise ValueError(f"node_feat must be [N, F], got {feat.shape}")
-    n = feat.shape[0]
-    if edge_index.ndim != 2 or edge_index.shape[0] != 2:
-        raise ValueError(f"edge_index must be [2, E], got {edge_index.shape}")
-    if deg.shape != (n,):
-        raise ValueError(f"deg must be [{n}], got {deg.shape}")
-    if edge_index.size and (edge_index.min() < -1 or edge_index.max() >= n):
-        raise ValueError(f"edge_index holds ids outside -1..{n - 1}")
+    """A batch of any of the four GNNs on ``device`` (default: the card)
+    from numpy arrays, with whichever of these keys the model reads:
+    ``node_feat`` [N, F], ``pos`` [N, 3], ``train_mask`` [N] and ``energy``
+    [G] (float32); ``species``, ``deg``, ``graph_ids`` (-1 for none),
+    ``labels`` [N], ``graph_labels`` [G] and ``edge_index`` [2, E] (-1
+    pads; int32); ``n_graphs`` G, kept an int. N and G must agree across
+    the arrays, ids must lie in range, and any other key is refused.
+    ``layout``, the ``(fields, meta)`` of a SlimSell layout over the same
+    N vertices (``tiled_from_arrays``), adds ``tiled``."""
+    unknown = sorted(set(arrays) - set(_BATCH_ARRAYS) - {"n_graphs"})
+    if unknown:
+        raise ValueError(f"no GNN reads {unknown}; the batch keys are "
+                         f"{sorted(_BATCH_ARRAYS)} and n_graphs")
+    got = {k: np.asarray(v) for k, v in arrays.items() if k != "n_graphs"}
+    sizes = {}
+    if "n_graphs" in arrays:
+        sizes["G"] = int(arrays["n_graphs"])
+    for key, a in got.items():
+        _, shape = _BATCH_ARRAYS[key]
+        name = _SHAPE_NAMES.get(key, "[" + ", ".join(map(str, shape)) + "]")
+        if a.ndim != len(shape):
+            raise ValueError(f"{key} must be {name}, got {a.shape}")
+        for dim, want in zip(a.shape, shape):
+            if isinstance(want, int) and dim != want:
+                raise ValueError(f"{key} must be {name}, got {a.shape}")
+            if isinstance(want, str) and sizes.setdefault(want, dim) != dim:
+                raise ValueError(f"{key} must be {name} with {want} = "
+                                 f"{sizes[want]}, got {a.shape}")
+    for key, (bound, what) in (("edge_index", ("N", "outside -1..N - 1")),
+                               ("graph_ids", ("G", "outside -1..G - 1"))):
+        if key in got and got[key].size:
+            top = sizes.get(bound)
+            if top is None:
+                raise ValueError(f"{key} needs {bound}: pass "
+                                 f"{'n_graphs' if bound == 'G' else 'the node arrays'}")
+            if got[key].min() < -1 or got[key].max() >= top:
+                raise ValueError(f"{key} holds ids {what} ({bound} = {top})")
     dev = resolve_device(device)
-    batch = {
-        "node_feat": torch.from_numpy(np.array(feat, dtype=np.float32)).to(dev),
-        "edge_index": torch.from_numpy(np.array(edge_index, dtype=np.int32)).to(dev),
-        "deg": torch.from_numpy(np.array(deg, dtype=np.int32)).to(dev),
-    }
+    batch = {k: _tensor(a, _BATCH_ARRAYS[k][0], dev) for k, a in got.items()}
+    if "n_graphs" in arrays:
+        batch["n_graphs"] = sizes["G"]
     if layout is not None:
         tiled = tiled_from_arrays(*layout, device=dev)
-        if tiled.n != n:
-            raise ValueError(f"the layout has {tiled.n} vertices, node_feat {n}")
+        if "N" in sizes and tiled.n != sizes["N"]:
+            raise ValueError(f"the layout has {tiled.n} vertices, the batch "
+                             f"{sizes['N']}")
         batch["tiled"] = tiled
     return batch
+
+
+# the port's init of each GNN the JAX package's weight trees carry into
+_GNN_INITS = {"gin": gin_init, "egnn": egnn_init, "nequip": nequip_init}
+
+
+def gnn_params_from_arrays(kind: str, params, cfg=None, device=None):
+    """The port's weights of a GNN (``kind`` "gcn", "gin", "egnn" or
+    "nequip") from the JAX package's tree of them as numpy arrays
+    (``jax.tree.map(np.asarray, params)``), on ``device`` (default: the
+    card; raises when there is none), leaf for leaf in the same tree
+    (GIN's 0-d ``eps`` a 0-d tensor). Every leaf must be floating; it
+    arrives in float32, or with ``cfg`` in the dtype of the port's init for
+    ``cfg``, whose tree and leaf shapes it must have. ``"gcn"`` is
+    ``gcn_params_from_arrays``."""
+    if kind == "gcn":
+        return gcn_params_from_arrays(params, cfg, device)
+    if kind not in _GNN_INITS:
+        raise ValueError(f"kind must be gcn or one of {sorted(_GNN_INITS)}, "
+                         f"got {kind!r}")
+    pairs, treedef = pytree.flatten_with_paths(params)
+    arrays = [(path, np.asarray(a)) for path, a in pairs]
+    for path, a in arrays:
+        if not np.issubdtype(a.dtype, np.floating):
+            raise ValueError(f"{kind} weight {path} must be floating, got "
+                             f"{a.dtype}")
+    dtypes = [torch.float32] * len(arrays)
+    if cfg is not None:
+        want, want_def = pytree.flatten_with_paths(
+            _GNN_INITS[kind](cfg, device="cpu"))
+        if want_def != treedef:
+            raise ValueError(f"the {kind} weights are {treedef}, the config "
+                             f"{cfg.name} wants {want_def}")
+        for (path, a), (_, w) in zip(arrays, want):
+            if a.shape != tuple(w.shape):
+                raise ValueError(f"{kind} weight {path} has shape {a.shape}, "
+                                 f"the config {cfg.name} wants "
+                                 f"{tuple(w.shape)}")
+        dtypes = [w.dtype for _, w in want]
+    dev = resolve_device(device)
+    return pytree.unflatten(treedef, [
+        torch.tensor(np.asarray(a, np.float32), device=dev).to(dt)
+        for (_, a), dt in zip(arrays, dtypes)])
 
 
 def _tensor(a, dtype, dev) -> torch.Tensor:

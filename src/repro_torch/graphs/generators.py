@@ -5,6 +5,9 @@
 * Erdős–Rényi G(n, p) uniform-degree graphs — the paper's "ER" family.
 * ``with_random_weights`` decorates any CSR with symmetric random edge
   weights.
+* ``molecules`` (the port's own; the JAX package has no generator for it)
+  makes the inputs of the GNN ``molecule`` cell: small 3-D graphs of atoms,
+  each joined to its closest neighbours, as a batch of numpy arrays.
 
 All generators are deterministic in ``seed`` (numpy generators, drawn in
 the same order as the JAX package's, so one seed gives one graph in both)
@@ -101,3 +104,33 @@ def star(n: int) -> CSRGraph:
     """Max-degree stress graph: vertex 0 joined to every other vertex."""
     edges = np.stack([np.zeros(n - 1, np.int64), np.arange(1, n)], axis=1)
     return build_csr(edges, n)
+
+
+def molecules(n_mol: int, *, atoms: int = 30, pairs: int = 32,
+              d_feat: int = 16, n_species: int = 4, seed: int = 0) -> dict:
+    """A batch of ``n_mol`` synthetic molecules of ``atoms`` atoms, the
+    inputs of the GNN ``molecule`` cell (``configs.cells.GNN_SHAPES``: 128
+    molecules, 3,840 atoms, 8,192 edges): positions N(0, 1.5^2) per axis,
+    species uniform on [0, n_species), features N(0, 1) [N, d_feat], and
+    each molecule's ``pairs`` closest atom pairs as edges both ways
+    (``edge_index`` int32[2, 2 pairs n_mol], molecule by molecule);
+    ``graph_ids`` atom // atoms, ``n_graphs`` n_mol. numpy arrays, drawn
+    from ``seed`` in that order."""
+    rng = np.random.default_rng(seed)
+    n = n_mol * atoms
+    pos = (1.5 * rng.standard_normal((n, 3))).astype(np.float32)
+    species = rng.integers(0, n_species, n).astype(np.int32)
+    feat = rng.standard_normal((n, d_feat)).astype(np.float32)
+    iu, ju = np.triu_indices(atoms, 1)
+    p = pos.reshape(n_mol, atoms, 3)
+    d2 = ((p[:, iu] - p[:, ju]) ** 2).sum(-1)                 # [n_mol, pairs]
+    near = np.argsort(d2, axis=1, kind="stable")[:, :pairs]
+    base = (np.arange(n_mol) * atoms)[:, None]
+    a, b = iu[near] + base, ju[near] + base                   # [n_mol, pairs]
+    src = np.concatenate([a, b], 1).reshape(-1)
+    dst = np.concatenate([b, a], 1).reshape(-1)
+    edge_index = np.stack([src, dst]).astype(np.int32)
+    return {"node_feat": feat, "pos": pos, "species": species,
+            "edge_index": edge_index,
+            "graph_ids": (np.arange(n) // atoms).astype(np.int32),
+            "n_graphs": n_mol}

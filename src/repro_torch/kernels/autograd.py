@@ -1,4 +1,4 @@
-"""Kernels 7 and 2g under autograd: the routes a training step takes.
+"""Kernels 7, 2 and 2g under autograd: the routes a training step takes.
 
 The JAX package has no backward kernel: ``jax.grad`` differentiates its
 jnp paths. These ``torch.autograd.Function``s give the port's kernels the
@@ -20,6 +20,11 @@ through; a ``Function`` is the one route under grad mode.
   same sweep, run on the output's gradient. On a layout that is not
   symmetric the backward raises: it needs the transposed sweep, which the
   port does not have. ``deg`` takes no gradient.
+* ``spmm_aggregate`` (kernel 2, implicit edge value under ``real``): GIN's
+  neighbourhood sum ``Y = A X``. On a symmetric layout its gradient is
+  ``A dY``, the same sweep over the output's gradient; on any other the
+  backward raises, as ``gcn_aggregate``'s does. The forward alone (no
+  gradient wanted) runs on any layout: a sampled block's is directed.
 """
 from __future__ import annotations
 
@@ -69,6 +74,13 @@ def bag_lookup(tables: Sequence[torch.Tensor], bags: torch.Tensor,
     return _BagLookup.apply(bags, mode, *tables)
 
 
+def _transposed_sweep_missing(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"the {what}'s gradient on a layout whose adjacency is not "
+        "symmetric needs the transposed sweep (A^T dY), which the port does "
+        "not have; build the layout from an undirected CSR")
+
+
 class _GCNAggregate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, tiled, X, deg):
@@ -82,11 +94,7 @@ class _GCNAggregate(torch.autograd.Function):
         if not ctx.needs_input_grad[1]:
             return None, None, None
         if not is_symmetric(ctx.tiled):
-            raise NotImplementedError(
-                "the GCN aggregation's gradient on a layout whose adjacency "
-                "is not symmetric needs the transposed sweep (A^T dY), which "
-                "the port does not have; build the layout from an undirected "
-                "CSR")
+            raise _transposed_sweep_missing("GCN aggregation")
         return None, ops.spmm(REAL, ctx.tiled, dY.contiguous(), deg=deg), None
 
 
@@ -99,3 +107,25 @@ def gcn_aggregate(tiled, X: torch.Tensor, deg: torch.Tensor) -> torch.Tensor:
         raise ValueError("the GCN aggregation takes no gradient for deg; pass "
                          "deg.detach()")
     return _GCNAggregate.apply(tiled, X, deg)
+
+
+class _SpMMAggregate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tiled, X):
+        ctx.tiled = tiled
+        return ops.spmm(REAL, tiled, X)
+
+    @staticmethod
+    def backward(ctx, dY):
+        if not ctx.needs_input_grad[1]:
+            return None, None
+        if not is_symmetric(ctx.tiled):
+            raise _transposed_sweep_missing("neighbourhood sum")
+        return None, ops.spmm(REAL, ctx.tiled, dY.contiguous())
+
+
+def spmm_aggregate(tiled, X: torch.Tensor) -> torch.Tensor:
+    """``ops.spmm(REAL, tiled, X)``, the implicit real SpMM (the sum of
+    each vertex's neighbours' rows), with a gradient for X: the same sweep
+    over the output's gradient, on a symmetric layout only."""
+    return _SpMMAggregate.apply(tiled, X.contiguous())

@@ -14,10 +14,15 @@ launch: a kernel's first launch builds and loads its library under
 SpMV and SpMM sources with launch counts of their own, so a run shows
 SSSP's sweeps apart from BFS's. ``spmm(..., deg=)`` is the GCN
 aggregation under ``real``: its kernel, ``slimsell_spmm_gcn``, works the
-symmetric-normalised weight out of the degrees and has no backward, so on
-CUDA it refuses an X that autograd would have to see through; a training
-step reaches it through ``kernels.autograd.gcn_aggregate``, whose backward
-is the same sweep.
+symmetric-normalised weight out of the degrees.
+
+No kernel has a backward: each writes a new tensor that autograd cannot
+see through, so on CUDA ``spmv`` and ``spmm`` refuse an operand that
+requires grad while grad mode is on (``_refuse_grad``); the plain version
+a CPU tensor runs is differentiable. A training step reaches the GCN
+sweep through ``kernels.autograd.gcn_aggregate`` and the implicit real
+SpMM (GIN's sum) through ``kernels.autograd.spmm_aggregate``, whose
+backwards are the same sweeps.
 
 The packed kernels (SlimSell-B) sweep int32 words that hold 32 bits each
 (``core.packing``): ``spmv_packed`` a frontier bitmap of ``ceil(n/32)``
@@ -251,6 +256,17 @@ def _check_rows(tiled, x: torch.Tensor, row_mask: torch.Tensor) -> None:
         raise ValueError("row_mask must be contiguous")
 
 
+def _refuse_grad(x: torch.Tensor, kernel: str,
+                 route: Optional[str] = None) -> None:
+    """A kernel writes a new tensor that autograd cannot see through: on
+    CUDA it refuses an operand that requires grad while grad mode is on,
+    where the plain version on the CPU would have carried the gradient."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        how = f", or train through {route}" if route else ""
+        raise RuntimeError(f"{kernel} has no backward: run the forward under "
+                           "torch.no_grad() or torch.inference_mode()" + how)
+
+
 def _out(sr: Semiring, tiled, x: torch.Tensor) -> torch.Tensor:
     """A sweep's output in vertex space, [n] or [n, B]. The kernels write
     every row of the layout's chunks; where the chunks do not hold every
@@ -453,6 +469,7 @@ def spmv(sr: Semiring, tiled, x: torch.Tensor, *,
         _check_weights(sr, tiled, x, weights)
     if x.device.type == "cpu":
         return spmv_plain(sr, tiled, x, tile_mask, weights)
+    _refuse_grad(x, "the SpMV kernel")
     cols, _, row_vertex, _, mask = _cuda_operands(tiled, x, tile_mask)
     items, classes, folds, slots = _spmv_work_on_device(tiled)
     y = _out(sr, tiled, x)
@@ -480,8 +497,8 @@ def spmm(sr: Semiring, tiled, X: torch.Tensor, *,
     every column, the stored-weight kernel. With ``deg`` (float32 [n],
     under ``real``): Y[v, b] = sum over the kept slots of
     ``rsqrt(max(deg[v], 1)) * rsqrt(max(deg[col], 1)) * X[col, b]``, the
-    GCN kernel, which has no backward (under autograd:
-    ``kernels.autograd.gcn_aggregate``)."""
+    GCN kernel. Under autograd: ``kernels.autograd.gcn_aggregate`` and,
+    for the implicit real SpMM, ``kernels.autograd.spmm_aggregate``."""
     _check(sr, tiled, X, 2, tile_mask)
     if deg is not None:
         _check_deg(sr, tiled, X, deg, weights)
@@ -491,11 +508,12 @@ def spmm(sr: Semiring, tiled, X: torch.Tensor, *,
         _check_weights(sr, tiled, X, weights)
     if X.device.type == "cpu":
         return spmm_plain(sr, tiled, X, tile_mask, weights, deg)
-    if deg is not None and torch.is_grad_enabled() and X.requires_grad:
-        raise RuntimeError("the GCN SpMM kernel has no backward: run the "
-                           "forward under torch.no_grad() or "
-                           "torch.inference_mode(), or train through "
-                           "kernels.autograd.gcn_aggregate")
+    if deg is not None:
+        _refuse_grad(X, "the GCN SpMM kernel", "kernels.autograd.gcn_aggregate")
+    elif weights is None and sr.name == "real":
+        _refuse_grad(X, "the SpMM kernel", "kernels.autograd.spmm_aggregate")
+    else:
+        _refuse_grad(X, "the SpMM kernel")
     cols, tile_ptr, row_vertex, cl, mask = _cuda_operands(tiled, X, tile_mask)
     pieces, folds, slots = _spmm_work_on_device(tiled)
     B = X.shape[1]

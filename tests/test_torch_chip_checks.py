@@ -1,9 +1,9 @@
 """The card checks of ``chip_smoke.py`` that decide a run, on synthetic
 results here: the PageRank sweep-count rule (``pagerank_close``, its
 bound ``2 sum_i ulp(r_i)`` over the plain ranks), the
-betweenness bounds (``bc_close``), and the float64 Brandes the card's
+betweenness bounds (``bc_close``), the float64 Brandes the card's
 betweenness is held to (``brandes_f64``) against the plain-python oracle
-of ``tests/oracles.py``.
+of ``tests/oracles.py``, and the row bound of GIN's sums (``check_rows``).
 """
 import importlib.util
 import pathlib
@@ -209,3 +209,60 @@ def test_bc_close_sweeps_and_depths(smoke):
     with pytest.raises(AssertionError, match="depths"):
         smoke.bc_close(bc_run(SCORES, [(d + 1, sigma, k)],
                               ref[0].iterations), ref, "depths")
+
+
+# ------------------------------------------------------------ GIN's sums
+
+
+def gin_sums(seed=0, n=512, d=8, hub_deg=4096):
+    """The real SpMM of a graph with one hub row (``hub_deg`` slots) and
+    short rows of 4 to 64 slots, as ``(want, the same sums added in the
+    reverse order, sum of magnitudes, short rows)``."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(4, 65, n)
+    deg[0] = hub_deg
+    x = torch.from_numpy(rng.standard_normal((hub_deg, d)).astype(np.float32))
+    x[:, 0] *= 1e4  # one column far above the others
+    cols = [torch.from_numpy(rng.integers(0, hub_deg, k)) for k in deg]
+
+    def ordered(c):
+        out = torch.zeros(d)
+        for v in x[c]:
+            out = out + v
+        return out
+
+    want = torch.stack([ordered(c) for c in cols])
+    rev = torch.stack([ordered(c.flip(0)) for c in cols])
+    scale = torch.stack([x[c].abs().sum(0) for c in cols])
+    return want, rev, scale, torch.from_numpy(deg <= 64)
+
+
+def test_check_rows_passes_reordered_sums(smoke):
+    """Short rows summed in another order stay within the row bound."""
+    want, rev, scale, short = gin_sums()
+    assert not torch.equal(rev, want)
+    ratio = smoke.check_rows(rev, want, scale, short, smoke.GNN_KERNEL_TOL,
+                             "reordered")
+    assert 0.0 < ratio <= smoke.GNN_KERNEL_TOL
+
+
+@pytest.mark.parametrize("row", [1, 300, 511])
+def test_check_rows_catches_a_short_row_the_global_bound_misses(smoke, row):
+    """A short row's element off by 1.0: under 1e-5 of the hub's largest
+    magnitude (so ``check_rel`` passes it), far over the row's own bound."""
+    want, _, scale, short = gin_sums()
+    got = want.clone()
+    got[row, 3] += 1.0
+    assert smoke.rel_err(got, want) < smoke.GNN_KERNEL_TOL
+    smoke.check_rel(got, want, smoke.GNN_KERNEL_TOL, "global")
+    with pytest.raises(AssertionError, match="short row"):
+        smoke.check_rows(got, want, scale, short, smoke.GNN_KERNEL_TOL, "row")
+
+
+def test_check_rows_ignores_long_rows(smoke):
+    """Rows past ``GNN_SHORT_ROW`` slots are left to the global bound."""
+    want, _, scale, short = gin_sums()
+    got = want.clone()
+    got[0, 3] += 1.0
+    assert smoke.check_rows(got, want, scale, short, smoke.GNN_KERNEL_TOL,
+                            "hub") == 0.0

@@ -160,7 +160,7 @@ def _forward_case(layouts, name, aggregation):
         "deg": jnp.asarray(csr.deg, jnp.int32), "tiled": jt}, jcfg))
     pp = convert.gcn_params_from_arrays(
         {"w": [np.asarray(w) for w in jp["w"]]}, pcfg, device="cpu")
-    batch = convert.gcn_batch_from_arrays(
+    batch = convert.gnn_batch_from_arrays(
         {"node_feat": feat, "edge_index": edge_index, "deg": csr.deg},
         layout=({k: getattr(host, k) for k in convert.LAYOUT_ARRAYS},
                 {k: getattr(host, k) for k in convert.LAYOUT_META}),
@@ -188,7 +188,8 @@ def test_segment_equals_slimsell_in_the_port(layouts, name):
 def test_module_equals_function(layouts):
     got, _, pp, batch, pcfg = _forward_case(layouts, "reduced", "slimsell")
     model = pgnn.GCN(pcfg, pp)
-    assert [tuple(w.shape) for w in model.w] == pgnn.layer_shapes(pcfg)
+    assert [tuple(w.shape) for w in model.weights()["w"]] == \
+        pgnn.layer_shapes(pcfg)
     assert torch.equal(model(batch), got)
 
 
@@ -286,7 +287,7 @@ def test_converters_reject_mismatches(layouts):
               "edge_index": _edge_arrays(csr), "deg": csr.deg}
     layout = ({k: getattr(host, k) for k in convert.LAYOUT_ARRAYS},
               {k: getattr(host, k) for k in convert.LAYOUT_META})
-    batch = convert.gcn_batch_from_arrays(arrays, layout=layout, device="cpu")
+    batch = convert.gnn_batch_from_arrays(arrays, layout=layout, device="cpu")
     assert batch["edge_index"].dtype == batch["deg"].dtype == torch.int32
     assert batch["tiled"].n == csr.n
     for key, value, match in (
@@ -295,10 +296,10 @@ def test_converters_reject_mismatches(layouts):
             ("edge_index", _edge_arrays(csr) + csr.n, "outside"),
             ("deg", csr.deg[:-1], "deg")):
         with pytest.raises(ValueError, match=match):
-            convert.gcn_batch_from_arrays({**arrays, key: value}, device="cpu")
+            convert.gnn_batch_from_arrays({**arrays, key: value}, device="cpu")
     other = layouts["er"][1]  # a layout of another graph
     with pytest.raises(ValueError, match="vertices"):
-        convert.gcn_batch_from_arrays(
+        convert.gnn_batch_from_arrays(
             arrays, layout=({k: getattr(other, k) for k in convert.LAYOUT_ARRAYS},
                             {k: getattr(other, k) for k in convert.LAYOUT_META}),
             device="cpu")

@@ -8,7 +8,7 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch import convert, graph500, profile_graph500
+from repro_torch import convert, graph500, profile_graph500, pytree
 from repro_torch.core import bfs as pbfs
 from repro_torch.core import formats as pf
 from repro_torch.core import multi_bfs as pmulti
@@ -66,7 +66,12 @@ def test_port_imports_no_jax_and_no_jax_package():
             "src/repro_torch/train/step.py",
             "src/repro_torch/checkpoint/__init__.py",
             "src/repro_torch/checkpoint/store.py",
-            "src/repro_torch/kernels/autograd.py"} <= names
+            "src/repro_torch/kernels/autograd.py",
+            "src/repro_torch/configs/cells.py",
+            "src/repro_torch/configs/gin_tu.py",
+            "src/repro_torch/configs/egnn.py",
+            "src/repro_torch/configs/nequip.py",
+            "src/repro_torch/graphs/sampler.py"} <= names
     assert (REPO / "src/repro_torch/analysis/lint_allow.txt").is_file()
     assert (REPO / "src/repro_torch/kernels/csrc/semiring_probe.cu").is_file()
     bad = {str(p.relative_to(REPO)): sorted(set(_imported_roots(p)) & {"jax", "repro"})
@@ -175,7 +180,7 @@ def test_gcn_entry_points_without_card_raise(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert.gcn_params_from_arrays({"w": [w.numpy() for w in params["w"]]})
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        convert.gcn_batch_from_arrays({k: v.numpy() for k, v in batch.items()
+        convert.gnn_batch_from_arrays({k: v.numpy() for k, v in batch.items()
                                        if k != "tiled"})
     assert repro_torch.gcn_forward(params, batch, cfg, device="cpu").shape == \
         (csr.n, cfg.n_classes)
@@ -307,3 +312,39 @@ def test_training_entry_points_without_card_raise(no_card, tmp_path):
         convert.opt_state_from_arrays({"m": np.zeros(2, np.float32)})
     got, _ = store.restore(str(tmp_path), 1, {"w": 0}, device="cpu")
     assert got["w"].device == _torch.device("cpu")
+
+
+def test_gnn_entry_points_without_card_raise(no_card):
+    """GIN, EGNN and NequIP (init, forward, module) and the GNN converters
+    want the card unless told otherwise; on the CPU they run."""
+    from repro_torch.configs import egnn, gin_tu, nequip
+    from repro_torch.models import gnn
+    csr = kronecker(6, 4, seed=0)
+    src = np.repeat(np.arange(csr.n), np.diff(csr.indptr))
+    arrays = {"node_feat": np.zeros((csr.n, 8), np.float32),
+              "pos": np.random.default_rng(0).standard_normal(
+                  (csr.n, 3)).astype(np.float32),
+              "species": np.zeros(csr.n, np.int32),
+              "edge_index": np.stack([csr.indices, src]).astype(np.int32),
+              "graph_ids": np.zeros(csr.n, np.int32), "n_graphs": 1}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.gnn_batch_from_arrays(arrays)
+    batch = convert.gnn_batch_from_arrays(arrays, device="cpu")
+    for cfg, init, forward, module in (
+            (gin_tu.reduced_config(), gnn.gin_init, gnn.gin_forward, gnn.GIN),
+            (egnn.reduced_config(), gnn.egnn_init, gnn.egnn_forward, gnn.EGNN),
+            (nequip.reduced_config(), gnn.nequip_init, gnn.nequip_forward,
+             gnn.NequIP)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init(cfg)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            module(cfg)
+        params = init(cfg, device="cpu")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            forward(params, batch, cfg)
+        kind = {gnn.GIN: "gin", gnn.EGNN: "egnn", gnn.NequIP: "nequip"}[module]
+        arrays_p = pytree.tree_map(lambda t: t.numpy(), params)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            convert.gnn_params_from_arrays(kind, arrays_p, cfg)
+        out = forward(params, batch, cfg, device="cpu")
+        assert pytree.leaves(out)[0].device.type == "cpu"

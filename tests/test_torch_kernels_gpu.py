@@ -16,7 +16,7 @@ from repro_torch.core.formats import build_slimsell
 from repro_torch.core.spmv import (pull_mm_plain, pull_plain,
                                    spmm_packed_plain, spmm_plain,
                                    spmv_packed_plain, spmv_plain)
-from repro_torch.graphs.generators import (erdos_renyi, kronecker,
+from repro_torch.graphs.generators import (erdos_renyi, kronecker, molecules,
                                            with_random_weights)
 from repro_torch.kernels import ops
 
@@ -1402,3 +1402,114 @@ def test_train_checkpoint_restores_on_card(cuda, tmp_path):
     assert got["w"][0].is_cuda and torch.equal(got["w"][0], tree["w"][0])
     assert torch.equal(got["mom"].view(torch.int16), tree["mom"].view(torch.int16))
     assert got["step"].dtype == torch.int32 and int(got["step"]) == 7
+
+
+# ------------------------------------------------- GIN, EGNN and NequIP
+
+
+def _rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over b's largest magnitude."""
+    return float((a.double() - b.double()).abs().max()
+                 / b.double().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("width", [100, 602])
+def test_gin_widths_kernel_equals_plain(cuda, width):
+    """Kernel 2's real mode at GIN's input widths (ogb_products' d = 100,
+    minibatch_lg's 602) against its plain version within 1e-5 of the
+    output's largest magnitude; one launch."""
+    dev, tiled = cuda
+    g = torch.Generator(device=dev).manual_seed(width)
+    X = torch.randn((tiled.n, width), generator=g, device=dev)
+    before = ops.SPMM.launches
+    got = ops.spmm(psr.REAL, tiled, X)
+    torch.cuda.synchronize()
+    assert ops.SPMM.launches == before + 1
+    assert _rel_err(got, spmm_plain(psr.REAL, tiled, X)) <= 1e-5
+
+
+def test_spmm_and_spmv_refuse_grad(cuda):
+    """The kernels write a tensor autograd cannot see through: under grad
+    mode an operand that requires grad is refused, the message naming the
+    route where there is one; under no_grad they run."""
+    dev, tiled = cuda
+    X = torch.randn(tiled.n, 8, device=dev, requires_grad=True)
+    before = ops.launch_counts()
+    with pytest.raises(RuntimeError, match="spmm_aggregate"):
+        ops.spmm(psr.REAL, tiled, X)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.spmv(psr.REAL, tiled, X[:, 0])
+    assert ops.launch_counts() == before
+    with torch.no_grad():
+        y = ops.spmm(psr.REAL, tiled, X)
+    assert ops.SPMM.launches == before["slimsell_spmm"] + 1
+    assert not y.requires_grad
+
+
+@pytest.mark.parametrize("width", [1, 16, 100])
+def test_spmm_aggregate_grad_equals_plain(cuda, width):
+    """Kernel 2 under autograd (``spmm_aggregate``): the X gradient is the
+    same sweep over the output's gradient, within 1e-5 of the largest
+    magnitude of autograd of the plain version; two launches."""
+    from repro_torch.kernels import autograd
+    dev, tiled = cuda
+    g = torch.Generator(device=dev).manual_seed(width + 1)
+    X = torch.randn((tiled.n, width), generator=g, device=dev)
+    R = torch.randn((tiled.n, width), generator=g, device=dev)
+    before = ops.SPMM.launches
+    Xa = X.clone().requires_grad_(True)
+    got, = torch.autograd.grad((autograd.spmm_aggregate(tiled, Xa) * R).sum(),
+                               [Xa])
+    assert ops.SPMM.launches == before + 2
+    Xb = X.clone().requires_grad_(True)
+    want, = torch.autograd.grad((spmm_plain(psr.REAL, tiled, Xb) * R).sum(),
+                                [Xb])
+    assert _rel_err(got, want) <= 1e-5
+
+
+def test_gin_egnn_nequip_card_equal_cpu(cuda):
+    """gin-tu (d_in 64, both aggregations) on the scale-12 graph, egnn and
+    nequip on 16 molecules: the card against the CPU on the same weights,
+    within 1e-4 of each output's largest magnitude; GIN's SlimSell forward
+    launches kernel 2 five times, EGNN and NequIP no kernel."""
+    import dataclasses
+
+    from repro_torch import convert, pytree
+    from repro_torch.configs import egnn, gin_tu, nequip
+    from repro_torch.models import gnn
+    dev, tiled = cuda
+    rng = np.random.default_rng(19)
+    csr = kronecker(12, 16, seed=1)
+    src = np.repeat(np.arange(csr.n), np.diff(csr.indptr))
+    garrays = {"node_feat": rng.standard_normal((csr.n, 64)).astype(np.float32),
+               "edge_index": np.stack([csr.indices, src]).astype(np.int32),
+               "graph_ids": np.zeros(csr.n, np.int32), "n_graphs": 1}
+    layouts = {"cpu": build_slimsell(csr, C=8, L=128).to_torch("cpu"),
+               str(dev): tiled}
+    marrays = molecules(16, seed=19)
+    cases = [(dataclasses.replace(gin_tu.make_config(), d_in=64,
+                                  aggregation=a), gnn.gin_init, gnn.gin_forward,
+              garrays) for a in ("segment", "slimsell")]
+    cases += [(egnn.make_config(), gnn.egnn_init, gnn.egnn_forward, marrays),
+              (nequip.make_config(), gnn.nequip_init, gnn.nequip_forward,
+               marrays)]
+    for cfg, init, forward, arrays in cases:
+        params = init(cfg, generator=torch.Generator().manual_seed(19),
+                      device="cpu")
+        out = {}
+        for d in ("cpu", str(dev)):
+            batch = convert.gnn_batch_from_arrays(arrays, device=d)
+            if arrays is garrays:
+                batch["tiled"] = layouts[d]
+            before = ops.launch_counts()
+            with torch.inference_mode():
+                out[d] = pytree.leaves(forward(
+                    pytree.tree_map(lambda t: t.to(d), params), batch, cfg,
+                    device=d))
+            launched = {k: v - before[k] for k, v in ops.launch_counts().items()
+                        if v != before[k]}
+        slim = getattr(cfg, "aggregation", None) == "slimsell"
+        assert launched == ({"slimsell_spmm": 5} if slim else {})
+        for a, b in zip(out[str(dev)], out["cpu"]):
+            assert torch.isfinite(a).all()
+            assert _rel_err(a.cpu(), b) <= 1e-4

@@ -1,5 +1,6 @@
 """Training in the port against the JAX package's: ``make_train_step`` on
-DLRM and GCN, the two kernels' autograd routes, the training FLOP counts,
+DLRM, GCN, GIN, EGNN and NequIP, the three kernel routes of autograd
+(7, 2g and 2), the training FLOP counts,
 and the optimiser state carried across.
 
 The JAX package's step is ``jax.jit`` of its ``make_train_step`` (its
@@ -25,7 +26,9 @@ set before any run:
 * each ``Function``'s gradient against autograd of the plain path within
   rtol = atol = 1e-6 (kernel 2g: the same sums in another order); kernel
   7's table gradients within rtol = atol = 1e-5, whose rows here sum up to
-  72 bag gradients (a one-row table) in another order; the gradients of a
+  72 bag gradients (a one-row table) in another order; kernel 2's X
+  gradient within rtol = atol = 1e-5 (``SUM_TOL``): its unnormalised sums
+  reach ~30 on the hub rows here, where an ulp is ~2e-6; the gradients of a
   whole loss against ``jax.grad`` within rtol 1e-4 / atol 1e-6.
 """
 import dataclasses
@@ -39,7 +42,10 @@ import torch
 from repro import optim as jopt
 from repro.configs import cells as jcells
 from repro.configs import dlrm_mlperf as jcfgs
+from repro.configs import egnn as jegnn_cfg
 from repro.configs import gcn_cora as jcora
+from repro.configs import gin_tu as jgin_cfg
+from repro.configs import nequip as jnequip_cfg
 from repro.core import formats as jf
 from repro.data import pipeline as jpipe
 from repro.graphs import generators as jg
@@ -47,8 +53,12 @@ from repro.models import dlrm as jdlrm
 from repro.models import gnn as jgnn
 from repro.train import make_train_step as jmake_train_step
 from repro_torch import convert, optim as popt, pytree
+from repro_torch.configs import cells as pcells
 from repro_torch.configs import dlrm_mlperf as pcfgs
+from repro_torch.configs import egnn as pegnn_cfg
 from repro_torch.configs import gcn_cora as pcora
+from repro_torch.configs import gin_tu as pgin_cfg
+from repro_torch.configs import nequip as pnequip_cfg
 from repro_torch.core import formats as pf
 from repro_torch.core import semiring as psr
 from repro_torch.core import spmv as pspmv
@@ -66,6 +76,7 @@ V_TOL = dict(rtol=1e-4, atol=1e-9)
 EF_TOL = dict(rtol=0, atol=1e-6)
 FN_TOL = dict(rtol=1e-6, atol=1e-6)
 BAG_TOL = dict(rtol=1e-5, atol=1e-5)
+SUM_TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 STEPS = 3
 
@@ -230,7 +241,7 @@ def _gcn_case(name, aggregation, seed=0):
     jbatch = {"node_feat": jnp.asarray(feat), "edge_index": jnp.asarray(edge_index),
               "deg": jnp.asarray(csr.deg, jnp.int32),
               "labels": jnp.asarray(labels), "train_mask": jnp.asarray(train_mask)}
-    pbatch = convert.gcn_batch_from_arrays(
+    pbatch = convert.gnn_batch_from_arrays(
         {"node_feat": feat, "edge_index": edge_index, "deg": csr.deg},
         layout=({k: getattr(host, k) for k in convert.LAYOUT_ARRAYS},
                 {k: getattr(host, k) for k in convert.LAYOUT_META}),
@@ -278,6 +289,65 @@ def test_gcn_gradient_matches_jax_grad(name):
     _close({"w": list(got)}, want, **GRAD_TOL)
 
 
+# ------------------------------------------- GIN, EGNN and NequIP
+
+
+def _gnn_inputs(kind, d_in, seed):
+    """A batch of ``kind`` in both packages on the scale-8 Kronecker graph
+    (its layout symmetric, some vertices of degree 0): 4 graphs. GIN's
+    edge list has -1 pads; EGNN's has none, as a pad edge joins vertex 0 to
+    itself, where the gradient of ``sqrt(d2)`` at 0 is NaN in both
+    packages."""
+    csr, host = _gcn_layout("kron")
+    rng = np.random.default_rng([seed, len(kind)])
+    n, G = csr.n, 4
+    src = np.repeat(np.arange(n), np.diff(csr.indptr))
+    edge_index = np.stack([csr.indices, src]).astype(np.int32)
+    if kind != "egnn":
+        edge_index = np.concatenate([edge_index, -np.ones((2, 5), np.int32)], 1)
+    arrays = {"edge_index": edge_index, "n_graphs": G,
+              "graph_ids": rng.integers(0, G, n).astype(np.int32),
+              "node_feat": rng.standard_normal((n, d_in)).astype(np.float32),
+              "pos": (1.5 * rng.standard_normal((n, 3))).astype(np.float32),
+              "species": rng.integers(0, 4, n).astype(np.int32),
+              "graph_labels": rng.integers(0, 2, G).astype(np.int32),
+              "energy": rng.standard_normal(G).astype(np.float32)}
+    # repro's cells close over n_graphs, which its jitted step needs static
+    jb = {k: jnp.asarray(v) for k, v in arrays.items() if k != "n_graphs"}
+    pb = convert.gnn_batch_from_arrays(
+        arrays, layout=({k: getattr(host, k) for k in convert.LAYOUT_ARRAYS},
+                        {k: getattr(host, k) for k in convert.LAYOUT_META}),
+        device="cpu")
+    return jb, pb
+
+
+GNN_TRAIN = {"gin": (jgin_cfg, pgin_cfg, jgnn.gin_init),
+             "egnn": (jegnn_cfg, pegnn_cfg, jgnn.egnn_init),
+             "nequip": (jnequip_cfg, pnequip_cfg, jgnn.nequip_init)}
+
+
+@pytest.mark.parametrize("kind,aggregation", [
+    ("gin", "segment"), ("gin", "slimsell"), ("egnn", "segment"),
+    ("nequip", "segment")])
+def test_gnn_train_step_matches_jax(kind, aggregation):
+    """3 AdamW steps of ``reduced_config()`` against ``repro``'s jitted
+    step on its segment path; the port's GIN also on the SlimSell
+    aggregation (kernel 2's route, ``spmm_aggregate``)."""
+    jmod, pmod, jinit = GNN_TRAIN[kind]
+    jcfg = jmod.reduced_config()
+    pcfg = pmod.reduced_config()
+    if kind == "gin":
+        pcfg = dataclasses.replace(pcfg, aggregation=aggregation)
+    jp = jinit(jcfg, jax.random.PRNGKey(len(kind)))
+    pp = convert.gnn_params_from_arrays(kind, jax.tree.map(np.asarray, jp),
+                                        pcfg, device="cpu")
+    jb, pb = _gnn_inputs(kind, getattr(jcfg, "d_in", 1), 0)
+    _train_both(lambda p, b: jcells._gnn_loss(kind, p, dict(b, n_graphs=4),
+                                              jcfg),
+                lambda p, b: pcells.gnn_loss(kind, p, b, pcfg, device="cpu"),
+                jp, pp, [(jb, pb)] * STEPS, False)
+
+
 # ------------------------------------------------- the autograd routes
 
 
@@ -307,6 +377,43 @@ def test_gcn_aggregate_backward_equals_plain_autograd(graph, C, L, width):
     assert torch.equal(Y.detach(), Yb.detach())
     np.testing.assert_allclose(got.numpy(), want.numpy(), **FN_TOL)
     assert tiled.symmetric is not None and tiled.symmetric[3] is True
+
+
+@pytest.mark.parametrize("width", [1, 16, 33])
+@pytest.mark.parametrize("graph,C,L", [("er", 8, 16), ("kron", 8, 32),
+                                       ("star", 3, 1)])
+def test_spmm_aggregate_backward_equals_plain_autograd(graph, C, L, width):
+    """Kernel 2's route: the implicit real SpMM's X gradient, the same
+    sweep over the output's gradient, against autograd of the plain
+    version within ``SUM_TOL``; the forward bit-equal."""
+    from repro_torch.graphs import generators as pg
+    csr = {"er": lambda: pg.erdos_renyi(96, 5, seed=10),
+           "kron": lambda: pg.kronecker(8, 8, seed=4),
+           "star": lambda: pg.star(40)}[graph]()
+    tiled = _layout(csr, C, L)
+    rng = np.random.default_rng([C, L, width, 2])
+    X = torch.from_numpy(rng.standard_normal((csr.n, width)).astype(np.float32))
+    R = torch.from_numpy(rng.standard_normal((csr.n, width)).astype(np.float32))
+    Xa = X.clone().requires_grad_(True)
+    Y = pag.spmm_aggregate(tiled, Xa)
+    got, = torch.autograd.grad((Y * R).sum(), [Xa])
+    Xb = X.clone().requires_grad_(True)
+    Yb = pspmv.spmm_plain(psr.REAL, tiled, Xb)
+    want, = torch.autograd.grad((Yb * R).sum(), [Xb])
+    assert torch.equal(Y.detach(), Yb.detach())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **SUM_TOL)
+
+
+def test_spmm_aggregate_refuses_a_directed_layout():
+    edges = np.array([[0, 1], [1, 2], [2, 0], [2, 3], [4, 3]])
+    tiled = _layout(pf.build_csr(edges, 6, undirected=False), 2, 2)
+    X = torch.ones((6, 3), requires_grad=True)
+    Y = pag.spmm_aggregate(tiled, X)                     # forward runs
+    with pytest.raises(NotImplementedError, match="transposed sweep"):
+        Y.sum().backward()
+    with torch.no_grad():                                # inference runs
+        assert torch.equal(pag.spmm_aggregate(tiled, X),
+                           pspmv.spmm_plain(psr.REAL, tiled, X))
 
 
 def test_gcn_aggregate_refuses_a_directed_layout():
