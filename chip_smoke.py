@@ -353,7 +353,34 @@ exit and no result line):
    translation (and EGNN's coordinates co-rotating) at the JAX package's
    test bounds, no kernel launched, the warm forward at 128 and 4,096
    molecules, its six requests at each within ``GNN_CARD_TOL`` of the
-   first (``index_add_`` sums in no fixed order there).
+   first (``index_add_`` sums in no fixed order there);
+20. (run last) the language models (``models.transformer`` over
+   ``models.layers`` and ``models.moe``, ``launch.serve``,
+   ``launch.train``), which run no kernel of the port's own (its launch
+   counts stay 0 over the phase): (a) each of the five ``reduced_config``s
+   (float32, TF32 off) on the card against the same code on the CPU,
+   forward, prefill and three decode steps, within ``LM_CARD_TOL``, and
+   ``flash_attention`` at phi3-mini's width (32 heads x 96) at S = 2,500
+   (three chunks of 1024, the last padded), causal with and without a
+   window of 1024, against a direct float32 softmax within
+   ``LM_FLASH_TOL``; (b) phi3-mini-3.8b whole (32 layers, bfloat16):
+   ``launch.serve.main`` at B = 4, a prompt of 512 and 16 new tokens, then
+   ``serve.generate`` twice on the same weights and prompt (bit-equal
+   logits, and serve.main's tokens), the logits of prefill-then-decode
+   against a teacher-forced ``forward`` over the 528 tokens within
+   ``LM_BF16_TOL`` of the largest |logit|, and the same on a float32
+   copy within ``LM_F32_TOL``; prefill tok/s and TFLOP/s, a decode step's
+   ms beside its bound, peak device memory; (c) llama4-scout (1 of 48
+   layers) and kimi-k2 (1 of 61 layers, all 384 experts) at full width,
+   bfloat16: ``moe_reference`` against a per-token float32 loop over each
+   token's top-k experts within ``LM_MOE_LOOP_TOL``, and the check of (b)
+   at B = 4, a prompt of 64 and 8 new tokens, rows whose router margin is
+   under ``LM_ROUTE_MARGIN`` held only to being finite (at most
+   ``LM_MAX_NEAR_TIES`` of them); (d) smollm-135m trained at full width by
+   ``launch.train`` (B = 8, S = 256, AdamW): six steps straight, and three
+   with a checkpoint at step 3 and a ``--resume`` to step 6, every loss
+   finite and the resumed ones within ``LM_RESUME_RTOL`` of the straight
+   run's; ms a step.
 
 The graphs carry the Graph500 SSSP weights (uniform on [2^-8, 1]); one
 weighted layout per scale serves every phase (the BFS phases never read
@@ -417,12 +444,15 @@ DIST_RESERVE_S = 120.0
 ANALYSIS_RESERVE_S = 60.0
 TRAIN_RESERVE_S = 60.0
 GNN_RESERVE_S = 30.0
+LM_RESERVE_S = 30.0
 VALIDATE_ALL_BY_S = 900.0 - GCN_RESERVE_S - DLRM_RESERVE_S \
     - GRAPH_RESERVE_S - BC_RESERVE_S - SERVE_RESERVE_S - SESSION_RESERVE_S \
-    - DIST_RESERVE_S - ANALYSIS_RESERVE_S - TRAIN_RESERVE_S - GNN_RESERVE_S
+    - DIST_RESERVE_S - ANALYSIS_RESERVE_S - TRAIN_RESERVE_S - GNN_RESERVE_S \
+    - LM_RESERVE_S
 VALIDATE_BATCH_BY_S = 1000.0 - GCN_RESERVE_S - DLRM_RESERVE_S \
     - GRAPH_RESERVE_S - BC_RESERVE_S - SERVE_RESERVE_S - SESSION_RESERVE_S \
-    - DIST_RESERVE_S - ANALYSIS_RESERVE_S - TRAIN_RESERVE_S - GNN_RESERVE_S
+    - DIST_RESERVE_S - ANALYSIS_RESERVE_S - TRAIN_RESERVE_S - GNN_RESERVE_S \
+    - LM_RESERVE_S
 # PageRank with the kernels against the same call with the plain sweeps
 # (phase 12): kernel 1 adds a row in another order than the plain version,
 # so the ranks are held to bounds fixed before the first card run
@@ -3942,6 +3972,389 @@ def gnn_phase(*, dev, card, csr, tiled, small, hub, adj, layout_bytes,
     return launches_b + launches_c
 
 
+# The language models (phase 20): bounds fixed before the first card run.
+# float32 card against CPU (TF32 off), of the largest |logit|: the same code,
+# float32 sums in other orders over two layers (the CPU tests see ~3e-7
+# between the two packages)
+LM_CARD_TOL = 1e-5
+# flash_attention against a direct float32 softmax, of the largest |output|:
+# the online softmax rescales partial sums chunk by chunk (~1e-6 expected)
+LM_FLASH_TOL = 1e-5
+# bfloat16 prefill-then-decode against a teacher-forced forward, of the
+# largest |logit|: each path rounds its own matmul outputs (the decode's
+# [B, D] products use other kernels than the forward's [B S, D]) and the
+# residual stream to bfloat16 (2^-9 relative) in every layer; over
+# phi3-mini's 32 layers a few ulps of the largest logit (~1e-2 expected)
+LM_BF16_TOL = 5e-2
+# the same check on a float32 copy: float32 roundings (2^-24) over the
+# same 32 layers (~1e-6 expected); a bfloat16 logit near the largest is
+# itself rounded by ~4e-3 of it, so a bfloat16 computation fails this
+LM_F32_TOL = 1e-4
+# moe_reference (bfloat16 experts) against a float32 per-token loop, of
+# the largest |output|: the dense path rounds g, u, silu(g) u and each
+# expert's output to bfloat16, ~4 x 2^-9 of an expert's output
+LM_MOE_LOOP_TOL = 2e-2
+# a token whose router margin (its k-th minus its (k+1)-th router logit)
+# is under this may be routed to another expert by the other path: its
+# hidden state differs by an ulp or so of bfloat16 in some of its
+# d_model elements, which over |w| = 0.02 moves a logit by ~1e-3
+LM_ROUTE_MARGIN = 1e-2
+LM_MAX_NEAR_TIES = 0.25   # of the compared rows, at most
+# the resumed steps' losses against the straight run's, relative: the
+# embedding's backward adds with atomics in no fixed order, which may
+# flip a bfloat16 rounding of a few weights (~1e-7 of the loss expected)
+LM_RESUME_RTOL = 1e-5
+LM_SERVE = dict(batch=4, prompt=512, gen=16)     # phi3-mini, (b)
+LM_MOE_SERVE = dict(batch=4, prompt=64, gen=8)   # llama4-scout, kimi-k2, (c)
+LM_FLASH_S = 2500
+LM_TRAIN = dict(batch=8, seq=256, steps=6, ckpt=3)
+H100_BF16_FLOPS = 989e12   # dense bfloat16, NVIDIA data sheet
+
+
+class RouterMargins:
+    """Within ``with``: each call of ``models.moe._router`` records each
+    token's margin between its k-th and (k+1)-th router logit."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._moe, self._orig = moe, moe._router
+
+        def rec(tokens, w, k):
+            lg = torch.sort(tokens.float() @ w.float(), dim=-1,
+                            descending=True).values
+            self.calls.append((lg[:, k - 1] - lg[:, k]).cpu())
+            return self._orig(tokens, w, k)
+
+        moe._router = rec
+        return self
+
+    def __exit__(self, *exc):
+        self._moe._router = self._orig
+
+    def take(self):
+        calls, self.calls = self.calls, []
+        return torch.stack(calls).amin(0) if calls else None
+
+
+def lm_logit_rows(out: dict, ref: torch.Tensor, margins, tol: float,
+                  what: str) -> dict:
+    """``out["logits"]`` [B, G, V] (prefill-then-decode) against ``ref``
+    [B, G, V] (the teacher-forced forward's at the same positions): every
+    row finite; each row within ``tol`` of the largest |logit| but the rows
+    whose router margin (``margins`` [B, G], or None) is under
+    ``LM_ROUTE_MARGIN``, of which at most ``LM_MAX_NEAR_TIES``."""
+    got = out["logits"].float()
+    ref = ref.float()
+    if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
+        raise AssertionError(f"{what}: logits not finite")
+    scale = float(ref.abs().max())
+    err = ((got - ref).abs().amax(-1) / scale).cpu()          # [B, G]
+    keep = torch.ones_like(err, dtype=torch.bool) if margins is None \
+        else margins >= LM_ROUTE_MARGIN
+    near = int((~keep).sum())
+    if near > LM_MAX_NEAR_TIES * keep.numel():
+        raise AssertionError(f"{what}: {near} of {keep.numel()} rows near a "
+                             f"router tie")
+    worst = float(err[keep].max())
+    if worst > tol:
+        raise AssertionError(f"{what}: {worst:.3e} of the largest |logit|, "
+                             f"over {tol}")
+    return {"err": worst, "err_all_rows": float(err.max()),
+            "near_ties": near, "rows": keep.numel(), "max_logit": scale}
+
+
+def lm_generate_margins(serve, params, prompt, cfg, gen, dev):
+    """``serve.generate`` with the router's margins at the rows it returns
+    (the prompt's last position, then each decode step): (out, [B, gen])."""
+    with RouterMargins() as rm:
+        out = serve.generate(params, prompt, cfg, gen, device=dev)
+    if not cfg.moe:
+        return out, None
+    B, S = prompt.shape
+    per_call = [rm.calls[i:i + cfg.n_layers]
+                for i in range(0, len(rm.calls), cfg.n_layers)]
+    pre = torch.stack(per_call[0]).amin(0).reshape(B, S)[:, -1]
+    dec = [torch.stack(c).amin(0) for c in per_call[1:]]
+    return out, torch.stack([pre] + dec, dim=1)
+
+
+def lm_check_serving(tf, serve, params, cfg, shape, seed, tol, what, dev):
+    """(b) and (c): the prompt of ``serve.prompt_tokens``, two identical
+    requests through ``serve.generate`` (bit-equal logits), and their
+    logits against a teacher-forced forward over the prompt and the
+    generated tokens. Returns the second request's result and the check's
+    numbers."""
+    B, S, G = shape["batch"], shape["prompt"], shape["gen"]
+    prompt = torch.tensor(serve.prompt_tokens(cfg.vocab, B, S, seed),
+                          device=dev)
+    first, _ = lm_generate_margins(serve, params, prompt, cfg, G, dev)
+    out, margins = lm_generate_margins(serve, params, prompt, cfg, G, dev)
+    if not (torch.equal(out["logits"], first["logits"])
+            and torch.equal(out["tokens"], first["tokens"])):
+        raise AssertionError(f"{what}: two identical requests differ")
+    full = torch.cat([prompt, out["tokens"]], dim=1)
+    with torch.no_grad():
+        ref = tf.forward(params, full, cfg, device=dev)[:, S - 1:S - 1 + G]
+    check = lm_logit_rows(out, ref, margins, tol, what)
+    del ref, full, first
+    return out, check
+
+
+def lm_moe_loop(h, lp, cfg) -> torch.Tensor:
+    """The MoE FFN one token and one of its top-k experts at a time, in
+    float32: softmax over the float32 router logits, the k largest gates
+    renormalised, each expert's SwiGLU on the token."""
+    F = torch.nn.functional
+    y = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
+    for n in range(h.shape[0]):
+        x = h[n].float()
+        probs = torch.softmax(x @ lp["router"].float(), dim=-1)
+        gates, eids = torch.topk(probs, cfg.top_k)
+        gates = gates / gates.sum()
+        for g, e in zip(gates.tolist(), eids.tolist()):
+            hid = F.silu(x @ lp["e_wi_g"][e].float()) * \
+                (x @ lp["e_wi_u"][e].float())
+            y[n] += g * (hid @ lp["e_wo"][e].float())
+    return y
+
+
+def lm_phase(*, dev, card):
+    """Phase 20: the language models on the card (the module docstring)."""
+    import shutil
+    import tempfile
+
+    from repro_torch import pytree
+    from repro_torch.configs import (internlm2_1_8b, kimi_k2, llama4_scout,
+                                     phi3_mini, smollm_135m)
+    from repro_torch.configs.cells import lm_model_flops
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, train
+    from repro_torch.models import layers, moe
+    from repro_torch.models import transformer as tf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ops.reset_launches()
+    result = {}
+
+    # ---- 20a: the reduced configurations, card against CPU (float32)
+    t0 = time.perf_counter()
+    errs_a = {}
+    for mod in (smollm_135m, phi3_mini, internlm2_1_8b, llama4_scout,
+                kimi_k2):
+        cfg = mod.reduced_config()
+        host = tf.init_params(cfg, torch.Generator().manual_seed(20),
+                              device="cpu")
+        card_p = pytree.tree_map(lambda t: t.to(dev), host)
+        rng = np.random.default_rng(20)
+        toks = rng.integers(0, cfg.vocab, (2, 40)).astype(np.int32)
+        outs = {}
+        for where, p in (("cpu", host), ("card", card_p)):
+            d = torch.device("cpu") if where == "cpu" else dev
+            t = torch.tensor(toks, device=d)
+            with torch.no_grad():
+                logits = tf.forward(p, t, cfg, device=d)
+                last, cache = tf.prefill(p, t, cfg, device=d)
+                cache = {k: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, 4))
+                         for k, c in cache.items()}
+                dec = []
+                for i in range(3):
+                    tok = torch.tensor(toks[:, i], device=d)
+                    pos = torch.tensor([40 + i, 41 + i], device=d)
+                    lg, cache = tf.decode_step(p, cache, tok, pos, cfg,
+                                               device=d)
+                    dec.append(lg)
+            outs[where] = [logits, last, torch.stack(dec, 1)]
+        errs_a[cfg.name] = max(
+            check_rel(c.cpu(), h, LM_CARD_TOL, f"20a {cfg.name} {what}")
+            for what, c, h in zip(("forward", "prefill", "decode"),
+                                  outs["card"], outs["cpu"]))
+    g = torch.Generator(device=dev).manual_seed(21)
+    q = torch.randn((1, LM_FLASH_S, 32, 96), generator=g, device=dev)
+    k = torch.randn((1, LM_FLASH_S, 32, 96), generator=g, device=dev)
+    v = torch.randn((1, LM_FLASH_S, 32, 96), generator=g, device=dev)
+    flash_err = {}
+    for window in (None, 1024):
+        got = layers.flash_attention(q, k, v, window=window)
+        i = torch.arange(LM_FLASH_S, device=dev)
+        mask = i[:, None] >= i[None, :]
+        if window is not None:
+            mask &= (i[:, None] // window) == (i[None, :] // window)
+        sc = torch.einsum("bqhd,bkhd->bhqk", q, k) * 96 ** -0.5
+        p = torch.softmax(sc.masked_fill(~mask, float("-inf")), dim=-1)
+        want = torch.einsum("bhqk,bkhd->bqhd", p, v)
+        flash_err[str(window)] = check_rel(got, want, LM_FLASH_TOL,
+                                           f"20a flash window={window}")
+        del got, sc, p, want
+    del q, k, v
+    log(f"[20a] reduced configs card vs CPU (float32, TF32 off), largest of "
+        f"forward / prefill / decode: "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs_a.items())
+        + f" (bound {LM_CARD_TOL}); flash_attention 32 x 96 at S = "
+        f"{LM_FLASH_S} vs direct softmax: causal {flash_err['None']:.3e}, "
+        f"window 1024 {flash_err['1024']:.3e} (bound {LM_FLASH_TOL}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    result["a"] = {"card_vs_cpu": errs_a, "flash": flash_err}
+
+    # ---- 20b: phi3-mini-3.8b whole, bfloat16, through the serving driver
+    t0 = time.perf_counter()
+    cfg = phi3_mini.make_config()
+    B, S, G = LM_SERVE["batch"], LM_SERVE["prompt"], LM_SERVE["gen"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tokens = serve.main(["--arch", cfg.name, "--batch", str(B),
+                         "--prompt-len", str(S), "--gen", str(G),
+                         "--seed", "0"])
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in pytree.leaves(params))
+    out, check = lm_check_serving(tf, serve, params, cfg, LM_SERVE, 0,
+                                  LM_BF16_TOL, "20b phi3-mini bf16", dev)
+    if not torch.equal(out["tokens"].cpu(), tokens.cpu()):
+        raise AssertionError("20b: serve.main's tokens differ from "
+                             "serve.generate's on the same seed")
+    peak = torch.cuda.max_memory_allocated(dev)
+    flops = lm_model_flops(cfg, B, S, "prefill")
+    step_ms = out["decode_s"] / (G - 1) * 1e3
+    moved = out["weight_bytes"] + out["cache_bytes"]
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    prefill = {"tok_s": B * S / out["prefill_s"],
+               "tflops": flops / out["prefill_s"] / 1e12,
+               "ms": out["prefill_s"] * 1e3}
+    log(f"[20b] phi3-mini-3.8b whole (32 layers, bf16, "
+        f"{weight_bytes / 1e9:.2f} GB of weights), B={B} prompt {S} + {G} "
+        f"new: prefill {prefill['ms']:.2f} ms, {prefill['tok_s']:.0f} tok/s, "
+        f"{prefill['tflops']:.2f} TFLOP/s ({prefill['tflops'] / 989:.4f} of "
+        f"989); decode {step_ms:.4f} ms a step, bound {bound_ms:.4f} ms "
+        f"({out['weight_bytes'] / 1e9:.4f} GB weights + "
+        f"{out['cache_bytes'] / 1e9:.4f} GB cache), {B / step_ms * 1e3:.0f} "
+        f"tok/s; peak {peak} bytes; prefill-then-decode vs forward "
+        f"{check['err']:.3e} of the largest |logit| {check['max_logit']:.3f} "
+        f"(bound {LM_BF16_TOL}); two requests bit-equal; on {card}")
+    bf16_err = check["err"]
+    del out
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params = pytree.tree_map(lambda t: t.float(), params)  # the same weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    out32, check32 = lm_check_serving(tf, serve, params, cfg32, LM_SERVE, 0,
+                                      LM_F32_TOL, "20b phi3-mini float32",
+                                      dev)
+    log(f"[20b] phi3-mini-3.8b float32 copy "
+        f"({sum(t.numel() * 4 for t in pytree.leaves(params)) / 1e9:.2f} "
+        f"GB): prefill-then-decode vs forward {check32['err']:.3e} of the "
+        f"largest |logit| (bound {LM_F32_TOL}; the bf16 run's "
+        f"{bf16_err:.3e} is {bf16_err / LM_F32_TOL:.0f}x it); prefill "
+        f"{out32['prefill_s'] * 1e3:.2f} ms, decode "
+        f"{out32['decode_s'] / (G - 1) * 1e3:.4f} ms a step")
+    result["b"] = {"prefill": prefill, "decode_ms": step_ms,
+                   "decode_bound_ms": bound_ms, "peak_bytes": peak,
+                   "bf16": check, "float32": check32,
+                   "seconds": time.perf_counter() - t0}
+    del params, out32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 20c: the MoE path at full width, one layer each
+    result["c"] = {}
+    for mod, seed in ((llama4_scout, 1), (kimi_k2, 2)):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(mod.make_config(), n_layers=1)
+        params = tf.init_params(cfg,
+                                torch.Generator(device=dev).manual_seed(seed),
+                                device=dev)
+        gb = sum(t.numel() * t.element_size()
+                 for t in pytree.leaves(params)) / 1e9
+        lp = {n: w[0] for n, w in params["layers"].items()}
+        gh = torch.Generator(device=dev).manual_seed(seed + 10)
+        h = torch.randn((1, 32, cfg.d_model), generator=gh,
+                        device=dev).to(cfg.dtype)
+        dims = moe.MoEDims(cfg.n_experts, cfg.top_k, cfg.d_model,
+                           cfg.d_ff_expert)
+        with torch.no_grad():
+            y = moe.moe_reference(h, lp["router"], lp["e_wi_g"],
+                                  lp["e_wi_u"], lp["e_wo"], dims)
+            y_loop = lm_moe_loop(h[0], lp, cfg)
+        loop_err = check_rel(y[0].float(), y_loop, LM_MOE_LOOP_TOL,
+                             f"20c {cfg.name} moe_reference vs loop")
+        del y, y_loop, h, lp
+        out, check = lm_check_serving(tf, serve, params, cfg, LM_MOE_SERVE,
+                                      seed, LM_BF16_TOL,
+                                      f"20c {cfg.name} bf16", dev)
+        log(f"[20c] {cfg.name} 1 of {mod.make_config().n_layers} layers, "
+            f"{cfg.n_experts} experts top-{cfg.top_k}"
+            f"{' + shared' if cfg.n_shared_experts else ''} ({gb:.2f} GB "
+            f"bf16): moe_reference vs a per-token float32 loop (32 tokens) "
+            f"{loop_err:.3e} (bound {LM_MOE_LOOP_TOL}); B="
+            f"{LM_MOE_SERVE['batch']} prompt {LM_MOE_SERVE['prompt']} + "
+            f"{LM_MOE_SERVE['gen']}: prefill-then-decode vs forward "
+            f"{check['err']:.3e} of the largest |logit| (bound "
+            f"{LM_BF16_TOL}; {check['near_ties']} of {check['rows']} rows "
+            f"near a router tie, all rows {check['err_all_rows']:.3e}); "
+            f"prefill {out['prefill_s'] * 1e3:.2f} ms, decode "
+            f"{out['decode_s'] / (LM_MOE_SERVE['gen'] - 1) * 1e3:.3f} ms a "
+            f"step; {time.perf_counter() - t0:.1f} s")
+        result["c"][cfg.name] = {"gb": gb, "loop_err": loop_err, **check}
+        del params, out
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ---- 20d: smollm-135m trained at full width, checkpoint and resume
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="lm_ckpt_")
+    try:
+        base = ["--arch", "smollm-135m", "--batch", str(LM_TRAIN["batch"]),
+                "--seq", str(LM_TRAIN["seq"]), "--seed", "0",
+                "--log-every", "100"]
+        straight = train.run(train.parse_args(
+            base + ["--steps", str(LM_TRAIN["steps"])]))
+        first = train.main(base + ["--steps", str(LM_TRAIN["ckpt"]),
+                                   "--ckpt-dir", tmp, "--ckpt-every",
+                                   str(LM_TRAIN["ckpt"])])
+        resumed = train.main(base + ["--steps", str(LM_TRAIN["steps"]),
+                                     "--ckpt-dir", tmp, "--ckpt-every",
+                                     str(LM_TRAIN["ckpt"]), "--resume"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    losses = straight["losses"]
+    if not np.isfinite(losses + first + resumed).all():
+        raise AssertionError("20d: a loss is not finite")
+    if len(resumed) != LM_TRAIN["steps"] - LM_TRAIN["ckpt"]:
+        raise AssertionError(f"20d: the resumed run took {len(resumed)} steps")
+    resume_err = max(abs(a - b) / abs(b) for a, b in
+                     zip(resumed, losses[LM_TRAIN["ckpt"]:]))
+    if resume_err > LM_RESUME_RTOL:
+        raise AssertionError(f"20d: resumed losses {resumed} vs straight "
+                             f"{losses[LM_TRAIN['ckpt']:]}: {resume_err:.3e}")
+    step_ms = float(np.median(straight["step_s"][1:])) * 1e3
+    cfg = smollm_135m.make_config()
+    tflops = lm_model_flops(cfg, LM_TRAIN["batch"], LM_TRAIN["seq"],
+                            "train") / step_ms / 1e9
+    log(f"[20d] smollm-135m trained (B={LM_TRAIN['batch']}, S="
+        f"{LM_TRAIN['seq']}, AdamW): losses "
+        + " ".join(f"{x:.4f}" for x in losses)
+        + f"; resumed at {LM_TRAIN['ckpt']}: "
+        + " ".join(f"{x:.4f}" for x in resumed)
+        + f" (largest relative gap {resume_err:.3e}, bound {LM_RESUME_RTOL}); "
+        f"{step_ms:.2f} ms a step (median of steps 2-6), "
+        f"{LM_TRAIN['batch'] * LM_TRAIN['seq'] / step_ms * 1e3:.0f} tok/s, "
+        f"{tflops:.3f} TFLOP/s; {time.perf_counter() - t0:.1f} s")
+    result["d"] = {"losses": losses, "resumed": resumed,
+                   "resume_err": resume_err, "step_ms": step_ms,
+                   "tflops": tflops}
+    counts = {k: n for k, n in ops.launch_counts().items() if n}
+    if counts:
+        raise AssertionError(f"20: the LM path launched kernels {counts}")
+    log(f"[20] launches of the port's kernels over phase 20: none (the LM "
+        f"path runs plain PyTorch)")
+    return result
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5843,6 +6256,19 @@ def main() -> int:
     log(f"[18] phase 18 took {t18_ab + time.perf_counter() - t18:.1f} s "
         f"(reserve {TRAIN_RESERVE_S:.0f} s); the run "
         f"{time.perf_counter() - t_start:.1f} s so far")
+
+    # ---- 20: the language models, last, with the card's memory freed
+    t20 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[20] device memory held {torch.cuda.memory_allocated() / 2**30:.2f}"
+        f" GiB before phase 20")
+    lm_phase(dev=dev, card=card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[20] phase 20 took {time.perf_counter() - t20:.1f} s (reserve "
+        f"{LM_RESERVE_S:.0f} s); the run {time.perf_counter() - t_start:.1f}"
+        f" s so far")
 
     print(json.dumps({"kernels": table}))
     print(card)

@@ -14,7 +14,13 @@ kernel 2's real SpMM (``configs.gin_tu``), EGNN and NequIP
 (``configs.egnn``, ``configs.nequip``), their losses in ``configs.cells``
 and the neighbour sampler (``graphs.sampler``), and
 DLRM inference with the embedding-bag kernel (``models.dlrm``; the
-dlrm-mlperf configuration in ``configs.dlrm_mlperf``), and the serving
+dlrm-mlperf configuration in ``configs.dlrm_mlperf``), the decoder-only
+language models, dense and MoE (``models.transformer`` over
+``models.layers`` and ``models.moe``: ``forward``, ``loss_fn``,
+``prefill`` and ``decode_step`` through a KV cache; smollm-135m,
+phi3-mini-3.8b, internlm2-1.8b, llama4-scout and kimi-k2 in ``configs``,
+whose registry is ``configs.ARCHS``; ``data.TokenPipeline``; the serving
+and training drivers ``launch.serve`` and ``launch.train``), and the serving
 layer (``serving``: ``GraphSession`` and ``Router`` over the ``Batcher``,
 the ``Dispatcher`` on the engine's cached ``FixpointHandle``s and
 ``ServingMetrics``). The session is the front door the Graph500 harnesses
@@ -43,13 +49,14 @@ from .models.dlrm import DLRMConfig, dlrm_forward, dlrm_init
 from .models.gnn import (EGNNConfig, GCNConfig, GINConfig, NequIPConfig,
                          egnn_forward, egnn_init, gcn_forward, gcn_init,
                          gin_forward, gin_init, nequip_forward, nequip_init)
+from .models.transformer import LMConfig, decode_step, forward, prefill
 from .serving import GraphSession, Router, session
 
 __all__ = ["DLRMConfig", "EGNNConfig", "EngineConfig", "GCNConfig",
-           "GINConfig", "GraphSession", "NequIPConfig", "Router",
-           "betweenness", "bfs", "build_csr", "build_slimsell",
-           "cc", "dlrm_forward", "dlrm_init", "egnn_forward", "egnn_init",
-           "gcn_forward", "gcn_init", "gin_forward", "gin_init",
-           "khop", "khop_many", "multi_source_bfs", "multi_source_sssp",
-           "nequip_forward", "nequip_init", "pagerank", "run_graph500",
-           "run_graph500_sssp", "session", "sssp"]
+           "GINConfig", "GraphSession", "LMConfig", "NequIPConfig", "Router",
+           "betweenness", "bfs", "build_csr", "build_slimsell", "cc",
+           "decode_step", "dlrm_forward", "dlrm_init", "egnn_forward",
+           "egnn_init", "forward", "gcn_forward", "gcn_init", "gin_forward",
+           "gin_init", "khop", "khop_many", "multi_source_bfs",
+           "multi_source_sssp", "nequip_forward", "nequip_init", "pagerank",
+           "prefill", "run_graph500", "run_graph500_sssp", "session", "sssp"]

@@ -1,8 +1,10 @@
-"""The GNN part of the JAX package's ``repro/configs/cells.py``: the graph
-shapes of its GNN cells (``GNN_SHAPES``), the training loss of each of the
-four GNNs (``gnn_loss``, its ``_gnn_loss``) and their analytic training
-FLOPs (``gnn_model_flops``). ``build_gnn_cell``, which lays a cell out
-over a device mesh, is not ported.
+"""The GNN and LM parts of the JAX package's ``repro/configs/cells.py``:
+the graph shapes of its GNN cells (``GNN_SHAPES``), the training loss of
+each of the four GNNs (``gnn_loss``, its ``_gnn_loss``) and their analytic
+training FLOPs (``gnn_model_flops``); the shapes of its language-model
+cells (``LM_SHAPES``) and their model FLOPs (``lm_model_flops``).
+``build_gnn_cell`` and ``build_lm_cell``, which lay a cell out over a
+device mesh, are not ported.
 """
 from __future__ import annotations
 
@@ -10,6 +12,7 @@ import torch
 from torch.nn import functional as F
 
 from ..models import gnn
+from ..models.transformer import LMConfig
 
 GNN_SHAPES = {
     "full_graph_sm": dict(kind="train", n_nodes=2708, n_edges=10556,
@@ -83,3 +86,29 @@ def gnn_model_flops(kind: str, cfg, n_nodes: int, n_edges: int,
     else:
         raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
     return 3.0 * f
+
+
+# ------------------------------------------------------------------ LM family
+
+
+LM_SHAPES = {
+    "train_4k": dict(kind="train", seq=4096, batch=256),
+    # a variant of the JAX package's MoE study: tighter dispatch capacity
+    "train_4k_cf125": dict(kind="train", seq=4096, batch=256,
+                           cap_factor=1.25),
+    "prefill_32k": dict(kind="prefill", seq=32768, batch=32),
+    "decode_32k": dict(kind="decode", seq=32768, batch=128),
+    "long_500k": dict(kind="decode", seq=524288, batch=1, seq_shard=True),
+}
+
+
+def lm_model_flops(cfg: LMConfig, batch: int, seq: int, kind: str) -> float:
+    """Model FLOPs of a step: 6 N_active a token for ``"train"``, 2
+    N_active for ``"prefill"`` (``batch * seq`` tokens) and ``"decode"``
+    (``batch`` tokens), N_active the active weights (``active_params_e9``;
+    attention's own products are not counted), as the JAX package counts
+    them."""
+    n_active = cfg.active_params_e9 * 1e9
+    tokens = batch * seq if kind in ("train", "prefill") else batch
+    mult = 6.0 if kind == "train" else 2.0
+    return mult * n_active * tokens

@@ -5,7 +5,9 @@ a layout the JAX package built; ``state_from_arrays`` does the same for a
 BFS state dict. ``gnn_params_from_arrays`` and ``gnn_batch_from_arrays``
 carry the weights and the input batch of any of the four GNNs (GCN, GIN,
 EGNN, NequIP; ``gcn_params_from_arrays`` is the GCN's weights),
-``dlrm_params_from_arrays`` and ``dlrm_batch_from_arrays`` a DLRM's, and
+``dlrm_params_from_arrays`` and ``dlrm_batch_from_arrays`` a DLRM's,
+``lm_params_from_arrays`` and ``lm_cache_from_arrays`` a language model's
+weights and KV cache, and
 ``opt_state_from_arrays`` an optimiser's or a train step's state. With
 these, one layout, one state and one model go through both packages
 unchanged, in training too. Nothing
@@ -23,6 +25,7 @@ from .core.formats import SlimSellTiled, chunk_tile_ptr, resolve_device
 from .models.dlrm import DLRMConfig, top_sizes
 from .models.gnn import (GCNConfig, egnn_init, gin_init, layer_shapes,
                          nequip_init)
+from .models.transformer import LMConfig, param_shapes
 
 REQUIRED_ARRAYS = ("cols", "row_block", "row_vertex", "cl", "deg")
 LAYOUT_ARRAYS = REQUIRED_ARRAYS + ("inc_src", "inc_tile", "inc_ptr", "wts")
@@ -316,3 +319,62 @@ def opt_state_from_arrays(state, device=None):
     their dtype; any other is refused."""
     dev = resolve_device(device)
     return pytree.tree_map(lambda a: _state_leaf(a, dev), state)
+
+
+# the dtypes a language model's weights and cache arrive in, by numpy name
+_LM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _lm_leaf(a, want: torch.Tensor, what: str, dev: torch.device):
+    """A float32 or bfloat16 (``ml_dtypes``, carried as its bits) array as
+    a tensor of ``want``'s shape and dtype on ``dev``."""
+    a = np.asarray(a)
+    if str(a.dtype) not in _LM_DTYPES:
+        raise ValueError(f"{what} must be float32 or bfloat16, got {a.dtype}")
+    if a.shape != tuple(want.shape):
+        raise ValueError(f"{what} has shape {a.shape}, the config wants "
+                         f"{tuple(want.shape)}")
+    return _state_leaf(a, dev).to(want.dtype)
+
+
+def lm_params_from_arrays(params, cfg: LMConfig, device=None) -> dict:
+    """A language model's weights from the JAX package's tree of them as
+    numpy arrays (``jax.tree.map(np.asarray, params)``), on ``device``
+    (default: the card; raises when there is none), leaf for leaf: the tree
+    and every shape must be those of the port's ``init_params`` for
+    ``cfg``, and each leaf arrives in that init's dtype (bfloat16 arrays
+    as ``torch.bfloat16``, bit for bit)."""
+    pairs, treedef = pytree.flatten_with_paths(params)
+    want, want_def = pytree.flatten_with_paths(param_shapes(cfg))
+    if treedef != want_def:
+        raise ValueError(f"the weights are {treedef}, the config {cfg.name} "
+                         f"wants {want_def}")
+    dev = resolve_device(device)
+    return pytree.unflatten(treedef, [
+        _lm_leaf(a, w, f"weight {path}", dev)
+        for (path, a), (_, w) in zip(pairs, want)])
+
+
+def lm_cache_from_arrays(cache: Mapping, cfg: Optional[LMConfig] = None,
+                         device=None) -> dict:
+    """A KV cache ``{"k", "v"}`` ([L, B, S, KV, Dh] each, float32 or
+    bfloat16) from numpy arrays, on ``device`` (default: the card; raises
+    when there is none). With ``cfg`` the layers, heads and head width
+    must be the config's and the cache arrives in ``cfg.dtype``."""
+    if set(cache) != {"k", "v"}:
+        raise ValueError(f"a cache is {{'k', 'v'}}, got {sorted(cache)}")
+    k, v = np.asarray(cache["k"]), np.asarray(cache["v"])
+    if k.ndim != 5 or k.shape != v.shape:
+        raise ValueError(f"k and v must be one [L, B, S, KV, Dh] shape, got "
+                         f"{k.shape} and {v.shape}")
+    dtype = _LM_DTYPES.get(str(k.dtype), torch.float32)
+    if cfg is not None:
+        want = (cfg.n_layers, cfg.n_kv, cfg.d_head)
+        if (k.shape[0], k.shape[3], k.shape[4]) != want:
+            raise ValueError(f"the cache is {k.shape}, the config {cfg.name} "
+                             f"wants [{want[0]}, B, S, {want[1]}, {want[2]}]")
+        dtype = cfg.dtype
+    dev = resolve_device(device)
+    like = torch.empty(k.shape, dtype=dtype, device="meta")
+    return {name: _lm_leaf(a, like, f"cache[{name!r}]", dev)
+            for name, a in (("k", k), ("v", v))}

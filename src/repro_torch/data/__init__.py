@@ -1,1 +1,4 @@
 """Synthetic input pipelines (``data.pipeline``)."""
+from .pipeline import CriteoPipeline, TokenPipeline
+
+__all__ = ["CriteoPipeline", "TokenPipeline"]

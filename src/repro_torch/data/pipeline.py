@@ -1,5 +1,6 @@
-"""Deterministic synthetic DLRM batches, the port's copy of
-``CriteoPipeline`` from the JAX package's ``repro/data/pipeline.py``.
+"""Deterministic synthetic batches, the port's copy of ``CriteoPipeline``
+(DLRM) and ``TokenPipeline`` (language models) from the JAX package's
+``repro/data/pipeline.py``.
 
 A batch is a pure function of (seed, step, host_id), so hosts of a
 multi-process launch draw disjoint shards without coordination, and the
@@ -30,3 +31,22 @@ class CriteoPipeline:
             axis=1).astype(np.int32)
         label = rng.integers(0, 2, size=b).astype(np.int32)
         return {"dense": np.log1p(dense), "sparse": sparse, "label": label}
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenPipeline:
+    """LM batches: Zipf-distributed token ids (power-law like natural
+    text), ``{"tokens", "labels"}`` int32 [batch // n_hosts, seq], the
+    labels the tokens shifted by one."""
+    vocab: int
+    batch: int
+    seq: int
+    seed: int = 0
+
+    def get_batch(self, step: int, host_id: int = 0, n_hosts: int = 1):
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, step, host_id]))
+        b = self.batch // n_hosts
+        z = rng.zipf(1.2, size=(b, self.seq + 1))
+        toks = (z % self.vocab).astype(np.int32)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

@@ -1,2 +1,4 @@
-"""Models: GCN on the SlimSell layout (``models.gnn``) and DLRM with the
-embedding-bag kernel (``models.dlrm``)."""
+"""Models: GCN, GIN, EGNN and NequIP (``models.gnn``), DLRM with the
+embedding-bag kernel (``models.dlrm``), and the decoder-only language
+models (``models.transformer`` over ``models.layers`` and
+``models.moe``)."""

@@ -71,7 +71,21 @@ def test_port_imports_no_jax_and_no_jax_package():
             "src/repro_torch/configs/gin_tu.py",
             "src/repro_torch/configs/egnn.py",
             "src/repro_torch/configs/nequip.py",
-            "src/repro_torch/graphs/sampler.py"} <= names
+            "src/repro_torch/graphs/sampler.py",
+            "src/repro_torch/models/layers.py",
+            "src/repro_torch/models/moe.py",
+            "src/repro_torch/models/transformer.py",
+            "src/repro_torch/configs/__init__.py",
+            "src/repro_torch/configs/smollm_135m.py",
+            "src/repro_torch/configs/phi3_mini.py",
+            "src/repro_torch/configs/internlm2_1_8b.py",
+            "src/repro_torch/configs/llama4_scout.py",
+            "src/repro_torch/configs/kimi_k2.py",
+            "src/repro_torch/data/__init__.py",
+            "src/repro_torch/launch/__init__.py",
+            "src/repro_torch/launch/serve.py",
+            "src/repro_torch/launch/train.py",
+            "src/repro_torch/profile_lm.py"} <= names
     assert (REPO / "src/repro_torch/analysis/lint_allow.txt").is_file()
     assert (REPO / "src/repro_torch/kernels/csrc/semiring_probe.cu").is_file()
     bad = {str(p.relative_to(REPO)): sorted(set(_imported_roots(p)) & {"jax", "repro"})
@@ -348,3 +362,56 @@ def test_gnn_entry_points_without_card_raise(no_card):
             convert.gnn_params_from_arrays(kind, arrays_p, cfg)
         out = forward(params, batch, cfg, device="cpu")
         assert pytree.leaves(out)[0].device.type == "cpu"
+
+
+def test_lm_entry_points_and_drivers_without_card_raise(no_card, tmp_path,
+                                                        monkeypatch):
+    """The language models (init, forward, prefill, decode, loss, the
+    module, the cache, the converters) and both drivers want the card
+    unless told otherwise, and raise before they draw a weight; with
+    ``device="cpu"`` / ``--device cpu`` they run."""
+    from repro_torch import profile_lm
+    from repro_torch.configs import smollm_135m
+    from repro_torch.launch import serve, train
+    from repro_torch.models import transformer as tf
+    cfg = smollm_135m.reduced_config()
+    drew = []
+    orig = tf._normal_into
+    monkeypatch.setattr(tf, "_normal_into",
+                        lambda *a, **k: drew.append(1) or orig(*a, **k))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "smollm-135m", "--reduced"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "smollm-135m", "--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profile_lm.main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tf.init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tf.LM(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tf.init_cache(cfg, 1, 4)
+    assert not drew
+    params = tf.init_params(cfg, device="cpu")
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    cache = tf.init_cache(cfg, 1, 8, device="cpu")
+    arrays = pytree.tree_map(lambda t: t.numpy(), params)
+    for call in (lambda: tf.forward(params, toks, cfg),
+                 lambda: tf.prefill(params, toks, cfg),
+                 lambda: tf.decode_step(params, cache, toks[:, 0],
+                                        torch.zeros(1, dtype=torch.int32), cfg),
+                 lambda: tf.loss_fn(params, {"tokens": toks, "labels": toks},
+                                    cfg),
+                 lambda: convert.lm_params_from_arrays(arrays, cfg),
+                 lambda: convert.lm_cache_from_arrays(
+                     {k: v.numpy() for k, v in cache.items()})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    logits, _ = tf.prefill(params, toks, cfg, device="cpu")
+    assert logits.device == torch.device("cpu")
+    out = serve.main(["--arch", "smollm-135m", "--reduced", "--device", "cpu",
+                      "--batch", "1", "--prompt-len", "4", "--gen", "2"])
+    assert out.shape == (1, 2)
+    losses = train.main(["--arch", "smollm-135m", "--reduced", "--device",
+                         "cpu", "--steps", "1", "--batch", "2", "--seq", "8"])
+    assert len(losses) == 1
