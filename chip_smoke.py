@@ -354,9 +354,9 @@ exit and no result line):
    test bounds, no kernel launched, the warm forward at 128 and 4,096
    molecules, its six requests at each within ``GNN_CARD_TOL`` of the
    first (``index_add_`` sums in no fixed order there);
-20. (run last) the language models (``models.transformer`` over
-   ``models.layers`` and ``models.moe``, ``launch.serve``,
-   ``launch.train``), which run no kernel of the port's own (its launch
+20. (run after 18c-d, before 21) the language models
+   (``models.transformer`` over ``models.layers`` and ``models.moe``,
+   ``launch.serve``, ``launch.train``), which run no kernel of the port's own (its launch
    counts stay 0 over the phase): (a) each of the five ``reduced_config``s
    (float32, TF32 off) on the card against the same code on the CPU,
    forward, prefill and three decode steps, within ``LM_CARD_TOL``, and
@@ -380,7 +380,34 @@ exit and no result line):
    ``launch.train`` (B = 8, S = 256, AdamW): six steps straight, and three
    with a checkpoint at step 3 and a ``--resume`` to step 6, every loss
    finite and the resumed ones within ``LM_RESUME_RTOL`` of the straight
-   run's; ms a step.
+   run's; ms a step;
+21. (run last) meshes (``models.sharding``, ``ShardCtx``, the ctx paths of
+   ``models.transformer`` and ``models.dlrm``), ranks as processes that
+   share the card over gloo (collectives through the host, not NVLink),
+   each rank drawing the same seeded weights leaf by leaf and keeping its
+   blocks, against single-device references computed first in this
+   process (the card's memory freed before each world): in a (1, 2) world
+   (a) DLRM on ``capped_config(2**22)`` with every table row-sharded at
+   ``serve_p99`` and ``serve_bulk``, (b) phi3-mini-3.8b whole in heads
+   mode through ``serve.generate(ctx=)``, bf16 and a float32 copy, B = 4,
+   512 + 16 tokens teacher-forced with phase 20b's greedy tokens, (c)
+   smollm-135m in context mode (9 heads over 2, the cache's sequence over
+   model), bf16 and a float32 copy; in a (2, 2) world (a)
+   ``serve_bulk_hybrid`` and ``serve_bulk`` all-sharded and
+   ``retrieval_cand`` (10^6 candidates over data), (c) smollm-135m with
+   FSDP and sequence parallelism, bf16 and a float32 copy, and
+   ``long_500k``: a seeded cache of 524,288 positions (12.08 GB bf16, the
+   sequence over data, 6.04 GB a rank) decoded at a position in each
+   shard, bf16 and a float32 copy over the same values (12.08 GB a rank),
+   and once more with the first shard's cache zeroed (a planted fault).
+   The DLRM logits within ``MESH_DLRM_TOL`` of one device's, the scores
+   within ``MESH_SCORE_RTOL``; kernel 7 launched once a forward on every
+   rank and equal to its plain version on each rank's tables and remapped
+   ids; every float32 copy's logits within ``MESH_F32_TOL`` of one
+   device's float32 logits, the planted fault's beyond it; the bf16 logits
+   no farther from the float32 copy's than ``MESH_BF16_REL`` times one
+   device's bf16 logits are. Each world's times, collectives and peak
+   memory a rank.
 
 The graphs carry the Graph500 SSSP weights (uniform on [2^-8, 1]); one
 weighted layout per scale serves every phase (the BFS phases never read
@@ -401,7 +428,9 @@ harness batch and kernel 2w over phase 8b's per-root harness; the
 embedding bag over phase 11b, exactly once a forward; the GCN SpMM over
 phase 18b, exactly four times a training step, and the embedding bag over
 phase 18c, exactly once a training step; kernel 2 over phases 19b and
-19c, each counted from zero, exactly five times a GIN forward.
+19c, each counted from zero, exactly five times a GIN forward; the
+embedding bag over phase 21's DLRM forwards, exactly once a forward on
+each rank (each rank's counted from zero).
 The last lines are the kernel table, the card, and ``{"ok": true,
 "device": {...}}``.
 """
@@ -433,7 +462,7 @@ SCALE, EDGE_FACTOR, SMALL_SCALE = 20, 16, 14
 # the whole run must end within 1200 s; phase 8b validates 64 SSSP trees
 # only if that still ends by this mark, else the first 16; phase 9c the
 # same by its own mark; both leave phases 10, 12, 13, 14, 15, 16, 17, 11,
-# 18 and 19 their reserves
+# 18, 19, 20 and 21 their reserves
 GCN_RESERVE_S = 60.0
 DLRM_RESERVE_S = 90.0
 GRAPH_RESERVE_S = 90.0
@@ -445,14 +474,15 @@ ANALYSIS_RESERVE_S = 60.0
 TRAIN_RESERVE_S = 60.0
 GNN_RESERVE_S = 30.0
 LM_RESERVE_S = 30.0
+MESH_RESERVE_S = 120.0
 VALIDATE_ALL_BY_S = 900.0 - GCN_RESERVE_S - DLRM_RESERVE_S \
     - GRAPH_RESERVE_S - BC_RESERVE_S - SERVE_RESERVE_S - SESSION_RESERVE_S \
     - DIST_RESERVE_S - ANALYSIS_RESERVE_S - TRAIN_RESERVE_S - GNN_RESERVE_S \
-    - LM_RESERVE_S
+    - LM_RESERVE_S - MESH_RESERVE_S
 VALIDATE_BATCH_BY_S = 1000.0 - GCN_RESERVE_S - DLRM_RESERVE_S \
     - GRAPH_RESERVE_S - BC_RESERVE_S - SERVE_RESERVE_S - SESSION_RESERVE_S \
     - DIST_RESERVE_S - ANALYSIS_RESERVE_S - TRAIN_RESERVE_S - GNN_RESERVE_S \
-    - LM_RESERVE_S
+    - LM_RESERVE_S - MESH_RESERVE_S
 # PageRank with the kernels against the same call with the plain sweeps
 # (phase 12): kernel 1 adds a row in another order than the plain version,
 # so the ranks are held to bounds fixed before the first card run
@@ -4237,6 +4267,10 @@ def lm_phase(*, dev, card):
         f"{check['err']:.3e} of the largest |logit| {check['max_logit']:.3f} "
         f"(bound {LM_BF16_TOL}); two requests bit-equal; on {card}")
     bf16_err = check["err"]
+    # phase 21 holds the mesh's logits to these, step by step
+    ref = {"bf16": {"logits": out["logits"].cpu(), "tokens": out["tokens"].cpu(),
+                    "prefill_ms": out["prefill_s"] * 1e3,
+                    "decode_ms": out["decode_s"] / (G - 1) * 1e3}}
     del out
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     params = pytree.tree_map(lambda t: t.float(), params)  # the same weights
@@ -4252,9 +4286,21 @@ def lm_phase(*, dev, card):
         f"{bf16_err:.3e} is {bf16_err / LM_F32_TOL:.0f}x it); prefill "
         f"{out32['prefill_s'] * 1e3:.2f} ms, decode "
         f"{out32['decode_s'] / (G - 1) * 1e3:.4f} ms a step")
+    ref["f32"] = {"logits": out32["logits"].cpu(),
+                  "tokens": out32["tokens"].cpu(),
+                  "prefill_ms": out32["prefill_s"] * 1e3,
+                  "decode_ms": out32["decode_s"] / (G - 1) * 1e3}
+    # the float32 copy teacher-forced with the bf16 run's greedy tokens:
+    # the float32 logits of the bf16 run's history, which phase 21 holds
+    # the bf16 runs to
+    prompt = torch.tensor(serve.prompt_tokens(cfg32.vocab, B, S, 0),
+                          device=dev)
+    ref["f32_fed"] = {"logits": serve.generate(
+        params, prompt, cfg32, G, feed=ref["bf16"]["tokens"].to(dev),
+        device=dev)["logits"].cpu()}
     result["b"] = {"prefill": prefill, "decode_ms": step_ms,
                    "decode_bound_ms": bound_ms, "peak_bytes": peak,
-                   "bf16": check, "float32": check32,
+                   "bf16": check, "float32": check32, "ref": ref,
                    "seconds": time.perf_counter() - t0}
     del params, out32
     gc.collect()
@@ -4355,11 +4401,657 @@ def lm_phase(*, dev, card):
     return result
 
 
+# ---------------------------------------------------------------- phase 21
+# Meshes: ranks as processes sharing the card over gloo (models.sharding,
+# the ctx paths of models.transformer, models.dlrm's row-sharded tables).
+# Bounds fixed before the first card run.
+MESH_TIMEOUT_S = 480.0
+MESH_DLRM_ROWS = 2 ** 22
+# DLRM logits on a mesh against one device, of the largest |logit|: each
+# bag is one row added on one rank to zeros on the others (exact), so
+# only the MLPs' products over the rank's batch block (other cuBLAS
+# shapes where the batch is split over data) may round apart
+MESH_DLRM_TOL = 1e-5
+MESH_SCORE_RTOL = 1e-6     # retrieval scores, candidates split over data
+# bfloat16 language models on a mesh: a row-parallel product's partials
+# are rounded to bfloat16 before they are summed, so the mesh's bf16
+# logits differ from one device's by bf16 roundings amplified over the
+# layers. Held to the float32 copy fed the same tokens: the mesh's bf16
+# logits no farther from it than MESH_BF16_REL times one device's bf16
+# logits are (each distance of the float32 logits' largest |logit|); a
+# mis-sharded run (a partial sum lost, a mask or offset wrong) lands at
+# O(1). A bound of 1/64 of the largest |logit| between the two bf16 runs
+# cannot hold on the card (PERF.md §6): one device's bf16 phi3-mini is
+# itself 4.88e-2 from its float32 copy
+MESH_BF16_REL = 2.0
+# the float32 copy: float32 sums over two ranks in another order (~1e-6
+# expected over 32 layers); a bfloat16 logit near the largest is itself
+# rounded by ~4e-3 of it, so a bfloat16 computation fails this. Every
+# mode runs a float32 copy on the mesh (phi3 in heads mode, smollm in
+# context mode at (1, 2) and (2, 2), long_500k's sequence-sharded decode),
+# and long_500k's planted fault (a lost shard) must land beyond it: the
+# bf16 bound alone is too loose to see such a fault
+MESH_F32_TOL = 1e-4
+MESH_SMOLLM = dict(batch=4, prompt=512, gen=4)
+MESH_LONG_SEQ = 524288           # long_500k's cache
+MESH_CACHE_BLOCK = 2 ** 14       # positions a seeded cache draws at once
+MESH_LONG_POS = (200_000, 400_000)   # a decode in each sequence shard
+
+
+def seeded_kv(cfg, lo: int, hi: int, seed: int, dev, store=None) -> dict:
+    """Positions [lo, hi) of a seeded KV cache of batch 1 (``{"k", "v"}``,
+    [L, 1, hi - lo, KV, Dh], N(0, 1) rounded to ``cfg.dtype`` and kept in
+    ``store``, by default the same), each block of ``MESH_CACHE_BLOCK``
+    positions of each layer from a generator of its own: a rank draws its
+    sequence shard alone, equal to the same positions of the whole
+    cache."""
+    out = {}
+    for i, name in enumerate(("k", "v")):
+        t = torch.empty((cfg.n_layers, 1, hi - lo, cfg.n_kv, cfg.d_head),
+                        dtype=store or cfg.dtype, device=dev)
+        for layer in range(cfg.n_layers):
+            for b0 in range(lo, hi, MESH_CACHE_BLOCK):
+                block = b0 // MESH_CACHE_BLOCK
+                g = torch.Generator(device=dev).manual_seed(
+                    seed * 1_000_003 + (layer * 4096 + block) * 2 + i)
+                t[layer, 0, b0 - lo:b0 - lo + MESH_CACHE_BLOCK] = torch.randn(
+                    (MESH_CACHE_BLOCK, cfg.n_kv, cfg.d_head), generator=g,
+                    device=dev).to(cfg.dtype)
+        out[name] = t
+    return out
+
+
+def mesh_ctx(grid, **kw):
+    from repro_torch.models.sharding import AxisRules
+    from repro_torch.models.transformer import ShardCtx
+    return ShardCtx(grid, AxisRules.for_mesh(grid), **kw)
+
+
+def mesh_dlrm(grid, *, seed, placements, shapes, retrieval):
+    """DLRM inference on ``capped_config(MESH_DLRM_ROWS)`` with the rank's
+    table blocks: each placement's weights drawn from the seed (the
+    single-device weights, padded, the rank's blocks kept), then per shape
+    one counted forward (kernel 7 once), its time and collectives, the
+    logits gathered; kernel 7 alone on the rank's tables and remapped ids
+    against its plain version and timed; retrieval over candidates split
+    over data."""
+    from repro_torch import convert
+    from repro_torch.configs.cells import RECSYS_SHAPES
+    from repro_torch.configs.dlrm_mlperf import capped_config
+    from repro_torch.data.pipeline import CriteoPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import embedding_bag_grouped_ref
+    from repro_torch.models import dlrm
+    from repro_torch.models.sharding import block, gather_shard, local_shard
+    from repro_torch.profile_spmm import time_ms
+    dev = grid.device
+    cfg = capped_config(MESH_DLRM_ROWS)
+    ctx = mesh_ctx(grid)
+    res = {}
+    for hybrid in placements:
+        params = dlrm.dlrm_init(
+            cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+            ctx=ctx, hybrid=hybrid)
+        local_bytes = sum(t.numel() * 4 for t in params["tables"])
+        for name in shapes:
+            B = RECSYS_SHAPES[name]["batch"]
+            batch = convert.dlrm_batch_from_arrays(CriteoPipeline(
+                cfg.vocabs, B, 1, seed=seed).get_batch(0), device=dev)
+            if B <= 512:   # the host-bound shape: a warm-up, not counted
+                with torch.inference_mode():
+                    dlrm.dlrm_forward(params, batch, cfg, ctx=ctx,
+                                      hybrid=hybrid)
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            grid.stats.reset()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                y = dlrm.dlrm_forward(params, batch, cfg, ctx=ctx,
+                                      hybrid=hybrid)
+            torch.cuda.synchronize()
+            fwd_ms = (time.perf_counter() - t0) * 1e3
+            launches = ops.launch_counts()["embedding_bag_grouped"]
+            comm = grid.stats.snapshot()
+            logits = gather_shard(y, (dlrm.batch_entry(ctx, B),), grid).cpu()
+            rows = block(dlrm.batch_entry(ctx, B), B, grid)
+            ids = dlrm.local_ids(batch["sparse"][rows], params["tables"], cfg,
+                                 ctx, hybrid)
+            with torch.inference_mode():
+                got = ops.embedding_bag_grouped(params["tables"], ids)
+                want = embedding_bag_grouped_ref(params["tables"], ids)
+                exact = bool(torch.equal(got, want))
+                del got, want
+                lookup_ms = time_ms(lambda: ops.embedding_bag_grouped(
+                    params["tables"], ids), 10)
+            res[f"{name} {'hybrid' if hybrid else 'sharded'}"] = {
+                "logits": logits if grid.rank == 0 else None,
+                "launches": launches, "forward_ms": fwd_ms,
+                "lookup_ms": lookup_ms, "k7_exact": exact,
+                "comm_bytes": comm["bytes"], "comm_s": comm["seconds"],
+                "comm_calls": comm["calls"], "table_bytes": local_bytes,
+                "batch_rows": rows.stop - rows.start}
+            del batch, y, ids
+        if retrieval:
+            n = RECSYS_SHAPES["retrieval_cand"]["n_candidates"]
+            cands = torch.randn((n, cfg.embed_dim),
+                                generator=torch.Generator(
+                                    device=dev).manual_seed(seed + 1),
+                                device=dev)
+            cands = local_shard(cands, (dlrm.batch_entry(ctx, n), None),
+                                grid).clone()
+            user = {"dense": convert.dlrm_batch_from_arrays(CriteoPipeline(
+                cfg.vocabs, RECSYS_SHAPES["serve_p99"]["batch"], 1,
+                seed=seed).get_batch(0), device=dev)["dense"][:1]}
+            grid.stats.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                u = dlrm.dlrm_user_tower(params, user, cfg, device=dev)[0]
+                scores = dlrm.retrieval_scores(u, cands, ctx=ctx,
+                                               n_candidates=n)
+            torch.cuda.synchronize()
+            res["retrieval"] = {
+                "scores": scores.cpu() if grid.rank == 0 else None,
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "comm_bytes": grid.stats.bytes,
+                "cands_local": cands.shape[0]}
+            del cands, scores
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def mesh_lm(grid, *, arch, seed, shape, feeds):
+    """A language model whole on the rank's blocks (``init_params(ctx=)``):
+    ``serve.generate(ctx=)`` at ``shape``, teacher-forced with the single
+    device's greedy tokens (``feeds``: dtype -> tokens), once a dtype (its
+    time includes the first call's pinned buffers), with its collectives;
+    the logits gathered."""
+    from repro_torch import pytree
+    from repro_torch.configs import get as get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.sharding import gather_shard
+    dev = grid.device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_arch(arch).make_config()
+    ctx = mesh_ctx(grid)
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                            device=dev, ctx=ctx)
+    B, S, G = shape["batch"], shape["prompt"], shape["gen"]
+    prompt = torch.tensor(serve.prompt_tokens(cfg.vocab, B, S, seed),
+                          device=dev)
+    res = {"mode": tf._attn_mode(cfg, ctx),
+           "weight_bytes": sum(t.numel() * t.element_size()
+                               for t in pytree.leaves(params))}
+    for dtype, feed in feeds.items():
+        if dtype == "f32":
+            cfg = dataclasses.replace(cfg, dtype=torch.float32)
+            params = pytree.tree_map(lambda t: t.float(), params)
+            gc.collect()
+            torch.cuda.empty_cache()
+        feed = torch.as_tensor(feed, device=dev)[:, :G - 1]
+        torch.cuda.reset_peak_memory_stats(dev)
+        grid.stats.reset()
+        out = serve.generate(params, prompt, cfg, G, ctx=ctx, feed=feed)
+        spec = tf.logits_spec(cfg, ctx, B)
+        logits = gather_shard(out["logits"], spec, grid)   # collective
+        res[dtype] = {
+            "logits": logits.cpu() if grid.rank == 0 else None,
+            "tokens": out["tokens"].cpu(),
+            "prefill_ms": out["prefill_s"] * 1e3,
+            "decode_ms": out["decode_s"] / (G - 1) * 1e3,
+            "comm": grid.stats.snapshot(),
+            "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+        del out, logits
+    del params
+    return res
+
+
+def mesh_long(grid, *, seed, cache_seed, tokens):
+    """smollm-135m decoding against ``long_500k``'s cache (the sequence
+    over data, ``cache_seq_shard``): the rank's shard of the seeded cache,
+    a decode step at each of ``MESH_LONG_POS``, the logits gathered; then
+    the float32 copy over the same cache (the bf16 values widened), the
+    same steps; then, a planted fault, the float32 decode at the last
+    position again with the first sequence shard's cache zeroed (a lost
+    shard)."""
+    from repro_torch import pytree
+    from repro_torch.configs import smollm_135m
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.sharding import axis_size, gather_shard
+    dev = grid.device
+    cfg = smollm_135m.make_config()
+    ctx = mesh_ctx(grid, cache_seq_shard=True)
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                            device=dev, ctx=ctx)
+    seq_entry = tf.cache_specs(cfg, grid, ctx.rules, seq_shard=True,
+                               batch=1)["k"][2]
+    n = MESH_LONG_SEQ // axis_size(grid, seq_entry)
+    lo = grid.index(seq_entry) * n
+    spec = tf.logits_spec(cfg, ctx, 1, seq=False)
+
+    def step(cache, tok, pos):
+        grid.stats.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            lg, cache = tf.decode_step(
+                params, cache, torch.tensor([tok], device=dev),
+                torch.tensor([pos], device=dev), cfg, ctx)
+        torch.cuda.synchronize()
+        return cache, {"ms": (time.perf_counter() - t0) * 1e3,
+                       "logits": gather_shard(lg, spec, grid).cpu(),
+                       "comm": grid.stats.snapshot()}
+
+    res = {}
+    for dtype in ("bf16", "f32"):
+        if dtype == "f32":
+            cfg = dataclasses.replace(cfg, dtype=torch.float32)
+            params = pytree.tree_map(lambda t: t.float(), params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache = seeded_kv(smollm_135m.make_config(), lo, lo + n, cache_seed,
+                          dev, store=cfg.dtype)
+        torch.cuda.synchronize()
+        res[dtype] = {"draw_s": time.perf_counter() - t0,
+                      "cache_local": tuple(cache["k"].shape),
+                      "cache_bytes": 2 * cache["k"].numel()
+                      * cache["k"].element_size(), "steps": []}
+        for tok, pos in zip(tokens, MESH_LONG_POS):
+            cache, out = step(cache, tok, pos)
+            res[dtype]["steps"].append(out)
+        if dtype == "f32":
+            if grid.index(seq_entry) == 0:
+                for t in cache.values():
+                    t.zero_()
+            cache, out = step(cache, tokens[-1], MESH_LONG_POS[-1])
+            res["lost_shard"] = out
+        del cache
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+MESH_JOBS = {"dlrm": mesh_dlrm, "lm": mesh_lm, "long": mesh_long}
+
+
+def mesh_rank(grid, jobs):
+    """Phase 21 on one rank: the jobs in turn, each with the rank's peak
+    device memory and its host time; the card's memory freed between."""
+    out = []
+    for kind, kwargs in jobs:
+        torch.cuda.reset_peak_memory_stats(grid.device)
+        t0 = time.perf_counter()
+        res = MESH_JOBS[kind](grid, **kwargs)
+        res["seconds"] = time.perf_counter() - t0
+        res["peak_bytes"] = torch.cuda.max_memory_allocated(grid.device)
+        out.append(res)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rows_close(got, ref, tol: float, what: str, failed: list) -> float:
+    """Logits [..., V] within ``tol`` of the largest |logit| of ``ref``,
+    every value finite; returns the largest error so measured. A miss is
+    appended to ``failed`` (the phase raises once every number is
+    printed)."""
+    got, ref = got.float(), ref.float()
+    if got.shape != ref.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)}, want "
+                             f"{tuple(ref.shape)}")
+    if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
+        raise AssertionError(f"{what}: logits not finite")
+    err = float((got - ref).abs().max() / ref.abs().max())
+    if err > tol:
+        failed.append(f"{what}: {err:.6e} of the largest |logit|, over "
+                      f"{tol}")
+    return err
+
+
+def mesh_bf16_close(got, one, f32, what: str, failed: list) -> tuple:
+    """The mesh's bf16 logits ``got`` against the float32 copy's ``f32``
+    (the same history): no farther than ``MESH_BF16_REL`` times one
+    device's bf16 logits ``one`` are. Returns the mesh's distance from one
+    device's bf16 logits and the line that says so."""
+    e_mesh = mesh_rows_close(got, f32, float("inf"), what, failed)
+    e_one = mesh_rows_close(one, f32, float("inf"), what, failed)
+    e_pair = mesh_rows_close(got, one, float("inf"), what, failed)
+    if e_mesh > MESH_BF16_REL * e_one:
+        failed.append(f"{what}: {e_mesh:.6e} from the float32 copy, one "
+                      f"device's bf16 {e_one:.6e}: over {MESH_BF16_REL}x")
+    return e_pair, (f"vs the float32 copy {e_mesh:.3e} of its largest "
+                    f"|logit|, one device's bf16 {e_one:.3e} (bound "
+                    f"{MESH_BF16_REL}x); vs one device's bf16 {e_pair:.3e}")
+
+
+def step_errors(got, ref) -> list:
+    """The error of each step's logits [B, G, V] of the largest |logit|."""
+    got, ref = got.float(), ref.float()
+    scale = ref.abs().max()
+    return [round(float((got[:, i] - ref[:, i]).abs().max() / scale), 6)
+            for i in range(got.shape[1])]
+
+
+def mesh_phase(*, dev, card, table, lm_ref):
+    """Phase 21: meshes of ranks sharing the card over gloo (the module
+    docstring). ``lm_ref``: phase 20b's phi3-mini logits and tokens."""
+    from repro_torch import convert, pytree
+    from repro_torch.configs import smollm_135m
+    from repro_torch.configs.cells import RECSYS_SHAPES
+    from repro_torch.configs.dlrm_mlperf import capped_config
+    from repro_torch.data.pipeline import CriteoPipeline
+    from repro_torch.distributed import launch
+    from repro_torch.launch import serve
+    from repro_torch.models import dlrm
+    from repro_torch.models import transformer as tf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    seed = 21
+    # ---- the single-device references, in this process, then freed
+    t0 = time.perf_counter()
+    cfg = capped_config(MESH_DLRM_ROWS)
+    params = dlrm.dlrm_init(
+        cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+        device=dev)
+    ref = {}
+    with torch.inference_mode():
+        for name in ("serve_p99", "serve_bulk"):
+            batch = convert.dlrm_batch_from_arrays(CriteoPipeline(
+                cfg.vocabs, RECSYS_SHAPES[name]["batch"], 1,
+                seed=seed).get_batch(0), device=dev)
+            ref[name] = dlrm.dlrm_forward(params, batch, cfg,
+                                          device=dev).cpu()
+            if name == "serve_p99":
+                user = {"dense": batch["dense"][:1]}
+        n = RECSYS_SHAPES["retrieval_cand"]["n_candidates"]
+        cands = torch.randn((n, cfg.embed_dim), generator=torch.Generator(
+            device=dev).manual_seed(seed + 1), device=dev)
+        u = dlrm.dlrm_user_tower(params, user, cfg, device=dev)[0]
+        ref["retrieval"] = dlrm.retrieval_scores(u, cands).cpu()
+    del params, batch, cands, u
+    scfg = smollm_135m.make_config()
+    sp = tf.init_params(scfg, torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+    B, S, G = (MESH_SMOLLM[k] for k in ("batch", "prompt", "gen"))
+    prompt = torch.tensor(serve.prompt_tokens(scfg.vocab, B, S, seed),
+                          device=dev)
+    sout = serve.generate(sp, prompt, scfg, G, device=dev)
+    ref["smollm"] = {"logits": sout["logits"].cpu(),
+                     "tokens": sout["tokens"].cpu(),
+                     "prefill_ms": sout["prefill_s"] * 1e3,
+                     "decode_ms": sout["decode_s"] / (G - 1) * 1e3}
+    scfg32 = dataclasses.replace(scfg, dtype=torch.float32)
+    sp32 = pytree.tree_map(lambda t: t.float(), sp)
+    # the float32 copy fed the bf16 run's greedy tokens: the mesh's float32
+    # copy is fed the same and held to it within MESH_F32_TOL
+    out32 = serve.generate(sp32, prompt, scfg32, G, feed=sout["tokens"],
+                           device=dev)
+    ref["smollm_f32"] = {"logits": out32["logits"].cpu(),
+                         "tokens": out32["tokens"].cpu(),
+                         "prefill_ms": out32["prefill_s"] * 1e3,
+                         "decode_ms": out32["decode_s"] / (G - 1) * 1e3}
+    del out32
+    del sout, prompt
+    long_tokens = [int(t) for t in np.random.default_rng(seed).integers(
+        0, scfg.vocab, len(MESH_LONG_POS))]
+    cache = seeded_kv(scfg, 0, MESH_LONG_SEQ, seed + 2, dev)
+    long_cache_bytes = 2 * cache["k"].numel() * cache["k"].element_size()
+    ref["long"], ref["long_f32"] = [], []
+    caches = {"bf16": cache,           # the float32 copy over the same cache
+              "f32": {k: v.float() for k, v in cache.items()}}
+    del cache
+    with torch.no_grad():
+        for name, p_, c_, out in (("bf16", sp, scfg, ref["long"]),
+                                  ("f32", sp32, scfg32, ref["long_f32"])):
+            for tok, pos in zip(long_tokens, MESH_LONG_POS):
+                lg, caches[name] = tf.decode_step(
+                    p_, caches[name], torch.tensor([tok], device=dev),
+                    torch.tensor([pos], device=dev), c_, device=dev)
+                out.append(lg.cpu())
+            del caches[name]
+    del sp, sp32, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[21] single-device references in {time.perf_counter() - t0:.1f} s "
+        f"(DLRM capped at 2^22 rows: serve_p99, serve_bulk, retrieval; "
+        f"smollm-135m B={B} prompt {S} + {G}; long_500k's cache "
+        f"{long_cache_bytes} bytes, decode at {MESH_LONG_POS}); device "
+        f"memory held {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    # ---- world (1, 2), then world (2, 2)
+    feeds12 = {"bf16": lm_ref["bf16"]["tokens"].numpy(),
+               "f32": lm_ref["f32"]["tokens"].numpy()}
+    feeds_smollm = {"bf16": ref["smollm"]["tokens"].numpy(),
+                    "f32": ref["smollm"]["tokens"].numpy()}
+    worlds = {
+        (1, 2): [("dlrm", dict(seed=seed, placements=(False,),
+                               shapes=("serve_p99", "serve_bulk"),
+                               retrieval=False)),
+                 ("lm", dict(arch="phi3-mini-3.8b", seed=0,
+                             shape=LM_SERVE, feeds=feeds12)),
+                 ("lm", dict(arch="smollm-135m", seed=seed,
+                             shape=MESH_SMOLLM, feeds=feeds_smollm))],
+        (2, 2): [("dlrm", dict(seed=seed, placements=(True, False),
+                               shapes=("serve_bulk",), retrieval=True)),
+                 ("lm", dict(arch="smollm-135m", seed=seed,
+                             shape=MESH_SMOLLM, feeds=feeds_smollm)),
+                 ("long", dict(seed=seed, cache_seed=seed + 2,
+                               tokens=long_tokens))]}
+    got, world_s = {}, {}
+    for shape_, jobs in worlds.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        got[shape_] = launch(mesh_rank, shape_, ("data", "model"), (jobs,),
+                             backend="gloo", device=dev,
+                             timeout=MESH_TIMEOUT_S)
+        world_s[shape_] = time.perf_counter() - t0
+        log(f"[21] world {shape_}: {len(jobs)} jobs on "
+            f"{shape_[0] * shape_[1]} ranks in {world_s[shape_]:.1f} s")
+
+    # ---- (a) DLRM
+    launches = 0
+    for shape_ in worlds:
+        ranks = got[shape_]
+        for key, r0 in ranks[0][0].items():
+            if key == "retrieval" or not isinstance(r0, dict):
+                continue
+            name = key.split()[0]
+            rows = [r[0][key] for r in ranks]
+            for r in rows:
+                if r["launches"] != 1:
+                    raise AssertionError(f"21a {shape_} {key}: kernel 7 "
+                                         f"launched {r['launches']} times "
+                                         "in a forward on a rank")
+                if not r["k7_exact"]:
+                    raise AssertionError(f"21a {shape_} {key}: kernel 7 on "
+                                         "a rank's tables != plain")
+            launches += sum(r["launches"] for r in rows)
+            want = ref[name]
+            got_l = r0["logits"]
+            err = float((got_l - want).abs().max() / want.abs().max())
+            if got_l.shape != want.shape or not torch.isfinite(got_l).all() \
+                    or err > MESH_DLRM_TOL:
+                raise AssertionError(f"21a {shape_} {key}: logits {err:.3e} "
+                                     f"of the largest from one device's")
+            log(f"[21a] {shape_} {key} (B={RECSYS_SHAPES[name]['batch']}, "
+                f"{rows[0]['batch_rows']} a rank): logits vs one device "
+                f"{err:.3e} of the largest (bit-equal "
+                f"{bool(torch.equal(got_l, want))}; bound {MESH_DLRM_TOL}); "
+                f"kernel 7 launched once a forward on each of {len(rows)} "
+                f"ranks, == plain on each rank's {rows[0]['table_bytes']} "
+                f"bytes of tables; forward ms a rank "
+                f"{[round(r['forward_ms'], 3) for r in rows]}, lookup ms "
+                f"{[round(r['lookup_ms'], 4) for r in rows]}; collectives a "
+                f"rank {rows[0]['comm_calls']} calls, "
+                f"{rows[0]['comm_bytes']} bytes, "
+                f"{[round(r['comm_s'] * 1e3, 3) for r in rows]} ms; on "
+                f"{card}")
+    r_ret = got[(2, 2)][0][0]["retrieval"]
+    np.testing.assert_allclose(r_ret["scores"].numpy(),
+                               ref["retrieval"].numpy(),
+                               rtol=MESH_SCORE_RTOL, atol=0)
+    log(f"[21a] (2, 2) retrieval_cand: {n} candidates, "
+        f"{r_ret['cands_local']} a rank, scores gathered == one device's "
+        f"within rtol {MESH_SCORE_RTOL}; {r_ret['ms']:.3f} ms, "
+        f"{r_ret['comm_bytes']} bytes gathered a rank")
+
+    for shape_ in worlds:
+        log(f"[21] world {shape_}: seconds a job, by rank: " + "; ".join(
+            f"{kind} {[round(r[j]['seconds'], 1) for r in got[shape_]]}"
+            for j, (kind, _) in enumerate(worlds[shape_])))
+
+    # ---- (b) phi3-mini, heads mode, and (c) smollm-135m
+    failed, summary = [], {}
+    f32_fed = {"phi3-mini-3.8b": lm_ref["f32_fed"]["logits"],
+               "smollm-135m": ref["smollm_f32"]["logits"]}
+    smollm_refs = {"bf16": ref["smollm"], "f32": ref["smollm_f32"]}
+    for shape_, idx, what, refs in (((1, 2), 1, "phi3-mini-3.8b", lm_ref),
+                                    ((1, 2), 2, "smollm-135m", smollm_refs),
+                                    ((2, 2), 1, "smollm-135m", smollm_refs)):
+        ranks = got[shape_]
+        res = ranks[0][idx]
+        for dtype in ("bf16", "f32"):
+            if dtype not in refs:
+                continue
+            want = refs[dtype]
+            r = res[dtype]
+            if dtype == "f32":
+                err = mesh_rows_close(r["logits"], want["logits"],
+                                      MESH_F32_TOL, f"21 {shape_} {what} "
+                                      "f32", failed)
+                held = f"{err:.3e} of the largest |logit| (bound " \
+                    f"{MESH_F32_TOL})"
+            else:
+                err, held = mesh_bf16_close(r["logits"], want["logits"],
+                                            f32_fed[what],
+                                            f"21 {shape_} {what} bf16",
+                                            failed)
+            same = int((r["tokens"] == want["tokens"]).sum())
+            peaks = [rk[idx][dtype]["peak_bytes"] for rk in ranks]
+            log(f"[21{'b' if 'phi3' in what else 'c'}] {shape_} {what} "
+                f"{dtype} ({res['mode']} mode, {res['weight_bytes']} bytes "
+                f"of weights a rank): logits of every step {held}; greedy "
+                f"picks equal {same} of {r['tokens'].numel()}; prefill "
+                f"{r['prefill_ms']:.2f} ms (one device "
+                f"{want['prefill_ms']:.2f}), decode {r['decode_ms']:.3f} ms "
+                f"a step (one device {want['decode_ms']:.3f}); collectives a "
+                f"rank {r['comm']['calls']} calls, {r['comm']['bytes']} "
+                f"bytes, {r['comm']['seconds'] * 1e3:.1f} ms (host copies "
+                f"{r['comm']['copy_seconds'] * 1e3:.1f} ms); peak "
+                f"{peaks} bytes a rank; on {card}; by step "
+                f"{step_errors(r['logits'], want['logits'])}")
+            summary[f"{shape_} {what} {dtype}"] = {
+                k: r[k] for k in ("prefill_ms", "decode_ms", "comm")}
+    long_ranks = got[(2, 2)]
+    lres = long_ranks[0][2]
+    lb, lf = lres["bf16"], lres["f32"]
+    errs = [mesh_bf16_close(st["logits"], want, want32,
+                            f"21c long_500k pos {pos}", failed)[1]
+            for st, want, want32, pos in zip(lb["steps"], ref["long"],
+                                             ref["long_f32"],
+                                             MESH_LONG_POS)]
+    errs32 = [mesh_rows_close(st["logits"], want32, MESH_F32_TOL,
+                              f"21c long_500k f32 pos {pos}", failed)
+              for st, want32, pos in zip(lf["steps"], ref["long_f32"],
+                                         MESH_LONG_POS)]
+    # the planted fault: the first sequence shard's cache zeroed before
+    # the decode at the last position, which attends to both shards
+    lost = mesh_rows_close(lres["lost_shard"]["logits"], ref["long_f32"][-1],
+                           float("inf"), "21c long_500k lost shard", failed)
+    if lost <= MESH_F32_TOL:
+        failed.append(f"21c long_500k: a lost shard moves the float32 "
+                      f"logits by {lost:.6e}, within MESH_F32_TOL: the "
+                      "check cannot see it")
+    log(f"[21c] (2, 2) smollm-135m long_500k: {MESH_LONG_SEQ} positions "
+        f"({long_cache_bytes} bytes bf16), {lb['cache_bytes']} a rank "
+        f"(local {lb['cache_local']}, drawn in {lb['draw_s']:.2f} s); "
+        f"decode at {MESH_LONG_POS}: {'; '.join(errs)}; a step "
+        f"{[round(st['ms'], 2) for st in lb['steps']]} ms, collectives "
+        f"{[st['comm']['calls'] for st in lb['steps']]} calls; peak "
+        f"{[rk[2]['peak_bytes'] for rk in long_ranks]} bytes a rank")
+    log(f"[21c] (2, 2) long_500k float32 copy ({lf['cache_bytes']} bytes of "
+        f"cache a rank): logits vs one device's float32 "
+        f"{[f'{e:.3e}' for e in errs32]} of the largest |logit| (bound "
+        f"{MESH_F32_TOL}); a step {[round(st['ms'], 2) for st in lf['steps']]}"
+        f" ms; planted fault, the first sequence shard's cache zeroed before "
+        f"the decode at {MESH_LONG_POS[-1]}: {lost:.6e} (must exceed "
+        f"{MESH_F32_TOL}); on {card}")
+    if "f32" in lm_ref:   # step 0 (the prompt alone): each bf16 run's
+        # distance from the float32 copy's logits, the same history
+        one = lm_ref["bf16"]["logits"][:, :1]
+        mesh = got[(1, 2)][0][1]["bf16"]["logits"][:, :1]
+        f32 = lm_ref["f32"]["logits"][:, :1]
+        log(f"[21b] step 0 (the prompt's last logits) against the float32 "
+            f"copy's, of its largest |logit|: one device's bf16 "
+            f"{step_errors(one, f32)[0]:.6e}, the mesh's bf16 "
+            f"{step_errors(mesh, f32)[0]:.6e}")
+    if failed:
+        raise AssertionError("21: " + "; ".join(failed))
+    if launches == 0:
+        raise AssertionError("21: kernel 7 was not launched on the mesh")
+    for r in table:
+        if r["name"] == "embedding_bag_grouped":
+            r["phase21_launches"] = launches
+    log(f"[21] kernel 7 launches over phase 21's forwards, summed over the "
+        f"ranks: {launches}; gloo ranks sharing one card (collectives "
+        f"through the host), not NVLink")
+    return {"worlds_s": world_s, "lm": summary}
+
+
+def build_main_graph(path: str) -> None:
+    """The scale-``SCALE`` weighted Kronecker graph and its layout (C=8,
+    L=128, sigma=n), built on the host in a process of its own while
+    phases 2-4a use the card, and pickled to ``path`` with the generator's
+    and the builder's seconds."""
+    import pickle
+
+    from repro_torch.configs.sssp_graph500 import WEIGHT_HIGH, WEIGHT_LOW
+    from repro_torch.core.formats import build_slimsell
+    from repro_torch.graphs.generators import kronecker, with_random_weights
+    t0 = time.perf_counter()
+    csr = with_random_weights(kronecker(SCALE, EDGE_FACTOR, seed=1),
+                              low=WEIGHT_LOW, high=WEIGHT_HIGH, seed=2)
+    t1 = time.perf_counter()
+    host = build_slimsell(csr, C=8, L=128, sigma=csr.n)
+    t2 = time.perf_counter()
+    with open(path + ".part", "wb") as f:
+        pickle.dump((csr, host, t1 - t0, t2 - t1), f, protocol=4)
+    os.replace(path + ".part", path)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
         return 1
+    import multiprocessing
+    import tempfile
+    # the scale-20 graph and layout (~200-250 s of host work) are built in
+    # a process of their own beside phases 2-4a, which use the card
+    graph_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_graph_")
+    graph_path = os.path.join(graph_dir.name, "scale20.pkl")
+    graph_proc = multiprocessing.get_context("spawn").Process(
+        target=build_main_graph, args=(graph_path,))
+    graph_proc.start()
+    try:
+        return run(t_start, graph_proc, graph_path)
+    finally:
+        if graph_proc.is_alive():
+            graph_proc.kill()
+        graph_proc.join(10)
+        graph_dir.cleanup()
+
+
+def run(t_start: float, graph_proc, graph_path: str) -> int:
+    """Every phase in turn (the module docstring); the scale-20 graph comes
+    from ``graph_proc`` (``build_main_graph``) through ``graph_path``."""
+    import pickle
     from scipy.sparse import csr_matrix
     from scipy.sparse.csgraph import dijkstra
 
@@ -4693,15 +5385,21 @@ def main() -> int:
 
     # ---- the main path at scale 20: phases 4b and 5, counted
     t0 = time.perf_counter()
-    csr = weighted_kronecker(SCALE)
-    t1 = time.perf_counter()
-    host = build_slimsell(csr, C=8, L=128, sigma=csr.n)
+    graph_proc.join()
+    if graph_proc.exitcode != 0:
+        raise RuntimeError(f"building the scale-{SCALE} graph failed (exit "
+                           f"code {graph_proc.exitcode})")
+    with open(graph_path, "rb") as f:
+        csr, host, gen_s, build_s = pickle.load(f)
+    os.remove(graph_path)
     t2 = time.perf_counter()
     tiled = host.to_torch(dev)
     torch.cuda.synchronize()
     log(f"[4] scale {SCALE}: n={csr.n} nnz={csr.nnz} tiles={tiled.n_tiles} "
         f"chunks={tiled.n_chunks} K={tiled.inc_src.numel()} | generate "
-        f"{t1 - t0:.1f} s, build_slimsell {t2 - t1:.1f} s, to device "
+        f"{gen_s:.1f} s, build_slimsell {build_s:.1f} s (in a process of "
+        f"their own beside phases 2-4a; waited {t2 - t0:.1f} s for them, "
+        f"loaded at {t2 - t_start:.1f} s of the run), to device "
         f"{time.perf_counter() - t2:.1f} s")
     root = int(sample_roots(csr, 1)[0])
     # the SpMV's work list is built once for a layout, at its first sweep;
@@ -6263,11 +6961,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[20] device memory held {torch.cuda.memory_allocated() / 2**30:.2f}"
         f" GiB before phase 20")
-    lm_phase(dev=dev, card=card)
+    lm_out = lm_phase(dev=dev, card=card)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[20] phase 20 took {time.perf_counter() - t20:.1f} s (reserve "
         f"{LM_RESERVE_S:.0f} s); the run {time.perf_counter() - t_start:.1f}"
+        f" s so far")
+
+    # ---- 21: meshes, ranks sharing the card over gloo
+    t21 = time.perf_counter()
+    mesh_phase(dev=dev, card=card, table=table, lm_ref=lm_out["b"]["ref"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[21] phase 21 took {time.perf_counter() - t21:.1f} s (reserve "
+        f"{MESH_RESERVE_S:.0f} s); the run {time.perf_counter() - t_start:.1f}"
         f" s so far")
 
     print(json.dumps({"kernels": table}))

@@ -20,7 +20,12 @@ language models, dense and MoE (``models.transformer`` over
 ``prefill`` and ``decode_step`` through a KV cache; smollm-135m,
 phi3-mini-3.8b, internlm2-1.8b, llama4-scout and kimi-k2 in ``configs``,
 whose registry is ``configs.ARCHS``; ``data.TokenPipeline``; the serving
-and training drivers ``launch.serve`` and ``launch.train``), and the serving
+and training drivers ``launch.serve`` and ``launch.train``), the sharding
+layer on ``torch.distributed`` (``models.sharding``: ``AxisRules``, the
+specs and the rank's blocks; ``ShardCtx``, under which the dense and
+MoE-reference language models serve in heads, context and
+sequence-sharded-cache modes and DLRM looks up row-sharded or hybrid
+tables; ``launch.mesh``'s production meshes and ``remesh``), and the serving
 layer (``serving``: ``GraphSession`` and ``Router`` over the ``Batcher``,
 the ``Dispatcher`` on the engine's cached ``FixpointHandle``s and
 ``ServingMetrics``). The session is the front door the Graph500 harnesses
@@ -49,14 +54,17 @@ from .models.dlrm import DLRMConfig, dlrm_forward, dlrm_init
 from .models.gnn import (EGNNConfig, GCNConfig, GINConfig, NequIPConfig,
                          egnn_forward, egnn_init, gcn_forward, gcn_init,
                          gin_forward, gin_init, nequip_forward, nequip_init)
-from .models.transformer import LMConfig, decode_step, forward, prefill
+from .models.sharding import AxisRules
+from .models.transformer import (LMConfig, ShardCtx, decode_step, forward,
+                                 prefill)
 from .serving import GraphSession, Router, session
 
-__all__ = ["DLRMConfig", "EGNNConfig", "EngineConfig", "GCNConfig",
+__all__ = ["AxisRules", "DLRMConfig", "EGNNConfig", "EngineConfig", "GCNConfig",
            "GINConfig", "GraphSession", "LMConfig", "NequIPConfig", "Router",
            "betweenness", "bfs", "build_csr", "build_slimsell", "cc",
            "decode_step", "dlrm_forward", "dlrm_init", "egnn_forward",
            "egnn_init", "forward", "gcn_forward", "gcn_init", "gin_forward",
            "gin_init", "khop", "khop_many", "multi_source_bfs",
            "multi_source_sssp", "nequip_forward", "nequip_init", "pagerank",
-           "prefill", "run_graph500", "run_graph500_sssp", "session", "sssp"]
+           "prefill", "run_graph500", "run_graph500_sssp", "session",
+           "ShardCtx", "sssp"]

@@ -6,9 +6,10 @@ language models, four GNNs and DLRM), each a module with ``ARCH_ID``,
 ``bfs-graph500``, the JAX package's registry entry for the paper's own
 BFS cells, is not here: its module only lays out distributed cells over a
 device mesh (``build_cell``), which waits with the other ``build_*_cell``
-functions for the port of the sharding layer; the port's Graph500
-harnesses are ``repro_torch.graph500``. ``build_cell`` and ``all_cells``
-wait with it.
+functions (ROADMAP module queue 2.3; the sharding layer they build on is
+``models.sharding`` and ``transformer.param_specs`` / ``cache_specs``);
+the port's Graph500 harnesses are ``repro_torch.graph500``.
+``build_cell`` and ``all_cells`` wait with it.
 """
 from __future__ import annotations
 

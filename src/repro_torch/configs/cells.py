@@ -1,17 +1,22 @@
-"""The GNN and LM parts of the JAX package's ``repro/configs/cells.py``:
+"""The shapes and placements of the JAX package's ``repro/configs/cells.py``:
 the graph shapes of its GNN cells (``GNN_SHAPES``), the training loss of
 each of the four GNNs (``gnn_loss``, its ``_gnn_loss``) and their analytic
 training FLOPs (``gnn_model_flops``); the shapes of its language-model
-cells (``LM_SHAPES``) and their model FLOPs (``lm_model_flops``).
-``build_gnn_cell`` and ``build_lm_cell``, which lay a cell out over a
-device mesh, are not ported.
+cells (``LM_SHAPES``) and their model FLOPs (``lm_model_flops``); the
+shapes of its RecSys cells (``RECSYS_SHAPES``) and DLRM's table placement
+over a mesh (``dlrm_param_specs``, lifted from its ``build_dlrm_cell``).
+The ``build_*_cell`` builders themselves, which lay a whole cell out for
+a dry run, are not ported yet (ROADMAP module queue 2.3).
 """
 from __future__ import annotations
 
 import torch
 from torch.nn import functional as F
 
+from ..models import dlrm as dlrm_lib
 from ..models import gnn
+from ..models.dlrm import padded_rows as _pad_to   # the JAX package's name
+from ..models.sharding import AxisRules
 from ..models.transformer import LMConfig
 
 GNN_SHAPES = {
@@ -112,3 +117,39 @@ def lm_model_flops(cfg: LMConfig, batch: int, seq: int, kind: str) -> float:
     tokens = batch * seq if kind in ("train", "prefill") else batch
     mult = 6.0 if kind == "train" else 2.0
     return mult * n_active * tokens
+
+
+# ---------------------------------------------------------------- RecSys family
+
+
+RECSYS_SHAPES = {
+    "train_batch": dict(kind="train", batch=65536),
+    "serve_p99": dict(kind="serve", batch=512),
+    "serve_bulk": dict(kind="serve", batch=262144),
+    "retrieval_cand": dict(kind="retrieval", batch=1, n_candidates=1000000),
+    # hybrid table placement (the DLRM paper's own hybrid parallelism):
+    # tables below 1M rows whole on every rank (data-parallel lookups, no
+    # collective), only the huge tables row-sharded over model
+    "train_batch_hybrid": dict(kind="train", batch=65536, hybrid=True),
+    "serve_bulk_hybrid": dict(kind="serve", batch=262144, hybrid=True),
+    # the batch over both mesh axes (the MLPs purely data-parallel)
+    "train_batch_dp256": dict(kind="train", batch=65536, hybrid=True,
+                              dp_all=True),
+}
+
+
+def dlrm_param_specs(cfg: dlrm_lib.DLRMConfig, mesh, *,
+                     hybrid: bool = False) -> dict:
+    """The spec of each DLRM weight (the JAX package's ``build_dlrm_cell``,
+    each ``PartitionSpec`` a tuple) over vocabularies padded to a multiple
+    of the ``tp`` extent (``_pad_to``): a table ``(tp, None)`` where
+    ``dlrm.table_sharded`` (every table, or with ``hybrid`` those of at
+    least 1,000,000 padded rows), else ``()``, whole; the MLPs whole."""
+    tp = AxisRules.for_mesh(mesh).tp
+    n = mesh.axis_size(tp)
+    return {"tables": [(tp, None) if dlrm_lib.table_sharded(v, n, hybrid)
+                       else () for v in cfg.vocabs],
+            "bot": [{"w": (None, None), "b": (None,)}
+                    for _ in cfg.bot_mlp[:-1]],
+            "top": [{"w": (None, None), "b": (None,)}
+                    for _ in [0] + list(cfg.top_mlp[:-1])]}

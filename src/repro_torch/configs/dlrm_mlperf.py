@@ -1,27 +1,18 @@
 """dlrm-mlperf [recsys] n_dense=13 n_sparse=26 embed_dim=128
 bot_mlp=13-512-256-128 top_mlp=1024-1024-512-256-1 interaction=dot
 (MLPerf Criteo-1TB config) [arXiv:1906.00091], the port's copy of the JAX
-package's ``repro/configs/dlrm_mlperf.py`` and of its ``RECSYS_SHAPES``.
-The mesh and sharding of ``build_cell`` are not ported.
+package's ``repro/configs/dlrm_mlperf.py``; its cells' shapes are
+``configs.cells.RECSYS_SHAPES`` and their table placement
+``configs.cells.dlrm_param_specs`` (``build_cell`` is not ported yet).
 """
 import dataclasses
 
 from ..models.dlrm import DLRMConfig, top_sizes
+from .cells import RECSYS_SHAPES
 
 ARCH_ID = "dlrm-mlperf"
 FAMILY = "recsys"
 
-# the shapes of the JAX package's RecSys cells (repro/configs/cells.py)
-RECSYS_SHAPES = {
-    "train_batch": dict(kind="train", batch=65536),
-    "serve_p99": dict(kind="serve", batch=512),
-    "serve_bulk": dict(kind="serve", batch=262144),
-    "retrieval_cand": dict(kind="retrieval", batch=1, n_candidates=1000000),
-    "train_batch_hybrid": dict(kind="train", batch=65536, hybrid=True),
-    "serve_bulk_hybrid": dict(kind="serve", batch=262144, hybrid=True),
-    "train_batch_dp256": dict(kind="train", batch=65536, hybrid=True,
-                              dp_all=True),
-}
 SHAPES = list(RECSYS_SHAPES)
 
 

@@ -12,6 +12,15 @@ weights and KV cache, and
 these, one layout, one state and one model go through both packages
 unchanged, in training too. Nothing
 here imports the JAX package: the caller hands over plain arrays.
+
+On a mesh (a ``ShardCtx`` over the world's ``distributed.Grid``),
+``lm_shards_from_arrays``, ``lm_cache_shards_from_arrays`` and
+``dlrm_shards_from_arrays`` give a rank its blocks of the same arrays
+(``transformer.param_specs`` / ``cache_specs``,
+``configs.cells.dlrm_param_specs``; each leaf cut on the host, so no rank
+holds a whole language model on its device), and ``*_arrays_from_shards``
+gather them whole again (collectives: every rank calls them), as float32
+arrays.
 """
 from __future__ import annotations
 
@@ -22,10 +31,13 @@ import torch
 
 from . import pytree
 from .core.formats import SlimSellTiled, chunk_tile_ptr, resolve_device
+from .models import dlrm as dlrm_lib
 from .models.dlrm import DLRMConfig, top_sizes
 from .models.gnn import (GCNConfig, egnn_init, gin_init, layer_shapes,
                          nequip_init)
-from .models.transformer import LMConfig, param_shapes
+from .models.sharding import block, gather_shard, local_shape, spec_leaves
+from .models.transformer import (LMConfig, ShardCtx, cache_spec, param_shapes,
+                                 param_specs)
 
 REQUIRED_ARRAYS = ("cols", "row_block", "row_vertex", "cl", "deg")
 LAYOUT_ARRAYS = REQUIRED_ARRAYS + ("inc_src", "inc_tile", "inc_ptr", "wts")
@@ -378,3 +390,98 @@ def lm_cache_from_arrays(cache: Mapping, cfg: Optional[LMConfig] = None,
     like = torch.empty(k.shape, dtype=dtype, device="meta")
     return {name: _lm_leaf(a, like, f"cache[{name!r}]", dev)
             for name, a in (("k", k), ("v", v))}
+
+
+def _host_block(a: np.ndarray, spec_, grid) -> np.ndarray:
+    spec_ = tuple(spec_) + (None,) * (a.ndim - len(spec_))
+    return a[tuple(block(e, n, grid) for e, n in zip(spec_, a.shape))]
+
+
+def lm_shards_from_arrays(params, cfg: LMConfig, ctx: ShardCtx,
+                          device=None) -> dict:
+    """The rank's block (``param_specs``) of each of a language model's
+    weights, given whole as numpy arrays (``lm_params_from_arrays``'
+    input), on ``device`` (default: the grid's)."""
+    pairs, treedef = pytree.flatten_with_paths(params)
+    want, want_def = pytree.flatten_with_paths(param_shapes(cfg))
+    if treedef != want_def:
+        raise ValueError(f"the weights are {treedef}, the config {cfg.name} "
+                         f"wants {want_def}")
+    specs = spec_leaves(param_specs(cfg, ctx.grid, ctx.rules))
+    dev = torch.device(ctx.grid.device) if device is None else \
+        torch.device(device)
+    out = []
+    for (path, a), (_, w), sp in zip(pairs, want, specs):
+        a = np.asarray(a)
+        if a.shape != tuple(w.shape):
+            raise ValueError(f"weight {path} has shape {a.shape}, the config "
+                             f"wants {tuple(w.shape)}")
+        like = torch.empty(local_shape(w.shape, sp, ctx.grid),
+                           dtype=w.dtype, device="meta")
+        out.append(_lm_leaf(_host_block(a, sp, ctx.grid), like,
+                            f"weight {path}", dev))
+    return pytree.unflatten(treedef, out)
+
+
+def lm_cache_shards_from_arrays(cache: Mapping, cfg: LMConfig,
+                                ctx: ShardCtx, device=None) -> dict:
+    """The rank's block (``cache_specs`` for the cache's batch, with
+    ``ctx.cache_seq_shard``) of a KV cache given whole as numpy arrays
+    (``lm_cache_from_arrays``' input), in ``cfg.dtype``."""
+    k = np.asarray(cache["k"])
+    sp = cache_spec(cfg, ctx, k.shape[1], k.shape[2])
+    whole = {n: _host_block(np.asarray(cache[n]), sp, ctx.grid)
+             for n in ("k", "v")}
+    dev = torch.device(ctx.grid.device) if device is None else device
+    return lm_cache_from_arrays(whole, cfg, device=dev)
+
+
+def lm_arrays_from_shards(params: dict, cfg: LMConfig,
+                          ctx: ShardCtx) -> dict:
+    """The whole weights as float32 numpy arrays from every rank's blocks
+    (a collective)."""
+    specs = spec_leaves(param_specs(cfg, ctx.grid, ctx.rules))
+    leaves, treedef = pytree.flatten(params)
+    return pytree.unflatten(treedef, [
+        gather_shard(t, sp, ctx.grid).float().cpu().numpy()
+        for t, sp in zip(leaves, specs)])
+
+
+def lm_cache_arrays_from_shards(cache: Mapping, cfg: LMConfig,
+                                ctx: ShardCtx, batch: int) -> dict:
+    """The whole KV cache of a batch of ``batch`` as float32 numpy arrays
+    from every rank's blocks (a collective)."""
+    n = cache["k"].shape[2]
+    sp = cache_spec(cfg, ctx, batch, n)
+    return {name: gather_shard(cache[name], sp, ctx.grid).float().cpu()
+            .numpy() for name in ("k", "v")}
+
+
+def dlrm_shards_from_arrays(params: Mapping, cfg: DLRMConfig, ctx: ShardCtx,
+                            *, hybrid: bool = False, device=None) -> dict:
+    """The rank's DLRM weights from the JAX package's (checked as by
+    ``dlrm_params_from_arrays``): each table padded with zero rows and cut
+    to the rank's row block where ``configs.cells.dlrm_param_specs`` shards
+    it, the MLPs whole, on ``device`` (default: the grid's)."""
+    host = dlrm_params_from_arrays(params, cfg, device="cpu")
+    dev = torch.device(ctx.grid.device) if device is None else \
+        torch.device(device)
+    return {"tables": [dlrm_lib.table_shard(t, ctx, hybrid).to(dev)
+                       for t in host["tables"]],
+            **{part: [{k: v.to(dev) for k, v in layer.items()}
+                      for layer in host[part]] for part in ("bot", "top")}}
+
+
+def dlrm_arrays_from_shards(params: dict, cfg: DLRMConfig, ctx: ShardCtx,
+                            *, hybrid: bool = False) -> dict:
+    """The whole DLRM weights as float32 numpy arrays from every rank's
+    blocks (a collective), the pad rows dropped."""
+    tp = ctx.grid.axis_size(ctx.rules.tp)
+    tables = []
+    for v, t in zip(cfg.vocabs, params["tables"]):
+        if dlrm_lib.table_sharded(v, tp, hybrid):
+            t = gather_shard(t, (ctx.rules.tp, None), ctx.grid)
+        tables.append(t[:v].float().cpu().numpy())
+    return {"tables": tables,
+            **{part: [{k: w.float().cpu().numpy() for k, w in layer.items()}
+                      for layer in params[part]] for part in ("bot", "top")}}

@@ -26,7 +26,18 @@ type (a pageable copy runs several times slower); those copies are timed
 with the collective and on their own.
 Neither backend reduces or gathers int16, so an int16 tensor travels
 widened to int32 (exactly), and its paired send / receive as the raw two
-bytes of a bfloat16 view.
+bytes of a bfloat16 view. A bfloat16 tensor is gathered as it is, but
+reduced widened to float32 and rounded back once: gloo's bfloat16 sum
+(where its version has one) rounds after every add, in its ring's order,
+and one rounding of the float32 sum is the value a single device's
+float32-accumulated product rounds to (the sharded language model's
+row-parallel partials, ``models.transformer``).
+
+``all_gather_dim`` joins every member's block along a dimension (the
+layer of ``models.sharding``); ``reduce_scatter`` is the SUM over some
+axes of which a rank keeps its block along a dimension: one all-reduce,
+then the rank's slice (gloo has no reduce-scatter, so the bytes on the
+wire are the all-reduce's).
 
 ``CommStats`` counts every collective's calls, bytes (one rank's buffer
 before the reduction) and seconds (host clock, the card synchronised
@@ -38,7 +49,9 @@ included.
 ``torch.multiprocessing`` context), a ``FileStore`` in a temporary
 directory for the rendezvous (no port to collide with another world),
 runs ``fn(grid, *args)`` in each (``fn`` importable by name, not a
-closure) and returns the ranks' results. Every rank is joined against one
+closure; ``fn`` and ``args`` pickled once to a file in that directory,
+so the ranks start together whatever the arguments' size) and returns
+the ranks' results. Every rank is joined against one
 deadline; a rank that raises, dies or overruns fails the launch, and the
 others are stopped. A spawned rank inherits nothing of the caller's
 threads, so ``launch`` hands each rank the caller's sanitizer state
@@ -222,9 +235,11 @@ class Grid:
 
     def all_reduce(self, t: torch.Tensor, op: str,
                    axes: Sequence[str]) -> torch.Tensor:
-        """The MIN, MAX or SUM of ``t`` over ``axes``, as a new tensor."""
-        t0 = self._timed(t)
-        buf = self._buffer(t)
+        """The MIN, MAX or SUM of ``t`` over ``axes``, as a new tensor in
+        ``t``'s dtype (bfloat16 reduced in float32, rounded once)."""
+        wide = t.float() if t.dtype == torch.bfloat16 else t
+        t0 = self._timed(wide)
+        buf = self._buffer(wide)
         dist.all_reduce(buf, op=_OPS[op], group=self.group(axes))
         out = self._back(buf, t)
         self._done(t0, t.device)
@@ -242,6 +257,41 @@ class Grid:
         out = self._back(torch.stack(parts), t)
         self._done(t0, t.device)
         return out
+
+    def _in_grid_order(self, axes: Sequence[str]) -> tuple:
+        axes = tuple(axes)
+        if axes != tuple(a for a in self.axis_names if a in axes):
+            raise ValueError(f"axes {axes} must follow the grid's order "
+                             f"{self.axis_names}")
+        return axes
+
+    def all_gather_dim(self, t: torch.Tensor, dim: int,
+                       axes: Sequence[str]) -> torch.Tensor:
+        """Every member's ``t`` along ``axes`` joined along ``dim``, in the
+        order of their flat index (``axes`` in the grid's order, the first
+        major), as a new tensor."""
+        axes = self._in_grid_order(axes)
+        n = math.prod(self.axis_size(a) for a in axes)
+        if n == 1:
+            return t.clone()
+        parts = self.all_gather(t.contiguous(), axes).movedim(0, dim)
+        shape = list(t.shape)
+        shape[dim] *= n
+        return parts.reshape(shape)
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int,
+                       axes: Sequence[str]) -> torch.Tensor:
+        """The SUM of ``t`` over ``axes``, of which this rank keeps its
+        block along ``dim`` (block ``index(axes)`` of ``size(axes)``): one
+        all-reduce, then the slice (gloo has no reduce-scatter)."""
+        axes = self._in_grid_order(axes)
+        n = math.prod(self.axis_size(a) for a in axes)
+        if t.shape[dim] % n:
+            raise ValueError(f"a dimension of {t.shape[dim]} does not split "
+                             f"over {axes} ({n})")
+        size = t.shape[dim] // n
+        out = self.all_reduce(t, "sum", axes) if n > 1 else t
+        return out.narrow(dim, self.index(axes) * size, size).contiguous()
 
     def pall(self, reduction: str, t: torch.Tensor,
              axes: Sequence[str]) -> torch.Tensor:
@@ -277,8 +327,7 @@ class Grid:
 
 
 def _rank_main(rank: int, world: int, tmp: str, backend: str, device: str,
-               shape, axis_names, fn, args, timeout_s: float,
-               sanitize: bool) -> None:
+               shape, axis_names, timeout_s: float, sanitize: bool) -> None:
     """One rank: join the world, run ``fn(grid, *args)`` (sanitized when
     the caller was), write its result (or the traceback) under ``tmp``,
     leave the world. A rank runs its PyTorch host work on one thread: the
@@ -296,6 +345,8 @@ def _rank_main(rank: int, world: int, tmp: str, backend: str, device: str,
             debug.enable()
         else:
             debug.disable()
+        with open(os.path.join(tmp, "call.pkl"), "rb") as f:
+            fn, args = pickle.load(f)
         dev = torch.device(device)
         if dev.type == "cuda":
             if not torch.cuda.is_available():
@@ -347,10 +398,16 @@ def launch(fn: Callable, shape: Sequence[int], axis_names: Sequence[str],
                          f"{torch.cuda.device_count()} cards")
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="repro_torch_world_") as tmp:
+        # the call goes through a file: a spawned process reads its start-up
+        # arguments from a pipe only once it has imported the main module,
+        # so arguments larger than the pipe's buffer would start the ranks
+        # one after the other
+        with open(os.path.join(tmp, "call.pkl"), "wb") as f:
+            pickle.dump((fn, args), f)
         procs = [ctx.Process(target=_rank_main,
                              args=(r, world, tmp, backend, str(dev),
-                                   tuple(shape), tuple(axis_names), fn, args,
-                                   timeout, debug.enabled()))
+                                   tuple(shape), tuple(axis_names), timeout,
+                                   debug.enabled()))
                  for r in range(world)]
         for p in procs:
             p.start()

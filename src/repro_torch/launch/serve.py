@@ -13,11 +13,19 @@ decode step's time beside its bound (every weight but the embedding
 table, the batch's embedding rows and the whole cache read once, over
 the card's 3.35 TB/s) and, on the card, the peak device memory. Returns
 the generated tokens [batch, gen].
+
+``generate(..., ctx=)`` runs the same loop on a rank of a mesh
+(``models.transformer.ShardCtx``): prefill and decode through the rank's
+blocks of the weights and the cache, the greedy pick over vocab-sharded
+logits the first maximum across the shards (as ``jnp.argmax``), every
+rank feeding the whole batch's tokens. ``main`` runs on one device, as
+the JAX package's does.
 """
 from __future__ import annotations
 
 import argparse
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -27,6 +35,7 @@ from ..configs import get as get_arch
 from ..configs.cells import lm_model_flops
 from ..core.formats import resolve_device
 from ..models import transformer as tf
+from ..models.sharding import axis_size, block, entry_axes
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 
@@ -56,32 +65,71 @@ def decode_bytes(params: dict, cache: dict, batch: int) -> tuple:
     return weights, kv
 
 
+def greedy(logits: torch.Tensor, cfg: tf.LMConfig,
+           ctx: Optional[tf.ShardCtx] = None,
+           batch: Optional[int] = None) -> torch.Tensor:
+    """The greedy tokens int32 [B] of logits [B, V] (the first maximum);
+    under ``ctx`` of the rank's block of a batch of ``batch``
+    (``logits_spec(seq=False)``): the first maximum across the vocabulary
+    shards, the whole batch on every rank."""
+    if ctx is None:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    grid = ctx.grid
+    b_entry, v_entry = tf.logits_spec(cfg, ctx, batch, seq=False)
+    tok = torch.argmax(logits, dim=-1)
+    if entry_axes(v_entry):
+        best = logits.float().amax(-1)
+        lo = block(v_entry, cfg.vocab, grid).start
+        axes = entry_axes(v_entry)
+        bests = grid.all_gather(best, axes)             # [n, b]
+        toks = grid.all_gather(tok + lo, axes)
+        first = torch.argmax((bests == bests.amax(0)).to(torch.int8), dim=0)
+        tok = toks.gather(0, first[None])[0]
+    if entry_axes(b_entry):
+        tok = grid.all_gather_dim(tok, 0, entry_axes(b_entry))
+    return tok.to(torch.int32)
+
+
 @torch.no_grad()
 def generate(params: dict, prompt: torch.Tensor, cfg: tf.LMConfig, gen: int,
-             *, device=None) -> dict:
-    """Prefill ``prompt`` (int [B, S]), pad the cache by ``gen`` positions
-    and decode ``gen - 1`` tokens greedily. Returns ``{"tokens"}`` int32
-    [B, gen], ``{"logits"}`` [B, gen, V] (the prefill's last position's,
-    then each decode step's), ``prefill_s`` and ``decode_s`` (host clock,
-    the device synchronised) and ``weight_bytes`` / ``cache_bytes`` (a
-    decode step's reads, ``decode_bytes``)."""
-    dev = resolve_device(device)
+             *, ctx: Optional[tf.ShardCtx] = None,
+             feed: Optional[torch.Tensor] = None, device=None) -> dict:
+    """Prefill ``prompt`` (int [B, S]) into a cache of ``S + gen``
+    positions and decode ``gen - 1`` tokens greedily. Returns
+    ``{"tokens"}`` int32 [B, gen] (the greedy picks), ``{"logits"}``
+    [B, gen, V] (the prefill's last position's, then each decode step's),
+    ``prefill_s`` and ``decode_s`` (host clock, the device synchronised)
+    and ``weight_bytes`` / ``cache_bytes`` (a decode step's reads,
+    ``decode_bytes``). ``feed`` (int [B, gen - 1]), where given, is fed to
+    the decode steps in place of the greedy picks (teacher forcing: two
+    runs' logits held step by step). Under ``ctx`` the logits and the
+    bytes are the rank's, the tokens the whole batch's, and the cache's
+    length is rounded up to split over its sequence axes (the extra
+    positions stay masked)."""
+    dev = tf._device(device, ctx)
     B, S = prompt.shape
+    n = S + gen
+    if ctx is not None:
+        seq_entry = tf.cache_specs(cfg, ctx.grid, ctx.rules,
+                                   seq_shard=ctx.cache_seq_shard,
+                                   batch=B)["k"][2]
+        n = -(-n // axis_size(ctx.grid, seq_entry)) * axis_size(ctx.grid,
+                                                                 seq_entry)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = tf.prefill(params, prompt, cfg, device=dev)
-    cache = {k: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, gen))
-             for k, c in cache.items()}
+    logits, cache = tf.prefill(params, prompt, cfg, ctx, cache_len=n,
+                               device=dev)
     _sync(dev)
     t1 = time.perf_counter()
     outs = [logits]
-    toks = [torch.argmax(logits, dim=-1).to(torch.int32)]
+    toks = [greedy(logits, cfg, ctx, B)]
     for i in range(gen - 1):
         pos = torch.full((B,), S + i, dtype=torch.int32, device=dev)
-        logits, cache = tf.decode_step(params, cache, toks[-1], pos, cfg,
+        tok = toks[-1] if feed is None else feed[:, i].to(torch.int32)
+        logits, cache = tf.decode_step(params, cache, tok, pos, cfg, ctx,
                                        device=dev)
         outs.append(logits)
-        toks.append(torch.argmax(logits, dim=-1).to(torch.int32))
+        toks.append(greedy(logits, cfg, ctx, B))
     _sync(dev)
     t2 = time.perf_counter()
     weight_bytes, cache_bytes = decode_bytes(params, cache, B)

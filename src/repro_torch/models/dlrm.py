@@ -22,6 +22,23 @@ a backward that scatters the bags' gradients into dense table gradients
 is then the bottom output and the bags joined by ``torch.cat``, not a
 write into a view of it, so autograd sees every part.
 
+**On a mesh** (``ctx``, a ``models.transformer.ShardCtx`` over the
+world's ``distributed.Grid``) the tables are row-sharded over ``tp`` as
+the JAX package's DLRM cells place them (``configs.cells.dlrm_param_specs``):
+each vocabulary padded to a multiple of the ``tp`` extent with rows of
+zeros that no id names, and every table split into row blocks, or with
+``hybrid`` only the tables of at least ``HYBRID_MIN_ROWS`` padded rows
+(the others whole on every rank). A rank remaps each sharded field's ids
+to its row block (``id - lo`` inside ``[lo, hi)``, else -1, a pad) and
+runs **one** launch of the bag kernel over all of its local tables; the
+sharded fields' bags are SUM-reduced over ``tp`` (one rank adds each id's
+row, so at one id a bag the sum is that row, bit for bit), the whole
+tables' are not (they would count ``tp`` times). The batch is split over
+``dp`` where it divides: the MLPs and the interaction run on the rank's
+batch block, and the logits are that block. ``retrieval_scores`` takes
+the rank's block of the candidates (split over ``dp``) and gathers the
+scores.
+
 The MLPs and the interaction are plain float32 products, as ``repro``
 leaves them to XLA outside any kernel: ``torch.matmul`` and ``torch.bmm``,
 in full float32 (PyTorch's default, ``allow_tf32`` False).
@@ -40,6 +57,7 @@ from torch import nn
 from ..core.formats import resolve_device
 from ..kernels import autograd, ops
 from .gnn import _placed, mlp_apply, mlp_init
+from .sharding import block, entry_axes, local_shard, shard_dim
 
 # MLPerf Criteo-1TB per-table cardinalities (public benchmark config)
 MLPERF_VOCABS = [
@@ -76,16 +94,53 @@ def top_sizes(cfg: DLRMConfig) -> list:
     return [cfg.n_interactions + cfg.bot_mlp[-1]] + list(cfg.top_mlp)
 
 
+# with hybrid placement, the tables of at least this many (padded) rows are
+# row-sharded over tp; the others are whole on every rank
+HYBRID_MIN_ROWS = 1_000_000
+
+
+def padded_rows(vocab: int, tp_size: int) -> int:
+    """A vocabulary padded to a multiple of the ``tp`` extent."""
+    return -(-vocab // tp_size) * tp_size
+
+
+def table_sharded(vocab: int, tp_size: int, hybrid: bool) -> bool:
+    """Whether a table of ``vocab`` rows is row-sharded over ``tp``: every
+    table, or with ``hybrid`` those of at least ``HYBRID_MIN_ROWS`` padded
+    rows."""
+    return padded_rows(vocab, tp_size) >= (HYBRID_MIN_ROWS if hybrid else 0)
+
+
+def _tp_size(ctx) -> int:
+    return ctx.grid.axis_size(ctx.rules.tp)
+
+
+def table_shard(table: torch.Tensor, ctx, hybrid: bool) -> torch.Tensor:
+    """The rank's block of a whole table: padded with zero rows to a
+    multiple of the ``tp`` extent and cut to its row block where the table
+    is sharded, else the table itself."""
+    tp = _tp_size(ctx)
+    if not table_sharded(table.shape[0], tp, hybrid):
+        return table
+    pad = padded_rows(table.shape[0], tp) - table.shape[0]
+    if pad:
+        table = torch.cat([table, table.new_zeros((pad, table.shape[1]))])
+    return local_shard(table, (ctx.rules.tp, None), ctx.grid).clone()
+
+
 def dlrm_init(cfg: DLRMConfig, *, generator: Optional[torch.Generator] = None,
-              device=None) -> dict:
+              device=None, ctx=None, hybrid: bool = False) -> dict:
     """``{"tables": [...], "bot": [...], "top": [...]}`` on ``device``
-    (default: the card; raises when there is none). Each table is
-    N(0, 1 / embed_dim): drawn from ``generator`` (default: a generator on
-    ``device`` seeded with 0) on the generator's device and scaled there in
-    place, so a card generator makes a table of gigabytes on the card with
-    no second copy. The MLPs are He-normal (``mlp_init``), from the same
-    generator."""
-    dev = resolve_device(device)
+    (default: the card, or the grid's device under ``ctx``; raises when
+    there is none). Each table is N(0, 1 / embed_dim): drawn from
+    ``generator`` (default: a generator on ``device`` seeded with 0) on the
+    generator's device and scaled there in place, so a card generator makes
+    a table of gigabytes on the card with no second copy. The MLPs are
+    He-normal (``mlp_init``), from the same generator. With ``ctx`` every
+    table is drawn whole and the rank keeps its block (``table_shard``):
+    the same weights as one device's, padded, and no rank holds them all."""
+    dev = resolve_device(device) if ctx is None or device is not None \
+        else torch.device(ctx.grid.device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     scale = 1.0 / math.sqrt(cfg.embed_dim)
@@ -93,7 +148,9 @@ def dlrm_init(cfg: DLRMConfig, *, generator: Optional[torch.Generator] = None,
     for v in cfg.vocabs:
         t = torch.randn((v, cfg.embed_dim), generator=generator,
                         dtype=torch.float32, device=generator.device)
-        tables.append(t.mul_(scale).to(device=dev, dtype=cfg.dtype))
+        t = t.mul_(scale).to(device=dev, dtype=cfg.dtype)
+        tables.append(t if ctx is None else table_shard(t, ctx, hybrid))
+        del t
     return {"tables": tables,
             "bot": mlp_init(list(cfg.bot_mlp), generator=generator, device=dev,
                             dtype=cfg.dtype),
@@ -161,13 +218,69 @@ def top(params: dict, x: torch.Tensor) -> torch.Tensor:
     return mlp_apply(params["top"], x, act=torch.relu)[:, 0]
 
 
+def batch_entry(ctx, batch: int):
+    """The spec entry of the batch on a mesh: ``dp`` where it divides."""
+    return shard_dim(ctx.grid, batch, ctx.rules.dp)
+
+
+def local_ids(sparse: torch.Tensor, tables: Sequence[torch.Tensor], cfg,
+              ctx, hybrid: bool) -> torch.Tensor:
+    """Each sharded field's ids remapped to the rank's row block of its
+    table (``id - lo`` inside ``[lo, lo + rows)``, else -1); a whole
+    table's ids as they are."""
+    tp = _tp_size(ctx)
+    rows, lo = [], []
+    for v, t in zip(cfg.vocabs, tables):
+        split = table_sharded(v, tp, hybrid)
+        rows.append(t.shape[0] if split else -1)
+        lo.append(ctx.grid.index((ctx.rules.tp,)) * t.shape[0] if split
+                  else 0)
+    rows = torch.tensor(rows, device=sparse.device)[None, :, None]
+    ids = sparse - torch.tensor(lo, dtype=sparse.dtype,
+                                device=sparse.device)[None, :, None]
+    mine = (ids >= 0) & (ids < rows)
+    return torch.where((rows < 0) | mine, ids, torch.full_like(ids, -1))
+
+
+def _forward_mesh(params: dict, batch: dict, cfg: DLRMConfig, ctx,
+                  hybrid: bool) -> torch.Tensor:
+    """``dlrm_forward`` on a rank (the module docstring)."""
+    if torch.is_grad_enabled():
+        raise NotImplementedError(
+            "DLRM training on a mesh (train_batch_hybrid, train_batch_dp256) "
+            "waits for the training-on-a-mesh slice with build_dlrm_cell "
+            "(ROADMAP module queue 2.3); run the forward under "
+            "torch.no_grad()")
+    grid, tp = ctx.grid, (ctx.rules.tp,)
+    B = batch["dense"].shape[0]
+    rows = block(batch_entry(ctx, B), B, grid)
+    dense = bottom(params, batch["dense"][rows], cfg)
+    tables = params["tables"]
+    ids = local_ids(batch["sparse"][rows], tables, cfg, ctx, hybrid)
+    Z = dense.new_empty((dense.shape[0], 1 + len(tables), dense.shape[1]))
+    Z[:, 0] = dense
+    _lookup_all(tables, ids, Z[:, 1:])           # one launch, every table
+    split = [1 + i for i, v in enumerate(cfg.vocabs)
+             if table_sharded(v, _tp_size(ctx), hybrid)]
+    if split and _tp_size(ctx) > 1:
+        Z[:, split] = grid.all_reduce(Z[:, split], "sum", tp)
+    return top(params, _interact(Z))
+
+
 def dlrm_forward(params: dict, batch: dict, cfg: DLRMConfig, *,
-                 device=None) -> torch.Tensor:
+                 device=None, ctx=None, hybrid: bool = False) -> torch.Tensor:
     """batch: ``dense`` float [B, n_dense], ``sparse`` int32 [B, n_sparse,
     multi_hot] (-1 pads) -> logits [B]. Every tensor must lie on ``device``
-    (default: the card; raises when there is none)."""
-    dev = resolve_device(device)
+    (default: the card; raises when there is none). Under ``ctx`` (inference
+    only) the tables are the rank's blocks (``dlrm_init(ctx=)``,
+    ``convert.dlrm_shards_from_arrays``), the batch is the whole batch on
+    every rank, and the logits are the rank's batch block
+    (``batch_entry``)."""
+    dev = resolve_device(device) if ctx is None or device is not None \
+        else torch.device(ctx.grid.device)
     _check_placement(params, batch, dev, ("dense", "sparse"))
+    if ctx is not None:
+        return _forward_mesh(params, batch, cfg, ctx, hybrid)
     dense = bottom(params, batch["dense"], cfg)                 # [B, d]
     tables = params["tables"]
     if torch.is_grad_enabled():
@@ -190,9 +303,20 @@ def dlrm_loss(params: dict, batch: dict, cfg: DLRMConfig, *,
     return torch.mean(z.clamp_min(0) - z * y + torch.log1p(torch.exp(-z.abs())))
 
 
-def retrieval_scores(user_vec: torch.Tensor, cand_vecs: torch.Tensor) -> torch.Tensor:
-    """[d] x [N_cand, d] -> [N_cand]; one matrix-vector product."""
-    return cand_vecs @ user_vec
+def retrieval_scores(user_vec: torch.Tensor, cand_vecs: torch.Tensor,
+                     *, ctx=None, n_candidates: Optional[int] = None
+                     ) -> torch.Tensor:
+    """[d] x [N_cand, d] -> [N_cand]; one matrix-vector product. Under
+    ``ctx`` ``cand_vecs`` is the rank's block of ``n_candidates`` rows
+    (split over ``dp`` where they divide) and the scores are gathered
+    whole on every rank."""
+    scores = cand_vecs @ user_vec
+    if ctx is None:
+        return scores
+    entry = batch_entry(ctx, n_candidates)
+    if not entry_axes(entry):
+        return scores
+    return ctx.grid.all_gather_dim(scores, 0, entry_axes(entry))
 
 
 def dlrm_user_tower(params: dict, batch: dict, cfg: DLRMConfig, *,

@@ -20,6 +20,18 @@ numerics follow the JAX package's:
 * grouped-query attention: query head ``h`` reads key/value head
   ``h // G`` (heads laid out ``[KV, G]``).
 
+Under a device mesh (``models.transformer``'s context mode) a rank's
+queries are a block of the sequence: ``flash_attention``'s ``q_offset`` is
+the global position of its first row, which the causal and window masks
+compare with the keys' global positions. ``decode_attention`` over a
+shard of the cache's sequence takes the shard's global offset
+(``k_offset``) and the grid and axes the sequence is split over, and
+combines the shards as GSPMD partitions the JAX package's softmax: the
+global max (a MAX all-reduce), the global sum of ``exp(s - m)`` (a SUM),
+then each shard's ``(p / max(l, 1e-30))`` rounded to ``v``'s dtype times
+its values in float32, SUM-reduced; not flash-decoding's rescale of
+per-shard (output, sum) pairs, which rounds differently in bfloat16.
+
 The JAX package's ``rope_freqs`` promotes a bfloat16 ``x`` times float32
 cos / sin to float32 and casts back at the end; PyTorch's type promotion
 does the same.
@@ -98,9 +110,11 @@ def _pad_seq(x: torch.Tensor, mult: int) -> torch.Tensor:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    q_chunk: int = 1024, kv_chunk: int = 1024) -> torch.Tensor:
+                    q_chunk: int = 1024, kv_chunk: int = 1024,
+                    q_offset: int = 0) -> torch.Tensor:
     """q [B, Sq, H, Dh], k / v [B, Skv, KV, Dh] (GQA: H = KV * G) ->
-    [B, Sq, H, Dh] in q's dtype.
+    [B, Sq, H, Dh] in q's dtype; query row i sits at position
+    ``q_offset + i``, key j at j.
 
     Online softmax over chunks of ``kv_chunk`` keys, for each chunk of
     ``q_chunk`` queries; every temporary is [B, KV, G, q_chunk, kv_chunk]."""
@@ -128,7 +142,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     outs = []
     for iq in range(nq):
         qi = qr[iq].float()
-        q_pos = iq * q_chunk + torch.arange(q_chunk, device=dev)
+        q_pos = q_offset + iq * q_chunk + torch.arange(q_chunk, device=dev)
         m = torch.full((B, KV, G, q_chunk), NEG_INF, dtype=torch.float32,
                        device=dev)
         l = torch.zeros((B, KV, G, q_chunk), dtype=torch.float32, device=dev)
@@ -159,24 +173,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos: torch.Tensor, *,
-                     window: Optional[int] = None) -> torch.Tensor:
+                     window: Optional[int] = None, k_offset: int = 0,
+                     grid=None, axes: tuple = ()) -> torch.Tensor:
     """One token against a cache: q [B, 1, H, Dh], caches [B, S, KV, Dh],
     pos int[B] (the index being written; keys at ``k_pos <= pos`` count).
-    The softmax runs in float32 over the whole cache axis."""
+    The softmax runs in float32 over the whole cache axis.
+
+    With ``axes``, the caches are this rank's shard of a sequence split
+    over ``axes`` of ``grid``, its first position ``k_offset``: the max,
+    the sum and the output are reduced over them (module docstring)."""
     B, S, KV, Dh = k_cache.shape
     H = q.shape[2]
     G = H // KV
     qr = q.reshape(B, KV, G, Dh).float()
     s = torch.einsum("bkgd,bskd->bkgs", qr, k_cache.float()) * (Dh ** -0.5)
-    k_pos = torch.arange(S, device=q.device)
+    k_pos = k_offset + torch.arange(S, device=q.device)
     pos = pos.to(k_pos.dtype)
     valid = k_pos[None] < pos[:, None] + 1
     if window is not None:
         valid &= (k_pos[None] // window) == (pos[:, None] // window)
     s = torch.where(valid[:, None, None], s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
+    if axes:
+        m = grid.all_reduce(m, "max", axes)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
+    if axes:
+        l = grid.all_reduce(l, "sum", axes)
     w = (p / torch.clamp_min(l, 1e-30)).to(v_cache.dtype).float()
     o = torch.einsum("bkgs,bskd->bkgd", w, v_cache.float())
+    if axes:
+        o = grid.all_reduce(o, "sum", axes)
     return o.reshape(B, 1, H, Dh).to(q.dtype)

@@ -3,9 +3,14 @@ package's ``repro/models/moe.py``: ``MoEDims``, the router, the SwiGLU
 expert FFN and ``moe_reference``, in which every expert runs over every
 token and a masked combine keeps the routed ones (O(E N D F) FLOPs).
 
-The expert-parallel paths ``moe_ep_train`` and ``moe_ep_decode`` (and
-their ``_pack``) dispatch tokens over a device mesh; they wait for the
-sharding slice.
+On a mesh under ``ShardCtx(moe_impl="reference")`` the experts are split
+over ``tp`` (``transformer.param_specs``): each rank runs
+``moe_partial``, its own experts over every token, and the float32
+partial outputs are SUM-reduced over ``tp`` before the cast back. The
+router is whole on every rank, so every rank routes alike. The
+expert-parallel paths ``moe_ep_train`` and ``moe_ep_decode`` (and their
+``_pack``), which dispatch tokens over the mesh with all-to-alls, are not
+ported yet (ROADMAP module queue 2.2).
 
 Numerics as in the JAX package: the router's logits and softmax are
 float32; the top-k gates are renormalised with ``max(sum, 1e-9)``; the
@@ -63,3 +68,20 @@ def moe_reference(x: torch.Tensor, w_router: torch.Tensor,
                        wi_g, wi_u, wo)                               # [E,N,D]
     y = torch.einsum("ne,end->nd", comb, outs.to(gates.dtype))
     return y.reshape(B, S, D).to(x.dtype)
+
+
+def moe_partial(x: torch.Tensor, w_router: torch.Tensor, wi_g: torch.Tensor,
+                wi_u: torch.Tensor, wo: torch.Tensor, dims: MoEDims,
+                e0: int) -> torch.Tensor:
+    """``moe_reference``'s float32 sum restricted to the experts
+    ``[e0, e0 + wi_g.shape[0])`` (one rank's block): x [B, S, D] ->
+    float32 [B, S, D], before the cast. The partials of all blocks sum to
+    ``moe_reference``'s output in float32."""
+    B, S, D = x.shape
+    tokens = x.reshape(-1, D)
+    gates, eids = _router(tokens, w_router, dims.top_k)
+    mask = F.one_hot(eids.long(), dims.n_experts).to(gates.dtype)
+    comb = (gates[..., None] * mask).sum(dim=1)[:, e0:e0 + wi_g.shape[0]]
+    outs = _expert_ffn(tokens.expand(wi_g.shape[0], -1, -1), wi_g, wi_u, wo)
+    y = torch.einsum("ne,end->nd", comb, outs.to(gates.dtype))
+    return y.reshape(B, S, D)

@@ -1513,3 +1513,92 @@ def test_gin_egnn_nequip_card_equal_cpu(cuda):
         for a, b in zip(out[str(dev)], out["cpu"]):
             assert torch.isfinite(a).all()
             assert _rel_err(a.cpu(), b) <= 1e-4
+
+
+class _Position:
+    """A mesh position with no world: what ``dlrm.local_ids`` reads."""
+
+    def __init__(self, tp: int, i: int):
+        self.axis_names, self._tp, self._i = ("data", "model"), tp, i
+
+    def axis_size(self, axis):
+        return self._tp if axis == "model" else 1
+
+    def index(self, axes):
+        return self._i if tuple(axes) == ("model",) else 0
+
+
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("hybrid", [False, True])
+def test_embedding_bag_on_rank_shards_equals_plain(cuda, hybrid, K):
+    """Kernel 7 over each rank's table blocks and its remapped ids (one
+    launch, every local table) == its plain version, bit for bit; at K = 1
+    the blocks' bags summed over the ranks == the whole tables' bags."""
+    from repro_torch.kernels.ref import embedding_bag_grouped_ref
+    from repro_torch.models import dlrm as pdlrm
+    from repro_torch.models.sharding import AxisRules
+    from repro_torch.models.transformer import ShardCtx
+    dev, _ = cuda
+    rng = np.random.default_rng(41)
+    vocabs = (3, 64, 1000, 1_000_003)
+    cfg = pdlrm.DLRMConfig(vocabs=vocabs, embed_dim=128)
+    tables = [torch.from_numpy(rng.standard_normal((v, 128), dtype=np.float32))
+              .to(dev) for v in vocabs]
+    sparse = torch.from_numpy(np.stack(
+        [rng.integers(-1 if K > 1 else 0, v, (300, K)) for v in vocabs],
+        1).astype(np.int32)).to(dev)
+    whole = embedding_bag_grouped_ref(tables, sparse)
+    for tp in (2, 4):
+        split = [i for i, v in enumerate(vocabs)
+                 if pdlrm.table_sharded(v, tp, hybrid)]
+        total = torch.zeros_like(whole[:, split])
+        for i in range(tp):
+            ctx = ShardCtx(_Position(tp, i), AxisRules())
+            local = [pdlrm.table_shard(t, ctx, hybrid) for t in tables]
+            ids = pdlrm.local_ids(sparse, local, cfg, ctx, hybrid)
+            before = ops.EMBEDDING_BAG_GROUPED.launches
+            got = ops.embedding_bag_grouped(local, ids)
+            assert ops.EMBEDDING_BAG_GROUPED.launches == before + 1
+            assert torch.equal(got, embedding_bag_grouped_ref(local, ids))
+            total += got[:, split]
+        if K == 1:
+            assert torch.equal(total, whole[:, split])
+
+
+def test_sharded_dlrm_world_on_card_equals_single_device(cuda):
+    """A (1, 2) gloo world of two ranks sharing the card: the sharded and
+    the hybrid forward at K = 1 bit-equal to one device's, kernel 7
+    launched once a forward on each rank."""
+    import dataclasses
+
+    from _mesh_ranks import dlrm_cases
+    from repro_torch import convert
+    from repro_torch.configs.dlrm_mlperf import reduced_config
+    from repro_torch.distributed import launch
+    from repro_torch.models import dlrm as pdlrm
+    dev, _ = cuda
+    cfg = dataclasses.replace(reduced_config(),
+                              vocabs=reduced_config().vocabs + (1_000_003,))
+    rng = np.random.default_rng(43)
+    params = pdlrm.dlrm_init(cfg, generator=torch.Generator().manual_seed(43),
+                             device="cpu")
+    arrays = {"tables": [t.numpy() for t in params["tables"]],
+              **{p: [{k: w.numpy() for k, w in layer.items()}
+                     for layer in params[p]] for p in ("bot", "top")}}
+    batch = {"dense": rng.standard_normal((64, 13), dtype=np.float32),
+             "sparse": np.stack([rng.integers(0, v, (64, 1))
+                                 for v in cfg.vocabs], 1).astype(np.int32)}
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+              if f.name != "dtype"}
+    cases = [dict(cfg=fields, params=arrays, batch=batch, hybrid=h)
+             for h in (False, True)]
+    got = launch(dlrm_cases, (1, 2), ("data", "model"), (cases,),
+                 timeout=300.0)
+    with torch.no_grad():
+        want = pdlrm.dlrm_forward(convert.dlrm_params_from_arrays(
+            arrays, cfg, device=dev), convert.dlrm_batch_from_arrays(
+            batch, device=dev), cfg, device=dev).cpu().numpy()
+    for ranks in got:
+        for r in ranks:
+            assert np.array_equal(r["logits"], want)
+            assert r["launches"]["embedding_bag_grouped"] == 1

@@ -529,15 +529,32 @@ def test_init_draws_large_leaves_slice_by_slice(monkeypatch):
 
 
 def test_ctx_other_than_none_raises():
+    """A ctx that is not a ``ShardCtx`` is refused, and so is one that
+    cannot run: a mesh shape without ranks, the expert-parallel MoE and
+    grad mode (the sharded paths themselves: tests/test_torch_lm_mesh.py)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.sharding import AxisRules
     _, pcfg = _configs("smollm-135m", "f32")
     params = ptf.init_params(pcfg, device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        ptf.forward(params, toks, pcfg, object(), device="cpu")
-    cache = ptf.init_cache(pcfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        ptf.decode_step(params, cache, toks[:, 0], torch.zeros(1), pcfg,
-                        object(), device="cpu")
+    with torch.no_grad():
+        with pytest.raises(TypeError, match="ShardCtx"):
+            ptf.forward(params, toks, pcfg, object(), device="cpu")
+        cache = ptf.init_cache(pcfg, 1, 8, device="cpu")
+        with pytest.raises(TypeError, match="ShardCtx"):
+            ptf.decode_step(params, cache, toks[:, 0], torch.zeros(1), pcfg,
+                            object(), device="cpu")
+        mesh = make_host_mesh((1, 1), ("data", "model"))
+        shape_only = ptf.ShardCtx(mesh, AxisRules.for_mesh(mesh),
+                                  moe_impl="reference")
+        with pytest.raises(TypeError, match="distributed.Grid"):
+            ptf.forward(params, toks, pcfg, shape_only, device="cpu")
+        _, moe_cfg = _configs("llama4-scout-17b-a16e", "f32")
+        with pytest.raises(NotImplementedError, match="2.2"):
+            ptf.forward(ptf.init_params(moe_cfg, device="cpu"), toks, moe_cfg,
+                        ptf.ShardCtx(mesh, AxisRules()), device="cpu")
+    with pytest.raises(NotImplementedError, match="training on a mesh"):
+        ptf.forward(params, toks, pcfg, shape_only, device="cpu")
 
 
 def test_inputs_on_another_device_are_refused():
