@@ -399,15 +399,26 @@ exit and no result line):
    ``long_500k``: a seeded cache of 524,288 positions (12.08 GB bf16, the
    sequence over data, 6.04 GB a rank) decoded at a position in each
    shard, bf16 and a float32 copy over the same values (12.08 GB a rank),
-   and once more with the first shard's cache zeroed (a planted fault).
+   and once more with the first shard's cache zeroed (a planted fault);
+   (d) llama4-scout, 2 of its 48 layers at full width, through the
+   expert-parallel MoE (``ShardCtx``'s default ``moe_impl="ep"``): at
+   (2, 2) the float32 copy with FSDP, its forward, prefill and two
+   teacher-forced decode steps at capacity factor 4.0 (no pair may drop);
+   at (1, 2) ``serve.generate(ctx=)`` in bf16, prompt 64 + 4, and the
+   float32 copy's forward at capacity factor 0.25, whose drops must be
+   above zero, equal a host recount over the routing the ranks return
+   (``ep_recount``) and move the logits beyond ``MESH_F32_TOL``.
    The DLRM logits within ``MESH_DLRM_TOL`` of one device's, the scores
    within ``MESH_SCORE_RTOL``; kernel 7 launched once a forward on every
    rank and equal to its plain version on each rank's tables and remapped
    ids; every float32 copy's logits within ``MESH_F32_TOL`` of one
    device's float32 logits, the planted fault's beyond it; the bf16 logits
    no farther from the float32 copy's than ``MESH_BF16_REL`` times one
-   device's bf16 logits are. Each world's times, collectives and peak
-   memory a rank.
+   device's bf16 logits are (for llama4-scout the rows from a request's
+   first router near-tie on are held only to being finite,
+   ``mesh_bf16_rows``). Each world's times, collectives and peak memory a
+   rank; for (d) also the all-to-alls, the expert FFN's time and the
+   dropped pairs a rank.
 
 The graphs carry the Graph500 SSSP weights (uniform on [2^-8, 1]); one
 weighted layout per scale serves every phase (the BFS phases never read
@@ -474,7 +485,7 @@ ANALYSIS_RESERVE_S = 60.0
 TRAIN_RESERVE_S = 60.0
 GNN_RESERVE_S = 30.0
 LM_RESERVE_S = 30.0
-MESH_RESERVE_S = 120.0
+MESH_RESERVE_S = 185.0
 VALIDATE_ALL_BY_S = 900.0 - GCN_RESERVE_S - DLRM_RESERVE_S \
     - GRAPH_RESERVE_S - BC_RESERVE_S - SERVE_RESERVE_S - SESSION_RESERVE_S \
     - DIST_RESERVE_S - ANALYSIS_RESERVE_S - TRAIN_RESERVE_S - GNN_RESERVE_S \
@@ -4436,6 +4447,18 @@ MESH_SMOLLM = dict(batch=4, prompt=512, gen=4)
 MESH_LONG_SEQ = 524288           # long_500k's cache
 MESH_CACHE_BLOCK = 2 ** 14       # positions a seeded cache draws at once
 MESH_LONG_POS = (200_000, 400_000)   # a decode in each sequence shard
+# llama4-scout through the expert-parallel MoE (ShardCtx's default "ep"):
+# 2 of its 48 layers at full width (16 experts top-1 + the shared expert),
+# B = 4, prompt 64; (2, 2) runs the float32 copy (FSDP inside the block)
+# at MESH_MOE_CAP, where nothing can drop; (1, 2) serves 4 new tokens in
+# bf16, then runs the float32 copy's forward at MESH_MOE_TIGHT_CAP, where
+# pairs drop (at (1, 2) no weight is all-gathered: through the host at
+# ~0.5 GB/s a forward's 6.3 GB of FSDP gathers at (2, 2) take ~14 s)
+MESH_MOE_LAYERS = 2
+MESH_MOE = dict(batch=4, prompt=64, gen=4)
+MESH_MOE_F32_GEN = 3          # the float32 copy: prefill + 2 decode steps
+MESH_MOE_CAP = 4.0
+MESH_MOE_TIGHT_CAP = 0.25
 
 
 def seeded_kv(cfg, lo: int, hi: int, seed: int, dev, store=None) -> dict:
@@ -4675,7 +4698,93 @@ def mesh_long(grid, *, seed, cache_seed, tokens):
     return res
 
 
-MESH_JOBS = {"dlrm": mesh_dlrm, "lm": mesh_lm, "long": mesh_long}
+def mesh_moe(grid, *, seed, runs, feed):
+    """llama4-scout, ``MESH_MOE_LAYERS`` layers at full width, on the
+    rank's blocks through the expert-parallel MoE (``moe_ep_train`` in the
+    prefill and the forward, ``moe_ep_decode`` in decode): the bf16
+    weights drawn from the seed (the single device's), then each of
+    ``runs`` in turn: "bf16", ``serve.generate(ctx=)`` teacher-forced with
+    ``feed`` (one device's greedy tokens); "f32", on the weights widened,
+    the forward at ``MESH_MOE_CAP`` and the served prefill and decode steps
+    there; "tight", on the weights widened, the forward at
+    ``MESH_MOE_TIGHT_CAP`` with its routing kept. Each with its time,
+    collectives, ``moe.STATS`` and the logits gathered."""
+    from repro_torch import pytree
+    from repro_torch.configs import llama4_scout
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.sharding import gather_shard
+    dev = grid.device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(llama4_scout.make_config(),
+                              n_layers=MESH_MOE_LAYERS)
+    ctx = mesh_ctx(grid)
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                            device=dev, ctx=ctx)
+    B, S = MESH_MOE["batch"], MESH_MOE["prompt"]
+    prompt = torch.tensor(serve.prompt_tokens(cfg.vocab, B, S, seed),
+                          device=dev)
+    feed = torch.as_tensor(feed, device=dev)
+    res = {"mode": tf._attn_mode(cfg, ctx),
+           "weight_bytes": sum(t.numel() * t.element_size()
+                               for t in pytree.leaves(params))}
+
+    def served(params, cfg, gen):
+        torch.cuda.reset_peak_memory_stats(dev)
+        grid.stats.reset()
+        moe.STATS.reset()
+        out = serve.generate(params, prompt, cfg, gen, ctx=ctx,
+                             feed=feed[:, :gen - 1])
+        ep, comm = moe.STATS.snapshot(), grid.stats.snapshot()
+        logits = gather_shard(out["logits"], tf.logits_spec(cfg, ctx, B),
+                              grid)
+        return {"logits": logits.cpu() if grid.rank == 0 else None,
+                "tokens": out["tokens"].cpu(),
+                "prefill_ms": out["prefill_s"] * 1e3,
+                "decode_ms": out["decode_s"] / (gen - 1) * 1e3,
+                "comm": comm, "ep": ep,
+                "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+
+    def forward(params, cfg, record):
+        grid.stats.reset()
+        moe.STATS.reset(record=record)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            lg = tf.forward(params, prompt, cfg, ctx)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ep, comm, routes = (moe.STATS.snapshot(), grid.stats.snapshot(),
+                            moe.STATS.routes)
+        moe.STATS.reset()
+        logits = gather_shard(lg, tf.logits_spec(cfg, ctx, B), grid)
+        return {"logits": logits.cpu() if grid.rank == 0 else None,
+                "ms": ms, "comm": comm, "ep": ep, "routes": routes}
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                moe_cap_factor=MESH_MOE_CAP)
+    for run in runs:
+        if run == "bf16":
+            res["bf16"] = served(params, cfg, MESH_MOE["gen"])
+            continue
+        if params["embed"].dtype != torch.float32:
+            params = pytree.tree_map(lambda t: t.float(), params)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if run == "f32":
+            res["forward"] = forward(params, cfg32, False)
+            res["f32"] = served(params, cfg32, MESH_MOE_F32_GEN)
+        else:
+            res["tight"] = forward(params, dataclasses.replace(
+                cfg32, moe_cap_factor=MESH_MOE_TIGHT_CAP), True)
+    del params
+    return res
+
+
+MESH_JOBS = {"dlrm": mesh_dlrm, "lm": mesh_lm, "long": mesh_long,
+             "moe": mesh_moe}
 
 
 def mesh_rank(grid, jobs):
@@ -4689,6 +4798,7 @@ def mesh_rank(grid, jobs):
         res["seconds"] = time.perf_counter() - t0
         res["peak_bytes"] = torch.cuda.max_memory_allocated(grid.device)
         out.append(res)
+        grid.release_buffers()
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -4728,12 +4838,237 @@ def mesh_bf16_close(got, one, f32, what: str, failed: list) -> tuple:
                     f"{MESH_BF16_REL}x); vs one device's bf16 {e_pair:.3e}")
 
 
+def ep_recount(ranks_routes, tp_axis: str = "model") -> list:
+    """The pairs each rank dropped over its expert-parallel dispatches,
+    recounted on the host from the routing the ranks return
+    (``ranks_routes[r]``: rank r's ``moe.STATS.routes``, one entry a
+    ``moe_ep_train`` call, every rank the same number of calls): a pair
+    past ``cap_s`` of its destination counts at its source, in pair order;
+    a received slot past ``cap_e`` of its local expert counts at the
+    receiving rank, in (source rank, slot) order. A plain loop over the
+    pairs, apart from the port's one-hot cumsum."""
+    drops = [0] * len(ranks_routes)
+    for c in range(len(ranks_routes[0])):
+        groups = {}                       # the tp groups: other coords alike
+        for r, routes in enumerate(ranks_routes):
+            call = routes[c]
+            key = tuple(sorted((a, v) for a, v in call["coords"].items()
+                               if a != tp_axis))
+            groups.setdefault(key, []).append(
+                (call["coords"][tp_axis], r, call))
+        for members in groups.values():
+            members.sort(key=lambda m: m[0])
+            tp = len(members)
+            recv = [[] for _ in range(tp)]    # by destination, source-major
+            for _, r, call in members:
+                e_loc, cap_s = call["e_loc"], call["cap_s"]
+                slots = np.full((tp, cap_s), -1, np.int64)
+                fill = [0] * tp
+                for e in np.asarray(call["eids"]).reshape(-1):
+                    d = int(e) // e_loc
+                    if fill[d] < cap_s:
+                        slots[d, fill[d]] = int(e) % e_loc
+                        fill[d] += 1
+                    else:
+                        drops[r] += 1
+                for d in range(tp):
+                    recv[d].append(slots[d])
+            for d, (_, r, call) in enumerate(members):
+                seen = [0] * call["e_loc"]
+                for e in np.concatenate(recv[d]):
+                    if e >= 0:
+                        if seen[e] >= call["cap_e"]:
+                            drops[r] += 1
+                        seen[e] += 1
+    return drops
+
+
 def step_errors(got, ref) -> list:
     """The error of each step's logits [B, G, V] of the largest |logit|."""
     got, ref = got.float(), ref.float()
     scale = ref.abs().max()
     return [round(float((got[:, i] - ref[:, i]).abs().max() / scale), 6)
             for i in range(got.shape[1])]
+
+
+def moe_references(dev, seed) -> dict:
+    """One device's llama4-scout at full width, ``MESH_MOE_LAYERS``
+    layers, through ``moe_reference``: the bf16 run served greedily
+    (``"moe"``, with each returned row's router margin), then the float32
+    copy (the same weights widened) fed its tokens (``"moe_f32"``) and its
+    forward (``"moe_forward"``); the card's memory freed after."""
+    from repro_torch import pytree
+    from repro_torch.configs import llama4_scout
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(llama4_scout.make_config(),
+                              n_layers=MESH_MOE_LAYERS)
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                            device=dev)
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in pytree.leaves(params))
+    B, S, G = (MESH_MOE[k] for k in ("batch", "prompt", "gen"))
+    prompt = torch.tensor(serve.prompt_tokens(cfg.vocab, B, S, seed),
+                          device=dev)
+    out = {}
+
+    res, margins = lm_generate_margins(serve, params, prompt, cfg, G, dev)
+    out["moe"] = {"logits": res["logits"].cpu(), "tokens": res["tokens"].cpu(),
+                  "prefill_ms": res["prefill_s"] * 1e3,
+                  "decode_ms": res["decode_s"] / (G - 1) * 1e3,
+                  "margins": margins, "bytes": n_bytes}
+    del res
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    params = pytree.tree_map(lambda t: t.float(), params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = serve.generate(params, prompt, cfg, G,
+                         feed=out["moe"]["tokens"].to(dev), device=dev)
+    out["moe_f32"] = {"logits": res["logits"].cpu(),
+                      "prefill_ms": res["prefill_s"] * 1e3,
+                      "decode_ms": res["decode_s"] / (G - 1) * 1e3}
+    del res
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lg = tf.forward(params, prompt, cfg, device=dev)
+    torch.cuda.synchronize()
+    out["moe_forward"] = {"logits": lg.cpu(),
+                          "ms": (time.perf_counter() - t0) * 1e3}
+    del params, lg, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_bf16_rows(got, one, f32, margins, what: str, failed: list):
+    """``mesh_bf16_close`` row by row for an MoE model: a row [B, G] whose
+    router margin on one device (``margins``) is under ``LM_ROUTE_MARGIN``
+    may take another expert on the mesh (an ulp of bfloat16 in the hidden
+    state moves a router logit by ~1e-3), and the keys and values it then
+    writes differ in every later step of its request; so the rows from a
+    request's first such step on are held only to being finite, at most
+    ``LM_MAX_NEAR_TIES`` of them, the others as ``mesh_bf16_close`` holds
+    every row. Returns the line that says so."""
+    got, one, f32 = got.float(), one.float(), f32.float()
+    for t in (got, one):
+        if t.shape != f32.shape or not torch.isfinite(t).all():
+            raise AssertionError(f"{what}: logits of shape {tuple(t.shape)} "
+                                 f"(want {tuple(f32.shape)}) or not finite")
+    scale = float(f32.abs().max())
+    e_mesh = (got - f32).abs().amax(-1) / scale          # [B, G]
+    e_one = (one - f32).abs().amax(-1) / scale
+    keep = (margins >= LM_ROUTE_MARGIN).to(torch.int8).cummin(1).values > 0
+    near = int((~keep).sum())
+    if near > LM_MAX_NEAR_TIES * keep.numel():
+        failed.append(f"{what}: {near} of {keep.numel()} rows near a router "
+                      "tie")
+    m, o = float(e_mesh[keep].max()), float(e_one[keep].max())
+    if m > MESH_BF16_REL * o:
+        failed.append(f"{what}: {m:.6e} from the float32 copy, one device's "
+                      f"bf16 {o:.6e}: over {MESH_BF16_REL}x")
+    worst = [(f"{float(e_mesh[b, g]):.3e}", f"{float(margins[b, g]):.2e}")
+             for b, g in zip(*torch.where(~keep))]
+    return (f"vs the float32 copy {m:.3e} of its largest |logit|, one "
+            f"device's bf16 {o:.3e} (bound {MESH_BF16_REL}x), over the "
+            f"{int(keep.sum())} of {keep.numel()} rows before their "
+            f"request's first router margin under {LM_ROUTE_MARGIN}; the "
+            f"{near} others (error, margin) {worst}; all rows "
+            f"{float(e_mesh.max()):.3e}; by row (mesh, one device) "
+            f"{[[(round(float(a), 4), round(float(b), 4)) for a, b in zip(r, q)] for r, q in zip(e_mesh, e_one)]}")
+
+
+def moe_phase_check(got, ref, card, failed: list) -> None:
+    """21d: llama4-scout through the expert-parallel MoE (``mesh_moe``,
+    the last job of each world) against one device's ``moe_reference``
+    results (``ref``): the (2, 2) float32 copy's forward and served steps
+    within ``MESH_F32_TOL`` with no pair dropped; the (1, 2) float32
+    copy's forward at ``MESH_MOE_TIGHT_CAP`` with drops above zero, each
+    rank's equal to ``ep_recount`` over the routing the ranks returned,
+    and logits beyond ``MESH_F32_TOL`` from the no-drop forward's; the
+    (1, 2) bf16 run within ``MESH_BF16_REL`` of the float32 copy
+    (``mesh_bf16_rows``)."""
+    ranks22 = [r[-1] for r in got[(2, 2)]]
+    ranks12 = [r[-1] for r in got[(1, 2)]]
+    r22, r12 = ranks22[0], ranks12[0]
+    Gf = MESH_MOE_F32_GEN
+    e_fwd = mesh_rows_close(r22["forward"]["logits"],
+                            ref["moe_forward"]["logits"], MESH_F32_TOL,
+                            "21d (2, 2) llama4-scout f32 forward", failed)
+    e_srv = mesh_rows_close(r22["f32"]["logits"],
+                            ref["moe_f32"]["logits"][:, :Gf], MESH_F32_TOL,
+                            "21d (2, 2) llama4-scout f32 served", failed)
+    drops = {k: [r[k]["ep"]["dropped"] for r in ranks22]
+             for k in ("forward", "f32")}
+    for k in ("bf16", "tight"):
+        drops[k] = [r[k]["ep"]["dropped"] for r in ranks12]
+    for k in ("forward", "f32"):
+        if any(drops[k]):
+            failed.append(f"21d (2, 2) llama4-scout f32 {k}: pairs dropped "
+                          f"at capacity factor {MESH_MOE_CAP}: {drops[k]}")
+    recount = ep_recount([r["tight"]["routes"] for r in ranks12])
+    if sum(drops["tight"]) == 0 or drops["tight"] != recount:
+        failed.append(f"21d (1, 2) tight capacity: drops by rank "
+                      f"{drops['tight']}, host recount {recount}")
+    moved = mesh_rows_close(r12["tight"]["logits"], r22["forward"]["logits"],
+                            float("inf"), "21d tight capacity", failed)
+    if moved <= MESH_F32_TOL:
+        failed.append(f"21d capacity factor {MESH_MOE_TIGHT_CAP}: the drops "
+                      f"move the logits by {moved:.6e}, within MESH_F32_TOL: "
+                      "the check cannot see them")
+    held = mesh_bf16_rows(r12["bf16"]["logits"], ref["moe"]["logits"],
+                          ref["moe_f32"]["logits"], ref["moe"]["margins"],
+                          "21d (1, 2) llama4-scout bf16", failed)
+
+    def ep_line(rows, key):
+        return (f"EP a rank: {rows[0][key]['ep']['calls']} MoE calls, "
+                f"{rows[0][key]['ep']['a2a_calls']} all-to-alls, "
+                f"{rows[0][key]['ep']['a2a_bytes']} bytes, "
+                f"{[round(r[key]['ep']['a2a_seconds'] * 1e3, 2) for r in rows]}"
+                f" ms; expert FFN "
+                f"{[round(r[key]['ep']['ffn_seconds'] * 1e3, 3) for r in rows]}"
+                f" ms; all collectives "
+                f"{rows[0][key]['comm']['calls']} calls, "
+                f"{rows[0][key]['comm']['bytes']} bytes, "
+                f"{[round(r[key]['comm']['seconds'] * 1e3, 1) for r in rows]}"
+                f" ms")
+
+    one32, one16 = ref["moe_f32"], ref["moe"]
+    log(f"[21d] (2, 2) llama4-scout {MESH_MOE_LAYERS} layers float32 "
+        f"({r22['mode']} mode, experts over model, FSDP over data, "
+        f"{r22['weight_bytes']} bytes bf16 a rank), capacity factor "
+        f"{MESH_MOE_CAP}: forward logits vs one device's moe_reference "
+        f"{e_fwd:.3e} of the largest |logit|, prefill + {Gf - 1} decode "
+        f"steps {e_srv:.3e} (bound {MESH_F32_TOL}), dropped pairs by rank "
+        f"{drops['forward']} / {drops['f32']}; forward "
+        f"{[round(r['forward']['ms'], 1) for r in ranks22]} ms (one device "
+        f"{ref['moe_forward']['ms']:.1f}), prefill "
+        f"{[round(r['f32']['prefill_ms'], 1) for r in ranks22]} ms (one "
+        f"device {one32['prefill_ms']:.1f}), decode "
+        f"{[round(r['f32']['decode_ms'], 1) for r in ranks22]} ms a step "
+        f"(one device {one32['decode_ms']:.1f}); forward "
+        f"{ep_line(ranks22, 'forward')}; served "
+        f"{ep_line(ranks22, 'f32')}; peak "
+        f"{[r['f32']['peak_bytes'] for r in ranks22]} bytes a rank; on {card}")
+    log(f"[21d] (1, 2) float32 copy at capacity factor {MESH_MOE_TIGHT_CAP}: "
+        f"dropped pairs by rank {drops['tight']} of "
+        f"{ranks12[0]['tight']['ep']['pairs']} a rank, host recount "
+        f"{recount}; logits moved {moved:.3e} of the largest |logit| from the "
+        f"(2, 2) no-drop forward's (must exceed {MESH_F32_TOL}); forward "
+        f"{[round(r['tight']['ms'], 1) for r in ranks12]} ms; "
+        f"{ep_line(ranks12, 'tight')}")
+    same = int((r12["bf16"]["tokens"] == one16["tokens"]).sum())
+    log(f"[21d] (1, 2) llama4-scout bf16 served ({r12['mode']} mode, "
+        f"{r12['weight_bytes']} bytes a rank), B={MESH_MOE['batch']} prompt "
+        f"{MESH_MOE['prompt']} + {MESH_MOE['gen']}, teacher-forced: logits "
+        f"{held}; greedy picks equal {same} of {one16['tokens'].numel()}; "
+        f"dropped pairs by rank {drops['bf16']}; prefill "
+        f"{[round(r['bf16']['prefill_ms'], 1) for r in ranks12]} ms (one "
+        f"device {one16['prefill_ms']:.1f}), decode "
+        f"{[round(r['bf16']['decode_ms'], 1) for r in ranks12]} ms a step "
+        f"(one device {one16['decode_ms']:.1f}); {ep_line(ranks12, 'bf16')}; "
+        f"peak {[r['bf16']['peak_bytes'] for r in ranks12]} bytes a rank; on "
+        f"{card}; by step {step_errors(r12['bf16']['logits'], one16['logits'])}")
 
 
 def mesh_phase(*, dev, card, table, lm_ref):
@@ -4817,11 +5152,15 @@ def mesh_phase(*, dev, card, table, lm_ref):
     del sp, sp32, lg
     gc.collect()
     torch.cuda.empty_cache()
+    ref.update(moe_references(dev, seed))
     log(f"[21] single-device references in {time.perf_counter() - t0:.1f} s "
         f"(DLRM capped at 2^22 rows: serve_p99, serve_bulk, retrieval; "
         f"smollm-135m B={B} prompt {S} + {G}; long_500k's cache "
-        f"{long_cache_bytes} bytes, decode at {MESH_LONG_POS}); device "
-        f"memory held {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        f"{long_cache_bytes} bytes, decode at {MESH_LONG_POS}; llama4-scout "
+        f"{MESH_MOE_LAYERS} layers, {ref['moe']['bytes']} bytes bf16, "
+        f"B={MESH_MOE['batch']} prompt {MESH_MOE['prompt']} + "
+        f"{MESH_MOE['gen']}, bf16 and its float32 copy); device memory held "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
     # ---- world (1, 2), then world (2, 2)
     feeds12 = {"bf16": lm_ref["bf16"]["tokens"].numpy(),
@@ -4835,13 +5174,17 @@ def mesh_phase(*, dev, card, table, lm_ref):
                  ("lm", dict(arch="phi3-mini-3.8b", seed=0,
                              shape=LM_SERVE, feeds=feeds12)),
                  ("lm", dict(arch="smollm-135m", seed=seed,
-                             shape=MESH_SMOLLM, feeds=feeds_smollm))],
+                             shape=MESH_SMOLLM, feeds=feeds_smollm)),
+                 ("moe", dict(seed=seed, runs=("bf16", "tight"),
+                              feed=ref["moe"]["tokens"].numpy()))],
         (2, 2): [("dlrm", dict(seed=seed, placements=(True, False),
                                shapes=("serve_bulk",), retrieval=True)),
                  ("lm", dict(arch="smollm-135m", seed=seed,
                              shape=MESH_SMOLLM, feeds=feeds_smollm)),
                  ("long", dict(seed=seed, cache_seed=seed + 2,
-                               tokens=long_tokens))]}
+                               tokens=long_tokens)),
+                 ("moe", dict(seed=seed, runs=("f32",),
+                              feed=ref["moe"]["tokens"].numpy()))]}
     got, world_s = {}, {}
     for shape_, jobs in worlds.items():
         gc.collect()
@@ -4982,6 +5325,7 @@ def mesh_phase(*, dev, card, table, lm_ref):
         f" ms; planted fault, the first sequence shard's cache zeroed before "
         f"the decode at {MESH_LONG_POS[-1]}: {lost:.6e} (must exceed "
         f"{MESH_F32_TOL}); on {card}")
+    moe_phase_check(got, ref, card, failed)
     if "f32" in lm_ref:   # step 0 (the prompt alone): each bf16 run's
         # distance from the float32 copy's logits, the same history
         one = lm_ref["bf16"]["logits"][:, :1]

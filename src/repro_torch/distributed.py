@@ -15,8 +15,9 @@ process (a *rank*) and ``Grid`` gives the same names to the world's ranks:
 * the collectives of the strategy: ``pall``, the semiring add over some
   axes (MIN, MAX or SUM all-reduce, the counterpart of ``Semiring.pall``),
   whose "or" form is ``packing.por`` (all-gather, then an OR fold: NCCL
-  has no OR), plus ``all_gather`` and the paired send / receive of
-  ``exchange``.
+  has no OR), plus ``all_gather``, the paired send / receive of
+  ``exchange`` and the ``all_to_all`` of the expert-parallel MoE's
+  dispatch and return (``models.moe``).
 
 Backends. NCCL takes the card's tensors in place, one rank per card; it
 refuses two ranks on one device. Gloo takes host tensors only, so a
@@ -24,10 +25,13 @@ card's tensor crosses to the host and back around every gloo collective,
 explicitly (``_host``), through a pinned buffer kept for each shape and
 type (a pageable copy runs several times slower); those copies are timed
 with the collective and on their own.
-Neither backend reduces or gathers int16, so an int16 tensor travels
-widened to int32 (exactly), and its paired send / receive as the raw two
-bytes of a bfloat16 view. A bfloat16 tensor is gathered as it is, but
-reduced widened to float32 and rounded back once: gloo's bfloat16 sum
+An all-gather receives every member's block into one buffer (pinned
+under gloo: a gather of parts and a stack of them ran at half the rate),
+and ``release_buffers`` drops the buffers kept. Neither backend reduces
+or gathers int16, so an int16 tensor travels widened to int32 (exactly),
+and its paired send / receive and its all-to-all as the raw two bytes of
+a bfloat16 view. A bfloat16 tensor is gathered as it is, but reduced
+widened to float32 and rounded back once: gloo's bfloat16 sum
 (where its version has one) rounds after every add, in its ring's order,
 and one rounding of the float32 sum is the value a single device's
 float32-accumulated product rounds to (the sharded language model's
@@ -205,7 +209,7 @@ class Grid:
         host buffer under gloo, else a copy on its device; int16 widened
         to int32 (neither backend reduces or gathers int16)."""
         if self._host(t):
-            buf = self._pinned_buffer("send", t)
+            buf = self._pinned_buffer("send", t.shape, t.dtype)
             t0 = time.perf_counter()
             buf.copy_(t)
             self.stats.copy_seconds += time.perf_counter() - t0
@@ -213,14 +217,19 @@ class Grid:
             buf = t.clone(memory_format=torch.contiguous_format)
         return buf.to(torch.int32) if buf.dtype == torch.int16 else buf
 
-    def _pinned_buffer(self, role: str, t: torch.Tensor) -> torch.Tensor:
-        """This role's pinned host buffer for ``t``'s shape and type."""
-        key = (role, tuple(t.shape), t.dtype)
+    def _pinned_buffer(self, role: str, shape, dtype) -> torch.Tensor:
+        """This role's pinned host buffer of this shape and type."""
+        key = (role, tuple(shape), dtype)
         buf = self._pinned.get(key)
         if buf is None:
-            buf = self._pinned[key] = torch.empty(t.shape, dtype=t.dtype,
+            buf = self._pinned[key] = torch.empty(shape, dtype=dtype,
                                                   pin_memory=True)
         return buf
+
+    def release_buffers(self) -> None:
+        """Drop the pinned host buffers kept for the collectives' shapes
+        (they are made again at the next collective of a shape)."""
+        self._pinned.clear()
 
     def _back(self, buf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
         """``buf`` on ``like``'s device in its type (the copy back from the
@@ -250,11 +259,15 @@ class Grid:
         of their flat index along ``axes``."""
         t0 = self._timed(t)
         buf = self._buffer(t)
-        parts = [torch.empty_like(buf) for _ in range(
-            math.prod(self.axis_size(a) for a in axes))]
-        dist.all_gather(parts, buf, group=self.group(axes))
-        # the group's ranks are sorted, which is the flat order along axes
-        out = self._back(torch.stack(parts), t)
+        shape = (math.prod(self.axis_size(a) for a in axes),) + buf.shape
+        # one receive buffer (pinned under gloo): no parts to stack, and one
+        # copy back at the pinned rate; the group's ranks are sorted, which
+        # is the flat order along axes
+        got = (self._pinned_buffer("gather", shape, buf.dtype)
+               if self._host(t) else
+               torch.empty(shape, dtype=buf.dtype, device=buf.device))
+        _all_gather_into(got.view(-1), buf.view(-1), self.group(axes))
+        out = self._back(got, t)
         self._done(t0, t.device)
         return out
 
@@ -293,6 +306,31 @@ class Grid:
         out = self.all_reduce(t, "sum", axes) if n > 1 else t
         return out.narrow(dim, self.index(axes) * size, size).contiguous()
 
+    def all_to_all(self, t: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+        """Block i of ``t``'s dimension 0 (of ``size(axes)`` blocks) sent to
+        the member of flat index i along ``axes`` (``axes`` in the grid's
+        order); block i of the result came from member i (the JAX
+        package's ``lax.all_to_all(t, axis, 0, 0, tiled=False)``). int16
+        travels as the two bytes of a bfloat16 view, as in ``exchange``."""
+        axes = self._in_grid_order(axes)
+        n = math.prod(self.axis_size(a) for a in axes)
+        if t.shape[0] != n:
+            raise ValueError(f"an all-to-all over {axes} takes {n} blocks "
+                             f"along dimension 0, got {t.shape[0]}")
+        if n == 1:
+            return t.clone()
+        t0 = self._timed(t)
+        wire = t.contiguous()
+        if wire.dtype == torch.int16:
+            wire = wire.view(torch.bfloat16)
+        buf = self._buffer(wire)
+        got = (self._pinned_buffer("recv", wire.shape, wire.dtype)
+               if self._host(wire) else torch.empty_like(buf))
+        dist.all_to_all_single(got, buf, group=self.group(axes))
+        out = self._back(got, wire).view(t.dtype)
+        self._done(t0, t.device)
+        return out
+
     def pall(self, reduction: str, t: torch.Tensor,
              axes: Sequence[str]) -> torch.Tensor:
         """The semiring add of ``t`` over ``axes`` (``Semiring.reduction``:
@@ -313,14 +351,22 @@ class Grid:
             # neither backend sends int16: the same two bytes as bfloat16
             wire = wire.view(torch.bfloat16)
         buf = self._buffer(wire)
-        got = (self._pinned_buffer("recv", wire) if self._host(wire)
-               else torch.empty_like(buf))
+        got = (self._pinned_buffer("recv", wire.shape, wire.dtype)
+               if self._host(wire) else torch.empty_like(buf))
         for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, buf, peer),
                                            dist.P2POp(dist.irecv, got, peer)]):
             req.wait()
         out = self._back(got, wire).view(t.dtype)
         self._done(t0, t.device)
         return out
+
+
+def _all_gather_into(out: torch.Tensor, t: torch.Tensor, group) -> None:
+    """Every member's flat ``t`` into the flat ``out``, in group rank order
+    (``all_gather_single`` where this PyTorch has it, else its older name)."""
+    fn = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    fn(out, t, group=group)
 
 
 # ------------------------------------------------------------------ launcher

@@ -48,9 +48,18 @@ package's sharding constraints, explicitly:
   holds ``pos``; across a sequence split (over ``tp`` in context mode,
   over ``dp`` with ``cache_seq_shard``) ``layers.decode_attention``
   combines the shards;
-* the MoE under ``moe_impl="reference"``: the router is whole on every
-  rank, the experts are split over ``tp``, each rank runs its experts over
-  every token and the float32 partial outputs are SUM-reduced over ``tp``.
+* the MoE, its experts split over ``tp``: under ``moe_impl="ep"`` (the
+  default, the JAX package's) expert parallelism (``models.moe``): outside
+  decode ``moe_ep_train`` sends each (token, slot) pair of the rank's
+  block to its expert's rank in a static-capacity all-to-all over ``tp``
+  and back, dropping the pairs past the capacity; in decode
+  ``moe_ep_decode`` runs on every rank the pairs of its own experts and
+  SUM-reduces over ``tp``; it raises ``ValueError`` where the JAX
+  package's ``shard_map`` does (experts, or outside decode the batch or
+  the sequence, not splitting over their axes: ``moe.check_ep``). Under
+  ``moe_impl="reference"`` the router is whole on every rank, each rank
+  runs its experts over every token and the float32 partial outputs are
+  SUM-reduced over ``tp``.
 
 Every dimension follows ``sharding.shard_dim``: one that does not divide
 is replicated, and its collective drops away. Inputs (tokens, labels,
@@ -61,9 +70,8 @@ whole), the loss whole on every rank. A row-parallel product's partials
 are rounded to the weights' dtype before they are summed, so a bfloat16
 model on a mesh is not bit-equal to one device.
 
-Not on a mesh yet: the expert-parallel MoE (``moe_impl="ep"``, the JAX
-package's default, refused for an MoE config: ROADMAP 2.2) and training
-(grad mode under a ``ShardCtx`` is refused: the training-on-a-mesh slice).
+Not on a mesh yet: training (grad mode under a ``ShardCtx`` is refused:
+the training-on-a-mesh slice, which brings the all-to-all's backward).
 
 Entry points run on the card unless given ``device="cpu"``, and raise
 without one; under ``ctx`` they run on the grid's device. Every weight and
@@ -149,8 +157,9 @@ class ShardCtx:
     ``grid``: the world's ``distributed.Grid`` to run on, or any mesh
     (``launch.mesh.MeshShape``) for the specs alone. ``cache_seq_shard``:
     the KV cache's sequence over ``dp`` (``long_500k``). ``moe_impl``:
-    "ep" (the default; the expert-parallel MoE is not ported yet) or
-    "reference"."""
+    "ep" (the default: ``moe_ep_train`` / ``moe_ep_decode``) or
+    "reference" (``moe_partial``, each rank's experts over every
+    token)."""
     grid: Any
     rules: AxisRules
     cache_seq_shard: bool = False
@@ -176,12 +185,6 @@ def _check_ctx(cfg: LMConfig, ctx: ShardCtx) -> None:
     if ctx.moe_impl not in MOE_IMPLS:
         raise ValueError(f"moe_impl must be one of {MOE_IMPLS}, got "
                          f"{ctx.moe_impl!r}")
-    if cfg.moe and ctx.moe_impl == "ep":
-        raise NotImplementedError(
-            "the expert-parallel MoE (moe_impl='ep', the JAX package's "
-            "moe_ep_train / moe_ep_decode) is not ported yet: ROADMAP "
-            "module queue 2.2; ShardCtx(moe_impl='reference') runs the "
-            "experts split over tp")
     if torch.is_grad_enabled():
         raise NotImplementedError(
             "training on a mesh (FSDP's gradient reduce-scatter) waits for "
@@ -343,14 +346,23 @@ def _mesh_specs(cfg: LMConfig, ctx: ShardCtx, batch: int) -> tuple:
     return top, layer, cache
 
 
+def _moe_dims(cfg: LMConfig) -> moe_lib.MoEDims:
+    return moe_lib.MoEDims(cfg.n_experts, cfg.top_k, cfg.d_model,
+                           cfg.d_ff_expert, cap_factor=cfg.moe_cap_factor)
+
+
 class _Mesh:
     """A call's view of its mesh: the rank's grid, the layer specs, the
     attention mode, and the spec entries of the activations between
     blocks (batch over ``dp`` and, outside decode, sequence over ``tp``,
-    each where it divides)."""
+    each where it divides; under the expert-parallel MoE each must
+    divide)."""
 
     def __init__(self, cfg: LMConfig, ctx: ShardCtx, batch: int, seq: int,
                  decode: bool):
+        if cfg.moe and ctx.moe_impl == "ep":
+            moe_lib.check_ep(_moe_dims(cfg), ctx.grid, batch, seq,
+                             dp=ctx.rules.dp, tp=ctx.rules.tp, decode=decode)
         self.grid, self.rules, self.ctx = ctx.grid, ctx.rules, ctx
         self.tp = (ctx.rules.tp,)
         self.top, self.layer, cache = _mesh_specs(cfg, ctx, batch)
@@ -479,13 +491,20 @@ def _decode_mesh(q, k, v, cache, pos, cfg: LMConfig, mesh: _Mesh):
     return o, (k_cache, v_cache)
 
 
-def _ffn_block(x, lp, cfg: LMConfig, mesh: Optional[_Mesh] = None):
+def _ffn_block(x, lp, cfg: LMConfig, mesh: Optional[_Mesh], *,
+               decode: bool):
+    """The FFN sublayer's output; on a mesh the MoE by ``moe_impl``, the
+    expert-parallel one by ``decode`` (a decode step or not)."""
     h = rmsnorm(x, lp["ln2"])
     if not cfg.moe:
         return _ffn(h, lp, ("wi_g", "wi_u", "wo_ff"), mesh)
-    dims = moe_lib.MoEDims(cfg.n_experts, cfg.top_k, cfg.d_model,
-                           cfg.d_ff_expert, cap_factor=cfg.moe_cap_factor)
-    if mesh is None or not mesh.sharded("e_wi_g", 0):
+    dims = _moe_dims(cfg)
+    if mesh is not None and mesh.ctx.moe_impl == "ep":
+        ep = moe_lib.moe_ep_decode if decode else moe_lib.moe_ep_train
+        y = ep(h, lp["router"], lp["e_wi_g"], lp["e_wi_u"], lp["e_wo"], dims,
+               mesh.grid, dp=mesh.rules.dp, tp=mesh.rules.tp,
+               fsdp=mesh.rules.fsdp)
+    elif mesh is None or not mesh.sharded("e_wi_g", 0):
         w = [lp[n] if mesh is None else mesh.fsdp(lp[n], mesh.layer[n])
              for n in ("e_wi_g", "e_wi_u", "e_wo")]
         y = moe_lib.moe_reference(h, lp["router"], *w, dims)
@@ -544,18 +563,32 @@ def _embed(params, tokens: torch.Tensor, cfg: LMConfig,
     """The rows of ``tokens`` [b, T]; on a mesh vocab-parallel: each rank
     looks up the ids of its vocabulary block and the rows are summed over
     ``tp`` (one rank adds a row, the others zeros), then kept as the
-    rank's sequence block."""
+    rank's sequence block. Under FSDP the table's ``D`` blocks stay where
+    they are: the ranks of an fsdp group gather each other's ids, look
+    them up in their own block and all-gather the rows along ``D`` (the
+    values of a lookup in the gathered table, for the rows' bytes, not the
+    table's)."""
     if mesh is None:
         return params["embed"][tokens.long()].to(cfg.dtype)
-    emb = mesh.fsdp(params["embed"], mesh.top["embed"])
-    v_entry = mesh.top["embed"][0]
+    emb = params["embed"]
+    v_entry, d_entry = mesh.top["embed"]
+    ids = tokens.long()
+    fs = entry_axes(d_entry)
+    if fs:                           # every member's ids, in fsdp order
+        ids = mesh.grid.all_gather(ids, fs)
+    if entry_axes(v_entry):
+        ids = ids - block(v_entry, cfg.vocab, mesh.grid).start
+        mine = (ids >= 0) & (ids < emb.shape[0])
+        rows = torch.where(mine[..., None],
+                           emb[ids.clamp(0, emb.shape[0] - 1)],
+                           torch.zeros((), dtype=emb.dtype, device=emb.device))
+    else:
+        rows = emb[ids]
+    if fs:                           # the rank's own ids' rows, whole D
+        rows = mesh.grid.all_gather_dim(rows, rows.ndim - 1, fs)
+        rows = rows[mesh.grid.index(fs)]
     if not entry_axes(v_entry):
-        return mesh.local_seq(emb[tokens.long()].to(cfg.dtype))
-    lo = block(v_entry, cfg.vocab, mesh.grid).start
-    ids = tokens.long() - lo
-    mine = (ids >= 0) & (ids < emb.shape[0])
-    rows = torch.where(mine[..., None], emb[ids.clamp(0, emb.shape[0] - 1)],
-                       torch.zeros((), dtype=emb.dtype, device=emb.device))
+        return mesh.local_seq(rows.to(cfg.dtype))
     return mesh.tp_sum(rows).to(cfg.dtype)
 
 
@@ -595,7 +628,7 @@ def _run(params: dict, tokens: torch.Tensor, cfg: LMConfig,
     def layer(x, lp):
         a, kv = _attention(x, lp, cfg, cos, sin, mesh=mesh)
         x = x + a
-        return x + _ffn_block(x, lp, cfg, mesh), kv
+        return x + _ffn_block(x, lp, cfg, mesh, decode=False), kv
 
     remat = cfg.remat and torch.is_grad_enabled()
     for i, lp in enumerate(_layers(params)):
@@ -785,5 +818,5 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor,
                           cache=(cache["k"][i], cache["v"][i]), pos=pos,
                           mesh=mesh)
         x = x + a
-        x = x + _ffn_block(x, lp, cfg, mesh)
+        x = x + _ffn_block(x, lp, cfg, mesh, decode=True)
     return _logits(params, x, mesh)[:, 0], cache

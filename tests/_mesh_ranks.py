@@ -1,5 +1,5 @@
 """Rank functions of the port's gloo mesh tests (tests/test_torch_lm_mesh.py,
-tests/test_torch_dlrm_mesh.py): each runs a list of cases on one rank of a
+tests/test_torch_dlrm_mesh.py, tests/test_torch_moe_ep.py): each runs a list of cases on one rank of a
 ``distributed.launch`` world and returns what the tests compare. This
 module imports no JAX, so the spawned ranks stay light; the tests compute
 the JAX package's references in their own process.
@@ -11,8 +11,39 @@ import torch
 
 from repro_torch import convert
 from repro_torch.models import dlrm as pdlrm
+from repro_torch.models import moe as pmoe
 from repro_torch.models import transformer as ptf
-from repro_torch.models.sharding import AxisRules, gather_shard
+from repro_torch.models.sharding import (AxisRules, gather_shard,
+                                         local_shard, shard_dim)
+
+A2A_DTYPES = (torch.float32, torch.bfloat16, torch.int32, torch.int16)
+
+
+def a2a_block(rank: int, j: int, dtype) -> torch.Tensor:
+    """The block rank ``rank`` sends to member ``j`` in
+    ``all_to_all_blocks``: three values naming both, exact in ``dtype``
+    (negative for the integers, so the int16 bytes carry a sign)."""
+    if dtype.is_floating_point:
+        v = torch.tensor([10 * rank + j + 0.5, -(10 * rank + j), 0.25 * j])
+    else:
+        v = torch.tensor([1000 * rank + j - 2000, -j, rank])
+    return v.to(dtype)
+
+
+def all_to_all_blocks(grid) -> dict:
+    """``Grid.all_to_all`` over each axis of the grid and over all of it,
+    in each of ``A2A_DTYPES``: this rank sends ``a2a_block(rank, j)`` to
+    the member of flat index j; returns what it received, as float64
+    arrays keyed by (axes, dtype name), with its coordinates."""
+    out = {"coords": dict(grid.coords), "rank": grid.rank}
+    for axes in [(a,) for a in grid.axis_names] + [tuple(grid.axis_names)]:
+        n = int(np.prod([grid.axis_size(a) for a in axes]))
+        for dt in A2A_DTYPES:
+            t = torch.stack([a2a_block(grid.rank, j, dt) for j in range(n)])
+            got = grid.all_to_all(t, axes)
+            assert got.dtype == dt and got.shape == t.shape
+            out[(axes, str(dt))] = got.double().numpy()
+    return out
 
 
 def lm_config(fields: dict) -> ptf.LMConfig:
@@ -23,16 +54,29 @@ def lm_config(fields: dict) -> ptf.LMConfig:
 
 
 def _refusals(params, toks, cfg, ctx) -> dict:
-    """The messages of the two refusals: the expert-parallel MoE (an MoE
-    config under moe_impl="ep") and grad mode under a ShardCtx."""
+    """What the ctx paths refuse and run: for an MoE config, the
+    expert-parallel MoE (moe_impl="ep") on the case's tokens (runs), on a
+    batch of 3 and on one position fewer (raises ``ValueError`` where the
+    batch or the sequence does not split), and a decode step at a batch of
+    3 (runs, the batch replicated); and grad mode under a ShardCtx (raises
+    ``NotImplementedError``)."""
     out = {}
     if cfg.moe:
         ep = dataclasses.replace(ctx, moe_impl="ep")
-        try:
-            with torch.no_grad():
-                ptf.forward(params, toks, cfg, ep)
-        except NotImplementedError as e:
-            out["ep"] = str(e)
+        with torch.no_grad():
+            ptf.forward(params, toks, cfg, ep)
+            out["ep"] = "runs"
+            for what, t in (("batch", toks[:3]), ("sequence", toks[:, :-1])):
+                try:
+                    ptf.forward(params, t, cfg, ep)
+                    out[f"ep {what}"] = "runs"
+                except ValueError as e:
+                    out[f"ep {what}"] = str(e)
+            cache = ptf.init_cache(cfg, 3, toks.shape[1], ctx=ep)
+            ptf.decode_step(params, cache, toks[:3, 0],
+                            torch.zeros(3, dtype=torch.int32,
+                                        device=toks.device), cfg, ep)
+            out["ep decode batch 3"] = "runs"
     try:
         ptf.forward(params, toks, cfg, ctx)
     except NotImplementedError as e:
@@ -46,9 +90,15 @@ def lm_cases(grid, cases: list) -> list:
     ``cache_len``, ``dec_tok`` / ``dec_pos`` [steps, B], ``seq_shard``,
     ``moe_impl``. Returns, gathered whole: the forward's logits, the loss,
     the prefill's last logits and cache, each decode step's logits, the
-    weights' round trip, the refusals and the collectives' counts."""
+    weights' round trip, the refusals, the collectives' counts and the
+    expert-parallel MoE's counts over the forward (``moe.STATS``, with its
+    routing). A case ``{"all_to_all": True}`` returns
+    ``all_to_all_blocks(grid)`` instead."""
     out = []
     for c in cases:
+        if c.get("all_to_all"):
+            out.append(all_to_all_blocks(grid))
+            continue
         cfg = lm_config(c["cfg"])
         ctx = ptf.ShardCtx(grid, AxisRules.for_mesh(grid),
                            cache_seq_shard=c.get("seq_shard", False),
@@ -60,7 +110,11 @@ def lm_cases(grid, cases: list) -> list:
         res = {"mode": ptf._attn_mode(cfg, ctx)}
         grid.stats.reset()
         with torch.no_grad():
+            pmoe.STATS.reset(record=True)
             lg = ptf.forward(params, toks, cfg, ctx)
+            res["ep"] = pmoe.STATS.snapshot()
+            res["routes"] = pmoe.STATS.routes
+            pmoe.STATS.reset()              # the forward's alone
             res["logits"] = gather_shard(lg, ptf.logits_spec(cfg, ctx, B),
                                          grid).float().cpu().numpy()
             if "labels" in c:
@@ -149,5 +203,52 @@ def dlrm_cases(grid, cases: list) -> list:
                                hybrid=c["hybrid"])
         except NotImplementedError as e:
             res["grad_refused"] = str(e)
+        out.append(res)
+    return out
+
+
+# ------------------------------------------------------------ expert parallel
+
+
+def moe_ep_cases(grid, cases: list) -> list:
+    """Each case: ``dims`` (MoEDims fields), ``dtype`` by name, ``x``
+    [B, S, D], ``wr`` [D, E], ``wig`` / ``wiu`` [E, D, F], ``wo`` [E, F, D]
+    (float32 arrays, whole), ``train`` / ``decode``. The rank keeps its
+    blocks (x under (dp, tp, None), the experts under (tp, fsdp, None) /
+    (tp, None, fsdp) where D splits) and runs ``moe_ep_train`` on x and
+    ``moe_ep_decode`` on ``x[:, :1]``; returns the outputs gathered whole
+    (float32), ``moe.STATS``' counts of the train call and its routing."""
+    rules = AxisRules.for_mesh(grid)
+    kw = dict(dp=rules.dp, tp=rules.tp, fsdp=rules.fsdp)
+    out = []
+    for c in cases:
+        dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[c["dtype"]]
+        dims = pmoe.MoEDims(**c["dims"])
+        x = torch.tensor(c["x"]).to(dt)
+        B, S, D = x.shape
+        wr = torch.tensor(c["wr"])
+        e_ax = shard_dim(grid, dims.n_experts, rules.tp)
+        d_ax = shard_dim(grid, D, rules.fsdp)
+        ws = [local_shard(torch.tensor(c[n]).to(dt), spec_, grid).clone()
+              for n, spec_ in (("wig", (e_ax, d_ax, None)),
+                               ("wiu", (e_ax, d_ax, None)),
+                               ("wo", (e_ax, None, d_ax)))]
+        b_ax = shard_dim(grid, B, rules.dp)
+        res = {}
+        with torch.no_grad():
+            if c["train"]:
+                spec_ = (b_ax, shard_dim(grid, S, rules.tp), None)
+                pmoe.STATS.reset(record=True)
+                y = pmoe.moe_ep_train(local_shard(x, spec_, grid), wr, *ws,
+                                     dims, grid, **kw)
+                res["stats"] = pmoe.STATS.snapshot()
+                res["routes"] = pmoe.STATS.routes
+                pmoe.STATS.reset()
+                res["train"] = gather_shard(y, spec_, grid).float().numpy()
+            if c["decode"]:
+                spec_ = (b_ax, None, None)
+                y = pmoe.moe_ep_decode(local_shard(x[:, :1], spec_, grid), wr,
+                                      *ws, dims, grid, **kw)
+                res["decode"] = gather_shard(y, spec_, grid).float().numpy()
         out.append(res)
     return out

@@ -528,10 +528,14 @@ def test_init_draws_large_leaves_slice_by_slice(monkeypatch):
     assert max(sizes) <= max(100, pcfg.vocab)
 
 
-def test_ctx_other_than_none_raises():
+def test_ctx_other_than_none_raises(tmp_path):
     """A ctx that is not a ``ShardCtx`` is refused, and so is one that
-    cannot run: a mesh shape without ranks, the expert-parallel MoE and
-    grad mode (the sharded paths themselves: tests/test_torch_lm_mesh.py)."""
+    cannot run: a mesh shape without ranks, and grad mode (naming its
+    slice, 2.3). The expert-parallel MoE, ``ShardCtx``'s default, runs on
+    a one-rank world and gives one device's logits (the sharded paths
+    themselves: tests/test_torch_lm_mesh.py, tests/test_torch_moe_ep.py)."""
+    import torch.distributed as dist
+    from repro_torch.distributed import Grid
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.sharding import AxisRules
     _, pcfg = _configs("smollm-135m", "f32")
@@ -550,10 +554,22 @@ def test_ctx_other_than_none_raises():
         with pytest.raises(TypeError, match="distributed.Grid"):
             ptf.forward(params, toks, pcfg, shape_only, device="cpu")
         _, moe_cfg = _configs("llama4-scout-17b-a16e", "f32")
-        with pytest.raises(NotImplementedError, match="2.2"):
-            ptf.forward(ptf.init_params(moe_cfg, device="cpu"), toks, moe_cfg,
-                        ptf.ShardCtx(mesh, AxisRules()), device="cpu")
+        moe_params = ptf.init_params(moe_cfg, device="cpu")
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+            world_size=1)
+        try:
+            grid = Grid((1, 1), ("data", "model"), torch.device("cpu"))
+            ep = ptf.ShardCtx(grid, AxisRules())
+            assert ep.moe_impl == "ep"
+            got = ptf.forward(moe_params, toks, moe_cfg, ep)
+        finally:
+            dist.destroy_process_group()
+        want = ptf.forward(moe_params, toks, moe_cfg, device="cpu")
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     with pytest.raises(NotImplementedError, match="training on a mesh"):
+        ptf.forward(params, toks, pcfg, shape_only, device="cpu")
+    with pytest.raises(NotImplementedError, match="2.3"):
         ptf.forward(params, toks, pcfg, shape_only, device="cpu")
 
 

@@ -21,8 +21,22 @@ teacher-forced ``decode_step``s, and gathers the logits whole. The cases:
 * pod rules: smollm's reduced config in (2, 2, 2) (dp and fsdp over
   (pod, data));
 * MoE: llama4-scout's reduced config with ``moe_impl="reference"`` in
-  (2, 2), the experts over model; "ep" and grad mode refused, naming
-  their slices.
+  (2, 2), the experts over model;
+* the expert-parallel MoE (``ShardCtx``'s default ``moe_impl="ep"``):
+  llama4-scout's and kimi-k2's reduced configs in (2, 2), kimi-k2's at
+  (1, 4) (context mode: 2 KV heads over 4), and llama4-scout's at
+  ``moe_cap_factor=0.5``, where pairs drop; held to the JAX package's
+  same calls under its ``ShardCtx`` on the same mesh of forced host
+  devices (the 4-device subprocess below), at ``F32_TOL``, the cache
+  within ``CACHE_TOL`` and the loss within ``LOSS_RTOL``; each rank's
+  dropped pairs equal ``chip_smoke.py``'s host recount over the routing
+  it returns (above zero at 0.5). Both packages refuse (``ValueError``)
+  a batch of 3 where dp is 2 and a sequence of 39, and run a decode step
+  at a batch of 3;
+* ``Grid.all_to_all`` in float32, bfloat16, int32 and int16 over each
+  axis of (2, 2) and (1, 4) and over the whole grid: block i of what a
+  rank receives is exactly what member i sent it;
+* grad mode under a ``ShardCtx`` is refused, naming its slice.
 
 Bounds, set before the comparisons (those of tests/test_torch_lm.py):
 float32 logits within ``F32_TOL`` = 1e-5 of the largest |logit| (float32
@@ -37,8 +51,9 @@ Against the JAX package's own sharded loss: its ``loss_fn`` under its
 tests/test_distributed.py), in heads and in context mode, held to the
 port's (2, 2) loss on the same weights within rtol 1e-5.
 """
+import importlib.util
+import pathlib
 import dataclasses
-import json
 import threading
 
 import jax
@@ -46,9 +61,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from _mesh_ranks import lm_cases
+from _mesh_ranks import A2A_DTYPES, a2a_block, lm_cases
 from conftest import run_multidevice
-from repro.configs import (internlm2_1_8b as j_internlm,
+from repro.configs import (internlm2_1_8b as j_internlm, kimi_k2 as j_kimi,
                            llama4_scout as j_llama4, phi3_mini as j_phi3,
                            smollm_135m as j_smollm)
 from repro.models import transformer as jtf
@@ -95,6 +110,15 @@ CASES = {
     "llama4 moe reference": ("2x2", j_llama4.reduced_config(),
                              {"moe_impl": "reference"}),
 }
+# the expert-parallel MoE, held to the JAX package's under its ShardCtx
+EP_CASES = {
+    "llama4 ep": ("2x2", j_llama4.reduced_config(), {}),
+    "kimi ep": ("2x2", j_kimi.reduced_config(), {}),
+    "kimi ep context 1x4": ("1x4", j_kimi.reduced_config(), {}),
+    "llama4 ep cap 0.5": ("2x2", dataclasses.replace(
+        j_llama4.reduced_config(), moe_cap_factor=0.5), {}),
+}
+REPO = pathlib.Path(__file__).resolve().parents[1]
 # positions of the decode steps: past the prompt and, for the sequence
 # shards of a 48-position cache over 2 ranks ([0, 24), [24, 48)), in both
 DEC_POS = np.array([[40, 41, 44, 45], [20, 25, 33, 47], [21, 30, 46, 24]],
@@ -144,15 +168,21 @@ def _jax_ref(cfg, params, toks, labels, dec_tok, dec_pos):
                         run(params, toks, labels, dec_tok, dec_pos))
 
 
-def _loss_script(path):
+def _jax_mesh_script(path, out_path):
+    """The JAX package on a (2, 2) or (1, 4) mesh of 4 forced host devices:
+    the sharded losses, and for each expert-parallel case its forward,
+    prefill (the cache padded to CACHE), teacher-forced decode steps and
+    loss under its ``ShardCtx`` (one jitted call), and whether it refuses a
+    batch of 3, a sequence one shorter and a decode step at a batch of 3
+    (traced, not run)."""
     return f"""
-import json, numpy as np, jax, jax.numpy as jnp
+import numpy as np, jax, jax.numpy as jnp
 from repro.compat import make_mesh, set_mesh
 from repro.models import transformer as tf
 from repro.models.sharding import AxisRules
 data = np.load({path!r}, allow_pickle=True).item()
 out = {{}}
-for name, (fields, params, toks, labels) in data.items():
+for name, (fields, params, toks, labels) in data["loss"].items():
     cfg = tf.LMConfig(**dict(fields, dtype=jnp.float32))
     params = jax.tree.map(jnp.asarray, params)
     batch = {{"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}}
@@ -161,7 +191,45 @@ for name, (fields, params, toks, labels) in data.items():
     with set_mesh(mesh):
         loss = jax.jit(lambda p, b: tf.loss_fn(p, b, cfg, ctx))(params, batch)
     out[name] = [tf._attn_mode(cfg, ctx), float(loss)]
-print(json.dumps(out))
+for name, (shape, fields, params, toks, labels, dec_tok,
+           dec_pos) in data["ep"].items():
+    cfg = tf.LMConfig(**dict(fields, dtype=jnp.float32))
+    params = jax.tree.map(jnp.asarray, params)
+    mesh = make_mesh(shape, ("data", "model"))
+    ctx = tf.ShardCtx(mesh=mesh, rules=AxisRules.for_mesh(mesh))
+    S = toks.shape[1]
+
+    def run(params, toks, labels, dec_tok, dec_pos):
+        logits = tf.forward(params, toks, cfg, ctx)
+        last, cache = tf.prefill(params, toks, cfg, ctx)
+        cache = {{k: jnp.pad(v, ((0, 0), (0, 0), (0, {CACHE} - S), (0, 0),
+                                (0, 0))) for k, v in cache.items()}}
+        dec, c = [], cache
+        for i in range(dec_tok.shape[0]):
+            lg, c = tf.decode_step(params, c, dec_tok[i], dec_pos[i], cfg, ctx)
+            dec.append(lg)
+        loss = tf.loss_fn(params, {{"tokens": toks, "labels": labels}}, cfg,
+                          ctx)
+        return logits, last, cache, jnp.stack(dec, 1), loss
+    refused = {{}}
+    with set_mesh(mesh):
+        res = jax.jit(run)(params, toks, labels, dec_tok, dec_pos)
+        fwd = jax.jit(lambda p, t: tf.forward(p, t, cfg, ctx))
+        for what, t in (("batch", toks[:3]), ("sequence", toks[:, :-1])):
+            try:
+                fwd.lower(params, t)
+                refused[what] = "runs"
+            except ValueError as e:
+                refused[what] = str(e)
+        jax.jit(lambda p, c, t, q: tf.decode_step(p, c, t, q, cfg, ctx)).lower(
+            params, tf.init_cache(cfg, 3, S), toks[:3, 0],
+            jnp.zeros(3, jnp.int32))
+        refused["decode batch 3"] = "runs"
+    out[name] = dict(zip(("logits", "last", "cache", "decode", "loss"),
+                         jax.tree.map(lambda a: np.asarray(a).astype(
+                             np.float32), res)), refused=refused)
+np.save({out_path!r}, out, allow_pickle=True)
+print("done")
 """
 
 
@@ -183,6 +251,19 @@ def run(tmp_path_factory):
                     dec_pos=DEC_POS, **opts)
         cases.setdefault(world, []).append((name, case))
         refs[name] = (cfg, params, toks, labels, dec_tok)
+    ep_in = {}
+    for i, (name, (world, cfg, opts)) in enumerate(EP_CASES.items()):
+        params = jtf.init_params(cfg, jax.random.PRNGKey(50 + i))
+        arrays = jax.tree.map(lambda a: np.asarray(a).astype(np.float32),
+                              params)
+        toks, labels, dec_tok = _inputs(cfg, 50 + i)
+        cases.setdefault(world, []).append((name, dict(
+            cfg=_fields(cfg), params=arrays, toks=toks, labels=labels,
+            cache_len=CACHE, dec_tok=dec_tok, dec_pos=DEC_POS, **opts)))
+        ep_in[name] = (WORLDS[world][0], dict(_fields(cfg), dtype=None),
+                       arrays, toks, labels, dec_tok, DEC_POS)
+    for world in ("2x2", "1x4"):
+        cases[world].append((f"all_to_all {world}", {"all_to_all": True}))
     loss_in = {}
     for mode, (cfg, b, s) in SHARDED_LOSS.items():
         params = jtf.init_params(cfg, jax.random.PRNGKey(100))
@@ -194,10 +275,11 @@ def run(tmp_path_factory):
             cfg=_fields(cfg), params=jax.tree.map(
                 lambda a: np.asarray(a).astype(np.float32), params),
             toks=toks, labels=np.roll(toks, -1, 1))))
-    path = str(tmp_path_factory.mktemp("lm_mesh") / "loss.npy")
-    np.save(path, {m: (dict(f, dtype=None), p, t, l)
-                   for m, (f, p, t, l) in loss_in.items()},
-            allow_pickle=True)
+    tmp = tmp_path_factory.mktemp("lm_mesh")
+    path, out_path = str(tmp / "in.npy"), str(tmp / "out.npy")
+    np.save(path, {"loss": {m: (dict(f, dtype=None), p, t, l)
+                            for m, (f, p, t, l) in loss_in.items()},
+                   "ep": ep_in}, allow_pickle=True)
 
     got, errors = {}, []
 
@@ -210,15 +292,15 @@ def run(tmp_path_factory):
         except BaseException as e:      # re-raised in the test's thread
             errors.append(e)
 
-    def jax_loss():
+    def jax_mesh():
         try:
-            got["jax_loss"] = json.loads(run_multidevice(
-                _loss_script(path), n_devices=4).strip().splitlines()[-1])
+            run_multidevice(_jax_mesh_script(path, out_path), n_devices=4)
+            got["jax_mesh"] = np.load(out_path, allow_pickle=True).item()
         except BaseException as e:
             errors.append(e)
 
     threads = [threading.Thread(target=world, args=(w,)) for w in WORLDS]
-    threads.append(threading.Thread(target=jax_loss))
+    threads.append(threading.Thread(target=jax_mesh))
     for t in threads:
         t.start()
     want = {name: _jax_ref(cfg, params, toks, labels, dec_tok, DEC_POS)
@@ -231,7 +313,7 @@ def run(tmp_path_factory):
     for w, named in cases.items():
         for i, (name, _) in enumerate(named):
             results[name] = [r[i] for r in got[w]]
-    return {"got": results, "want": want, "jax_loss": got["jax_loss"]}
+    return {"got": results, "want": want, "jax": got["jax_mesh"]}
 
 
 def _rel(got, want):
@@ -285,15 +367,109 @@ def test_modes_and_layouts_are_the_ones_meant(run):
 
 
 def test_ep_and_grad_mode_are_refused(run):
+    """Grad mode under a ShardCtx is refused, naming its slice (2.3). The
+    expert-parallel MoE runs, and refuses a batch or a sequence that does
+    not split exactly where the JAX package's ``shard_map`` does."""
     moe = run["got"]["llama4 moe reference"][0]["refusals"]
-    assert "2.2" in moe["ep"] and "moe_impl='reference'" in moe["ep"]
-    for name in CASES:
-        assert "training on a mesh" in run["got"][name][0]["refusals"]["grad"]
+    assert moe["ep"] == moe["ep decode batch 3"] == "runs"
+    assert "batch of 3" in moe["ep batch"]
+    assert "sequence of 39" in moe["ep sequence"]
+    for name in EP_CASES:
+        mine = run["got"][name][0]["refusals"]
+        theirs = run["jax"][name]["refused"]
+        assert mine["ep"] == "runs"
+        for what in ("batch", "sequence"):
+            assert (mine[f"ep {what}"] == "runs") == \
+                (theirs[what] == "runs"), (what, mine, theirs)
+        assert mine["ep decode batch 3"] == theirs["decode batch 3"] == "runs"
+    for name in list(CASES) + list(EP_CASES):
+        grad = run["got"][name][0]["refusals"]["grad"]
+        assert "training on a mesh" in grad and "2.3" in grad
+
+
+@pytest.mark.parametrize("name", list(EP_CASES))
+def test_ep_lm_matches_jax_ep(run, name):
+    ranks = run["got"][name]
+    want = run["jax"][name]
+    r = ranks[0]
+    for k in ("logits", "last", "decode"):
+        assert r[k].shape == want[k].shape, k
+        assert _rel(r[k], want[k]) <= F32_TOL, (k, _rel(r[k], want[k]))
+    np.testing.assert_allclose(r["loss"], want["loss"], rtol=LOSS_RTOL)
+    for k in ("k", "v"):
+        assert np.abs(r["cache"][k] - want["cache"][k]).max() <= CACHE_TOL, k
+    assert r["roundtrip"]
+    for other in ranks[1:]:
+        for k in ("logits", "last", "decode"):
+            assert np.array_equal(other[k], r[k]), k
+        assert other["loss"] == r["loss"]
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("name", list(EP_CASES))
+def test_ep_lm_drops_match_host_recount(run, smoke, name):
+    """The forward ran the expert-parallel MoE once a layer (two
+    all-to-alls out, one back), in the attention mode its name says; each
+    rank's dropped pairs equal the host recount, above zero at 0.5."""
+    ranks = run["got"][name]
+    cfg = EP_CASES[name][1]
+    assert ranks[0]["mode"] == ("context" if "context" in name else "heads")
+    for r in ranks:
+        assert r["ep"]["calls"] == cfg.n_layers
+        assert r["ep"]["a2a_calls"] == 3 * cfg.n_layers
+    counted = [r["ep"]["dropped"] for r in ranks]
+    assert counted == smoke.ep_recount([r["routes"] for r in ranks])
+    if cfg.moe_cap_factor == 0.5:
+        assert sum(counted) > 0
+    assert run["got"]["llama4 moe reference"][0]["ep"]["calls"] == 0
+
+
+def _members(coords: dict, names: tuple, shape: tuple, axes: tuple) -> list:
+    """The ranks that share ``coords`` off ``axes``, by flat index along
+    ``axes`` (the first major)."""
+    sizes = [shape[names.index(a)] for a in axes]
+    out = []
+    for flat in range(int(np.prod(sizes))):
+        c = dict(coords)
+        for a, v in zip(axes, np.unravel_index(flat, sizes)):
+            c[a] = int(v)
+        out.append(int(np.ravel_multi_index([c[a] for a in names], shape)))
+    return out
+
+
+@pytest.mark.parametrize("world", ["2x2", "1x4"])
+def test_all_to_all_delivers_each_block(run, world):
+    """Block i of what a rank receives is what member i of its group sent
+    it, bit for bit, in every type."""
+    shape, names = WORLDS[world]
+    dtypes = {str(dt): dt for dt in A2A_DTYPES}
+    ranks = run["got"][f"all_to_all {world}"]
+    checked = 0
+    for r in ranks:
+        for key, got in r.items():
+            if not isinstance(key, tuple):
+                continue
+            axes, dt = key
+            members = _members(r["coords"], names, shape, axes)
+            me = members.index(r["rank"])
+            for i, m in enumerate(members):
+                want = a2a_block(m, me, dtypes[dt]).double().numpy()
+                np.testing.assert_array_equal(got[i], want)
+            checked += 1
+    assert checked == len(ranks) * (len(names) + 1) * len(A2A_DTYPES)
 
 
 @pytest.mark.parametrize("mode", list(SHARDED_LOSS))
 def test_loss_matches_jax_sharded_loss(run, mode):
-    jmode, jloss = run["jax_loss"][mode]
+    jmode, jloss = run["jax"][mode]
     assert jmode == mode
     got = run["got"][f"sharded loss {mode}"]
     assert got[0]["mode"] == mode
